@@ -1,0 +1,72 @@
+"""JAX checkpoint -> the port's ``state_dict`` (the inverse, in spirit, of
+``embeddingnet_tpu/models/pretrained.py`` ``torch_resnet_to_flax``).
+
+The port's modules carry the Flax module names, so the mapping is by leaf:
+
+* conv ``kernel`` [H, W, I, O] -> ``weight`` [O, I, H, W];
+* Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in];
+* ``bias`` -> ``bias``;
+* BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
+  (batch_stats) -> ``weight``/``bias``/``running_mean``/``running_var``,
+  plus a zero ``num_batches_tracked``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+
+def _leaves(tree: Mapping[str, Any], path: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, path + (key,))
+        else:
+            yield path + (key,), np.asarray(value)
+
+
+def flax_to_torch(variables: Mapping[str, Any],
+                  module: nn.Module) -> Dict[str, torch.Tensor]:
+    """Convert ``{"params": ..., "batch_stats": ...}`` (numpy or JAX arrays)
+    into a ``state_dict`` for ``module``.
+
+    Raises ``KeyError`` if a key of ``module.state_dict()`` has no source
+    in ``variables`` (a missing key) or a converted key has no place in
+    ``module`` (an extra key), and ``ValueError`` on a shape mismatch.
+    """
+    out: Dict[str, np.ndarray] = {}
+    for collection, tree in variables.items():
+        for path, value in _leaves(tree):
+            prefix, leaf = ".".join(path[:-1]), path[-1]
+            if collection == "params" and leaf == "kernel":
+                value = (value.transpose(3, 2, 0, 1) if value.ndim == 4
+                         else value.T)
+                name = "weight"
+            elif collection == "params" and leaf in ("bias", "scale"):
+                name = "weight" if leaf == "scale" else "bias"
+            elif collection == "batch_stats" and leaf in ("mean", "var"):
+                name = "running_" + leaf
+                out[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+            else:
+                raise KeyError(f"unknown leaf {collection}/{'/'.join(path)}")
+            out[f"{prefix}.{name}"] = value
+
+    template = module.state_dict()
+    missing = sorted(set(template) - set(out))
+    extra = sorted(set(out) - set(template))
+    if missing or extra:
+        raise KeyError(f"checkpoint does not fit the module: missing "
+                       f"{missing[:8]}, extra {extra[:8]}")
+    state = {}
+    for key, ref in template.items():
+        value = out[key]
+        if tuple(value.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: shape {tuple(value.shape)} in the "
+                             f"checkpoint, {tuple(ref.shape)} in the module")
+        # a copy: JAX hands out read-only buffers
+        state[key] = torch.from_numpy(np.array(value)).to(ref.dtype)
+    return state

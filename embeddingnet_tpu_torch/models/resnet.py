@@ -1,0 +1,245 @@
+"""ResNet family (18/34/50/101/152), port of
+``embeddingnet_tpu/models/resnet.py``.
+
+He et al. v1 post-activation; ``stride_in_3x3`` places a bottleneck stage's
+downsampling stride on the 3x3 conv (torchvision "v1.5", the default) or on
+the first 1x1. The backbone returns the final feature map; the embedding
+head lives in :mod:`embeddingnet_tpu_torch.models.registry`.
+
+Submodules carry the Flax names (``stem_conv``, ``stage3_block2.conv2``, ...),
+so :func:`~embeddingnet_tpu_torch.models.convert.flax_to_torch` maps a JAX
+checkpoint name for name. Tensors are NCHW in ``torch.channels_last``
+memory. ``fast_conv`` (``PERFORMANCE.pallas_conv``) routes the stride-1 3x3
+convs through :mod:`embeddingnet_tpu_torch.ops.fused_conv`, and a
+``bn -> relu -> 3x3 conv`` chain through the fused BN-ReLU conv; the
+parameters are the same either way. SE, ResNeXt and SENet-154 are still to
+port (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+import math
+from functools import partial
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from embeddingnet_tpu_torch.ops.fused_conv import (BNScaleBias, FastConv3x3,
+                                                    FusedBNReluConv3x3)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype`` (Flax ``nn.Conv``'s
+    ``dtype``: input and weight cast at use, parameters f32)."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype or torch.promote_types(x.dtype,
+                                                          self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
+
+
+class BatchNorm(BNScaleBias):
+    """Flax ``nn.BatchNorm`` over NCHW: the affine of :class:`BNScaleBias`
+    applied in f32, the result in ``compute_dtype`` (f32 when None)."""
+
+    def __init__(self, num_features: int, eps: float, momentum: float,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale, bias = super().forward(x)
+        y = x.float() * scale[:, None, None] + bias[:, None, None]
+        return y.to(self.compute_dtype or torch.float32)
+
+
+def _conv3x3(in_channels, filters, strides, use_bias, dtype, fast):
+    """3x3 conv factory: :class:`FastConv3x3` when ``fast`` and bias-free,
+    else a plain conv. Both hold the same ``weight``, so the flag never
+    changes checkpoints."""
+    if fast and not use_bias:
+        return FastConv3x3(in_channels, filters, strides=strides,
+                           compute_dtype=dtype)
+    return Conv2d(in_channels, filters, 3, tuple(strides), 1, bias=use_bias,
+                  compute_dtype=dtype)
+
+
+def _can_fuse_bn_conv(fast, use_bias, strides) -> bool:
+    """Whether a ``bn -> relu -> 3x3 conv`` chain becomes the fused
+    :class:`BNScaleBias` + :class:`FusedBNReluConv3x3` pair: ``fast`` on,
+    the conv bias-free and stride 1 (the ported blocks are ungrouped)."""
+    return bool(fast) and not use_bias and tuple(strides) == (1, 1)
+
+
+def _relu_conv_chain(block, y):
+    """``conv2(relu(bn1(y)))``, fused when the block built the pair (which
+    sits under the same names, so the state_dict is the unfused one)."""
+    if isinstance(block.conv2, FusedBNReluConv3x3):
+        scale, bias = block.bn1(y)
+        return block.conv2(y, scale, bias)
+    return block.conv2(F.relu(block.bn1(y)))
+
+
+def _bn1_conv2(in_channels, filters, strides, norm, use_bias, dtype, fast):
+    """``(bn1, conv2)`` of a block: the fused pair where
+    :func:`_can_fuse_bn_conv` holds, else BatchNorm and the 3x3 factory."""
+    if _can_fuse_bn_conv(fast, use_bias, strides):
+        return (BNScaleBias(in_channels, eps=norm.keywords["eps"],
+                            momentum=norm.keywords["momentum"]),
+                FusedBNReluConv3x3(in_channels, filters, compute_dtype=dtype))
+    return (norm(in_channels),
+            _conv3x3(in_channels, filters, strides, use_bias, dtype, fast))
+
+
+class BasicBlock(nn.Module):
+    """Two 3x3 convs + identity shortcut (ResNet-18/34)."""
+
+    expansion = 1
+
+    def __init__(self, in_channels: int, filters: int, norm: Callable,
+                 strides: Sequence[int] = (1, 1),
+                 use_bias: bool = False, fast_conv: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        # symmetric (1, 1) padding: SAME at stride 1, torch's conv at 2
+        self.conv1 = _conv3x3(in_channels, filters, strides, use_bias, dtype,
+                              fast_conv)
+        self.bn1, self.conv2 = _bn1_conv2(filters, filters, (1, 1), norm,
+                                          use_bias, dtype, fast_conv)
+        self.bn2 = norm(filters)
+        if tuple(strides) != (1, 1) or in_channels != filters:
+            self.downsample_conv = Conv2d(in_channels, filters, 1,
+                                          tuple(strides), bias=use_bias,
+                                          compute_dtype=dtype)
+            self.downsample_bn = norm(filters)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = _relu_conv_chain(self, self.conv1(x))
+        y = self.bn2(y)
+        residual = x
+        if self.downsample_conv is not None:
+            residual = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(residual + y)
+
+
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 -> 1x1(4x) bottleneck (ResNet-50/101/152)."""
+
+    expansion = 4
+
+    def __init__(self, in_channels: int, filters: int, norm: Callable,
+                 strides: Sequence[int] = (1, 1),
+                 stride_in_3x3: bool = True, use_bias: bool = False,
+                 fast_conv: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        s1 = (1, 1) if stride_in_3x3 else tuple(strides)
+        s3 = tuple(strides) if stride_in_3x3 else (1, 1)
+        out_channels = filters * self.expansion
+        self.conv1 = Conv2d(in_channels, filters, 1, s1, bias=use_bias,
+                            compute_dtype=dtype)
+        self.bn1, self.conv2 = _bn1_conv2(filters, filters, s3, norm,
+                                          use_bias, dtype, fast_conv)
+        self.bn2 = norm(filters)
+        self.conv3 = Conv2d(filters, out_channels, 1, bias=use_bias,
+                            compute_dtype=dtype)
+        self.bn3 = norm(out_channels)
+        if tuple(strides) != (1, 1) or in_channels != out_channels:
+            self.downsample_conv = Conv2d(in_channels, out_channels, 1,
+                                          tuple(strides), bias=use_bias,
+                                          compute_dtype=dtype)
+            self.downsample_bn = norm(out_channels)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = _relu_conv_chain(self, self.conv1(x))
+        y = F.relu(self.bn2(y))
+        y = self.bn3(self.conv3(y))
+        residual = x
+        if self.downsample_conv is not None:
+            residual = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(residual + y)
+
+
+class ResNet(nn.Module):
+    """Generic ResNet backbone: NCHW image batch -> final [B, C, H/32, W/32]
+    feature map."""
+
+    def __init__(self, stage_sizes: Sequence[int], block_cls,
+                 num_filters: int = 64, stride_in_3x3: bool = True,
+                 use_bias: bool = False, bn_epsilon: float = 1.001e-5,
+                 bn_momentum: float = 0.99, fast_conv: bool = False,
+                 dtype: Optional[torch.dtype] = None, in_channels: int = 3):
+        super().__init__()
+        norm = partial(BatchNorm, eps=bn_epsilon, momentum=bn_momentum,
+                       compute_dtype=dtype)
+        self.stem_conv = Conv2d(in_channels, num_filters, 7, 2, 3,
+                                bias=use_bias, compute_dtype=dtype)
+        self.stem_bn = norm(num_filters)
+        channels = num_filters
+        self.block_names = []
+        for i, block_count in enumerate(stage_sizes):
+            for j in range(block_count):
+                strides = (2, 2) if i > 0 and j == 0 else (1, 1)
+                filters = num_filters * 2 ** i
+                kwargs = dict(strides=strides, norm=norm, use_bias=use_bias,
+                              fast_conv=fast_conv, dtype=dtype)
+                if block_cls is BottleneckBlock:
+                    kwargs["stride_in_3x3"] = stride_in_3x3
+                name = f"stage{i + 1}_block{j + 1}"
+                self.add_module(name, block_cls(channels, filters, **kwargs))
+                self.block_names.append(name)
+                channels = filters * block_cls.expansion
+        self.out_channels = channels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.stem_bn(self.stem_conv(x)))
+        x = F.max_pool2d(x, 3, 2, 1)
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        return x
+
+
+def init_he_(module: nn.Module, generator: torch.Generator) -> None:
+    """Flax's ``he_normal`` on every conv under ``module``: a normal
+    truncated at two standard deviations, scaled so the variance is
+    2 / fan_in; conv biases zero."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            std = math.sqrt(2.0 / fan_in) / .87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+
+
+def resnet18(**kw) -> ResNet:
+    return ResNet(stage_sizes=(2, 2, 2, 2), block_cls=BasicBlock, **kw)
+
+
+def resnet34(**kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), block_cls=BasicBlock, **kw)
+
+
+def resnet50(**kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), block_cls=BottleneckBlock, **kw)
+
+
+def resnet101(**kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 23, 3), block_cls=BottleneckBlock, **kw)
+
+
+def resnet152(**kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 8, 36, 3), block_cls=BottleneckBlock, **kw)
