@@ -7,9 +7,11 @@
 //   kPrologue = false -> _fwd_kernel    (via _conv_fwd_impl):
 //                        out = conv3x3(x, w)
 // x [B, S, S, Cin] bf16 NHWC, w [3, 3, Cin, Cout] bf16 (HWIO), scale/bias
-// [Cin] f32, out [B, S, S, Cout] bf16; S in {2, 4}, Cin and Cout multiples of
-// 128 (the wrapper's gate). Accumulation is f32; the output is rounded to
-// bf16 once, in the epilogue.
+// [Cin] f32, out [B, S, S, Cout] bf16; S in {2, 4, 8}, Cin and Cout multiples
+// of 128 (the wrapper's gate). Accumulation is f32; the output is rounded to
+// bf16 once, in the epilogue. kPrologue = false is also the input gradient
+// of both ops (_conv_vjp_bwd / _bn_vjp_bwd_common): the conv of the output
+// gradient with the spatially flipped, in/out-swapped weight, at S = 8 too.
 //
 // Design: an implicit GEMM. Rows are output positions, M = B*S*S, in NHWC
 // order, so the output is the row-major [M, Cout] matrix and needs no

@@ -6,12 +6,13 @@ on an explicit device and exposes the reference's methods:
 ``generate_encodings``, ``save_encodings``, ``load_encodings``, ``predict``,
 ``predict_knn``, ``calculate_prediction_accuracy``, ``save_base_model`` /
 ``load_model``. ``params`` is the JAX package's parsed config
-(``embeddingnet_tpu.config.parse_params``) or a plain dict with the same
-lower-case sections; only ``model``, ``general`` and ``encodings`` are read.
+(``embeddingnet_tpu_torch.config.parse_params``) or a plain dict with the
+same lower-case sections; ``model``, ``general``, ``encodings`` and
+``performance`` (``bn_momentum`` only) are read.
 
 Images are uint8 (or float 0..255) BGR NHWC; ``/255`` happens on the
-device. The host helpers that decode images (``embeddingnet_tpu.data``)
-need cv2 and are imported inside the methods that use them.
+device. Decoding image files (``embeddingnet_tpu_torch.data.images``)
+needs cv2, which is imported only where a file is read.
 """
 
 from __future__ import annotations
@@ -65,10 +66,12 @@ class EmbeddingNet:
         # hypersphere whatever the config says (as in the JAX package)
         normalize = bool(m["embeddings_normalization"]
                          or m.get("mode") == "arcface")
+        performance = self.params.get("performance") or {}
         self.module = EmbeddingModule(
             backbone_name=m["backbone_name"],
             encodings_len=m["encodings_len"],
             embeddings_normalization=normalize,
+            bn_momentum=performance.get("bn_momentum", 0.99),
             fast_conv=self.fast_conv, dtype=self.dtype)
         generator = torch.Generator().manual_seed(
             int(self.params_general.get("seed", 42)))
@@ -103,7 +106,7 @@ class EmbeddingNet:
                            shuffle: bool = True) -> Dict[str, Any]:
         """Per-class capped encoding DB (``models.py:61-84``):
         ``{'paths', 'labels', 'encodings', 'weights_fingerprint'}``."""
-        from embeddingnet_tpu.data.images import get_images
+        from embeddingnet_tpu_torch.data.images import get_images
         data_paths, data_labels, data_encodings = [], [], []
         rng = random.Random(self.params_general.get("seed", 42))
         for class_name in data_loader.class_names:
@@ -223,7 +226,7 @@ class EmbeddingNet:
                                       batch_size: int = 256):
         """top-1 / top-5 over the val split, one encode and one kNN per
         batch."""
-        from embeddingnet_tpu.data.images import get_images
+        from embeddingnet_tpu_torch.data.images import get_images
         val_paths, val_labels = data_loader.flat("val")
         if not val_paths:
             return {"top1": 0.0, "top5": 0.0}

@@ -1,11 +1,12 @@
 """Build and bind the port's CUDA kernels.
 
-The sources under ``embeddingnet_tpu_torch/csrc/`` are compiled with
+Each source under ``embeddingnet_tpu_torch/csrc/`` is compiled with
 ``nvcc`` for ``sm_90a`` (Hopper) into a shared library with a plain C
 interface, which ctypes loads. The build happens at first use, never at
-import, into ``embeddingnet_tpu_torch/_build/`` (listed in ``.gitignore``),
-keyed by a hash of the source, so an edited source builds anew. A failed
-build raises; nothing falls back.
+import, into ``embeddingnet_tpu_torch/_build/`` (listed in ``.gitignore``);
+one ``nvcc`` per source, all started together. Every library's name carries
+a hash of all the sources, so an edit to any of them builds everything
+anew. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -17,16 +18,26 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Dict, List
 
 _PACKAGE = Path(__file__).resolve().parent.parent
-SOURCE = _PACKAGE / "csrc" / "fused_conv3x3.cu"
+CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Entry points of each source: name -> (argtypes); all return int (the
+# launch's cudaGetLastError()).
+ENTRY_POINTS = {
+    "fused_conv3x3": {"embn_conv3x3_small": [_P] * 5 + [_I] * 5 + [_P]},
+    "conv3x3_wgrad": {"embn_conv3x3_wgrad": [_P] * 6 + [_I] * 6 + [_P]},
+}
+SOURCES = [CSRC / f"{name}.cu" for name in ENTRY_POINTS]
+
 _lock = threading.Lock()
-_lib = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -37,44 +48,63 @@ def _nvcc() -> str:
             return path
     raise RuntimeError(
         "nvcc not found (looked on PATH and in $CUDA_HOME/bin); the CUDA "
-        "toolkit is needed to build " + str(SOURCE))
+        "toolkit is needed to build " + ", ".join(str(s) for s in SOURCES))
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"fused_conv3x3_{digest}.so"
+def _digest() -> str:
+    h = hashlib.sha256()
+    for source in SOURCES:
+        h.update(source.name.encode())
+        h.update(source.read_bytes())
+    return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the kernels unless a library of this source exists; return
-    its path. ``nvcc``'s report (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside it as ``.log``."""
-    path = library_path()
-    if path.exists():
-        return path
+def library_path(source: Path) -> Path:
+    """Where the library of ``source`` is built, keyed by all sources."""
+    return BUILD_DIR / f"{source.stem}_{_digest()}.so"
+
+
+def build() -> List[Path]:
+    """Compile every source whose library is missing, one ``nvcc`` each,
+    in parallel; return the libraries' paths. ``nvcc``'s report
+    (``-Xptxas -v``: registers, shared memory, spills) is kept beside each
+    as ``.log``."""
+    paths = [library_path(s) for s in SOURCES]
+    todo = [(s, p) for s, p in zip(SOURCES, paths) if not p.exists()]
+    if not todo:
+        return paths
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, path)
-    return path
+    jobs = []
+    for source, path in todo:
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        jobs.append((cmd, tmp, path, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failures = []
+    for cmd, tmp, path, proc in jobs:
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}): "
+                            f"{' '.join(cmd)}\n{report}")
+            continue
+        path.with_suffix(".log").write_text(report)
+        os.replace(tmp, path)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return paths
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on the first call."""
-    global _lib
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.embn_conv3x3_small
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+        if name not in _libs:
+            paths = dict(zip((s.stem for s in SOURCES), build()))
+            lib = ctypes.CDLL(str(paths[name]))
+            for fn_name, argtypes in ENTRY_POINTS[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return _libs[name]

@@ -5,14 +5,17 @@ A collector thread drains the request queue up to ``max_batch`` images and
 runs one device batch for the whole bucket, padded to ``max_batch`` so every
 batch has one shape. Endpoints are those of the JAX server (``/classify``,
 ``/classify_batch`` with big-endian framing, ``/embed``, ``/healthz``):
-:func:`make_server` reuses its framework-free HTTP handler, which talks to
-the engine only through ``infer_one``/``infer_many`` and its metadata.
+:func:`make_server` is a copy of its stdlib HTTP handler, which talks to the
+engine only through ``infer_one``/``infer_many`` and its metadata.
 """
 
 from __future__ import annotations
 
+import json
 import queue
+import struct
 import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Iterable, List, Optional
 
 import numpy as np
@@ -173,9 +176,79 @@ class InferenceEngine:
 
 
 def make_server(engine: InferenceEngine, host: str = "127.0.0.1",
-                port: int = 8000):
-    """The JAX package's ``ThreadingHTTPServer`` over this engine. Its
-    handler is plain host code (stdlib HTTP and JSON); importing it needs
-    the JAX package's host dependencies (PyYAML), not JAX."""
-    from embeddingnet_tpu.serving import make_server as _make_server
-    return _make_server(engine, host, port)
+                port: int = 8000) -> ThreadingHTTPServer:
+    """A ``ThreadingHTTPServer`` over ``engine`` with the JAX server's
+    endpoints and framing; bound, not yet serving."""
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def _send(self, code: int, payload: dict):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._send(200, {
+                    "status": "ok" if engine.ready.is_set() else "warming",
+                    "ready": engine.ready.is_set(),
+                    "backbone": engine.net.params_model["backbone_name"],
+                    "encodings_len":
+                        engine.net.params_model["encodings_len"],
+                    "db_size": len(engine.labels),
+                    "n_classes": len(engine.classes),
+                    "knn_k": engine.k,
+                })
+            else:
+                self._send(404, {"error": f"unknown path {self.path}"})
+
+        def do_POST(self):
+            if self.path not in ("/classify", "/classify_batch", "/embed"):
+                self._send(404, {"error": f"unknown path {self.path}"})
+                return
+            length = int(self.headers.get("Content-Length", 0))
+            if length <= 0:
+                self._send(400, {"error": "empty body; send image bytes"})
+                return
+            data = self.rfile.read(length)
+            if self.path == "/classify_batch":
+                try:
+                    (n,) = struct.unpack(">I", data[:4])
+                    images, off = [], 4
+                    for _ in range(n):
+                        (ln,) = struct.unpack(">I", data[off:off + 4])
+                        off += 4
+                        images.append(data[off:off + ln])
+                        off += ln
+                except struct.error:
+                    self._send(400, {"error": "malformed batch framing"})
+                    return
+                try:
+                    results = engine.infer_many(images)
+                except TimeoutError as e:
+                    self._send(503, {"error": str(e)})
+                    return
+                self._send(200, {"labels": [
+                    r["label"] if r else None for r in results]})
+                return
+            try:
+                out = engine.infer_one(data)
+            except ValueError as e:
+                self._send(400, {"error": str(e)})
+                return
+            except TimeoutError as e:
+                self._send(503, {"error": str(e)})
+                return
+            if self.path == "/classify":
+                self._send(200, {"label": out["label"],
+                                 "top5": out["top5"]})
+            else:
+                self._send(200,
+                           {"embedding": out["embedding"].tolist()})
+
+    return ThreadingHTTPServer((host, port), Handler)

@@ -34,7 +34,7 @@ def _fresh_counts():
     tfc.reset_launch_counts()
     yield
     # the CPU route runs the plain versions and launches nothing
-    assert tfc.LAUNCHES == {"conv3x3_small": 0, "conv3x3_small_bn_relu": 0}
+    assert not any(tfc.LAUNCHES.values()), tfc.LAUNCHES
 
 
 @pytest.mark.parametrize("b,s,cin,cout", SHAPES)
@@ -192,21 +192,31 @@ def test_cuda_module_imports_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_library_path_keyed_by_source():
-    path = _cuda.library_path()
-    assert path.parent == _cuda.BUILD_DIR
-    assert path.suffix == ".so"
-    assert _cuda.SOURCE.exists()
+    """One library per source, each keyed by a hash of all the sources."""
+    paths = [_cuda.library_path(src) for src in _cuda.SOURCES]
+    assert {p.parent for p in paths} == {_cuda.BUILD_DIR}
+    assert all(p.suffix == ".so" for p in paths)
+    assert all(src.exists() for src in _cuda.SOURCES)
+    assert {p.stem.rsplit("_", 1)[1] for p in paths} == {_cuda._digest()}
+    assert sorted(_cuda.SOURCES) == sorted(_cuda.CSRC.glob("*.cu"))
 
 
 def test_cuda_wrapper_raises_on_grad_and_bad_input():
-    """The CUDA route never falls back: a tensor that requires grad or that
-    the kernel cannot take raises before any launch (checked on a meta
-    device tensor, so no card is needed)."""
+    """The CUDA route never falls back: a tensor the kernel cannot take
+    raises before any launch, whether or not it requires grad (the autograd
+    op goes to the same checks), forward and backward wrappers alike
+    (checked on a meta device tensor, so no card is needed)."""
     x = torch.empty((4, 2, 2, 128), dtype=torch.bfloat16, device="meta")
     w = torch.empty((3, 3, 128, 128), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        tfc.conv3x3_small(x, w.requires_grad_())
+    with pytest.raises(ValueError, match="kernel takes bf16"):
+        tfc.conv3x3_small(x.float().requires_grad_(), w.requires_grad_())
     w = w.detach()
+    with pytest.raises(ValueError, match="kernel takes bf16"):
+        tfc.conv3x3_wgrad(x[..., :64], x)
+    with pytest.raises(ValueError, match="g must be"):
+        tfc.conv3x3_wgrad(x, x[:2])
+    with pytest.raises(ValueError, match="kernel takes bf16"):
+        tfc.conv3x3_dgrad(x.half(), w)
     with pytest.raises(ValueError, match="kernel takes bf16"):
         tfc.conv3x3_small(x.float(), w)
     with pytest.raises(ValueError, match="kernel takes bf16"):

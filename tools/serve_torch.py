@@ -40,7 +40,7 @@ def build(args):
     """(engine, server) for parsed ``args``; the server is bound, not yet
     serving."""
     import torch
-    from embeddingnet_tpu.config import parse_params
+    from embeddingnet_tpu_torch.config import parse_params
     from embeddingnet_tpu_torch.models.api import EmbeddingNet
     from embeddingnet_tpu_torch.serving import InferenceEngine, make_server
 
