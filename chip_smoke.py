@@ -1,6 +1,7 @@
 #!/usr/bin/env python
-"""Smoke run of the PyTorch port on one CUDA card: the serving path and the
-triplet training step, each through the hand-written kernels.
+"""Smoke run of the PyTorch port on one CUDA card: the serving path, the
+T1 A/B tool and the triplet training step with and without augmentation,
+each through the hand-written kernels.
 
     python3 chip_smoke.py
 
@@ -13,9 +14,13 @@ triplet training step, each through the hand-written kernels.
    inputs, in f32 with TF32 off, at the shapes ResNet-50 at 64x64 gives it
    (the forward K3/K1 at B = 3, 32, 256 and 1024; the backward K1-as-dgrad,
    K2, K4 and the normalisation T2 at B = 1024 and the conv kernels at
-   B = 8), each check printed with its tolerance and its worst ratio to it.
-   Times with CUDA events, against the plain version in bf16 and, where one
-   PyTorch call computes the same function, against that call.
+   B = 8; T1, the conv with the affine-ReLU epilogue, at B = 3, 128 and
+   1024 at S=2, C=512 and S=4, C=256, against the f32 and the bf16 plain
+   version), each check printed with its tolerance and its worst ratio to
+   it. Times with CUDA events, against the plain version in bf16 and, where
+   one PyTorch call computes the same function, against that call (for T1,
+   which has none, ``F.conv2d`` alone and the eager conv -> affine -> ReLU
+   sequence).
 4. Serving phase: the flagship model (ResNet-50 v1.5, 64x64x3, 256-d
    L2-normalised embedding, kNN k=5, bf16, fused BN-ReLU conv on), with
    seeded random weights, encodes a DB of 10,240 synthetic images
@@ -23,28 +28,46 @@ triplet training step, each through the hand-written kernels.
    requests of 1, 32 and 100 decoded images through the micro-batching
    engine. The answers are checked against a direct encode + kNN, against
    the true classes, and the embeddings against the cuDNN path.
-5. Training phase: the flagship triplet step (ResNet-50 as above,
+5. Epilogue A/B phase: ``tools/fused_conv_epilogue_torch.py`` (the port
+   of ``tools/pallas_fused_conv.py``) at B = 1024: its numerics check and
+   three interleaved timings of the library sequence and T1.
+6. Augmentation check: each op of the four presets on the card against the
+   same op on the CPU from the same draws, to 1e-3 gray levels, and the
+   ``default`` preset chained, where CLAHE pixels whose bin flips between
+   the two are counted (at most 0.1%).
+7. Training phase, augmentation off: the flagship triplet step (ResNet-50 as above,
    bn_momentum 0.9, batch-all mining with margin 0.5 on P-K batches of
    256 classes x 4 drawn by ``PKSampler`` from the serving DB's images,
    Adam at 1e-3 with step decay 0.99 per 500 steps, bf16, fused conv on),
    through ``TrainState.create`` and ``make_triplet_train_step``: 3 warm-up
-   steps, then 20 timed steps with exact launch counts, finite and falling
+   steps, then 10 timed steps with exact launch counts, finite and falling
    loss; one step from the same weights and batch on the cuDNN path must
    agree on the loss and the gradients; the cuDNN path's step time; the
    device-busy share from ``torch.profiler``; peak memory.
+8. Training phase with the config's ``default`` augmentation (the flagship
+   as ``configs/resnet50_batchall_1024.yml`` sets it), on 10,240 images of
+   1,024 classes each laid out as 8x8 cells of colour: 3 warm-up and 20
+   timed steps with exact launch counts (no T2: the augmented step divides
+   in f32), finite and falling loss, the busy share, peak memory and the
+   augmentation's device time per step (``torch.profiler``, the step's
+   ``record_function("augment")`` range).
 
 The last line of standard output is the result,
 ``{"ok": true, "device": {...}}``. The line before it lists each kernel:
-its launches during the training run (K3 also during the serving run),
-its worst error, and ``ms`` / ``plain_ms`` / ``bound_ms`` / ``library_ms``,
-the device time of the kernel, its plain version, the card's bound and the
-library call, summed over the calls one training step makes at B = 1024;
+its launches during the run of its path (the augmented training run for the
+conv kernels, K3 also during the serving run; the aug-off training run for
+T2; the A/B tool's run for T1), its worst error, and ``ms`` / ``plain_ms``
+/ ``bound_ms`` / ``library_ms``, the device time of the kernel, its plain
+version, the card's bound and the library call, summed over the calls one
+training step makes at B = 1024 (T1: one call at B = 1024, S = 2, C = 512);
 K3's serving numbers (per B=32 forward) are under ``serve``. The line
 before that is the card's name and power limit. Any failure raises, and
 the script exits non-zero without the last line.
 """
 
 import json
+import os
+import runpy
 import subprocess
 import sys
 import tempfile
@@ -58,6 +81,7 @@ from embeddingnet_tpu_torch.data.samplers import PKSampler
 from embeddingnet_tpu_torch.models.api import EmbeddingNet
 from embeddingnet_tpu_torch.models.registry import EmbeddingModule
 from embeddingnet_tpu_torch.ops import _cuda
+from embeddingnet_tpu_torch.ops import augment as aug
 from embeddingnet_tpu_torch.ops import fused_conv as fc
 from embeddingnet_tpu_torch.ops import preprocess as pre
 from embeddingnet_tpu_torch.ops.knn import knn_classify
@@ -80,10 +104,18 @@ KERNELS = {
     "conv3x3_wgrad_bn_relu": ("cuda", WGRAD_SRC, f"{JAX_CONV}:575"),
     "normalize_u8": ("triton", "embeddingnet_tpu_torch/ops/preprocess.py",
                      "tools/perf_probe3.py:63"),
+    "conv3x3_small_affine_relu": ("cuda", CONV_SRC,
+                                  "tools/pallas_fused_conv.py:39"),
     # K1's forward: built and checked, but ResNet-50 does not reach it (its
     # stride-1 3x3 convs all follow a BatchNorm, so all are fused)
     "conv3x3_small": ("cuda", CONV_SRC, f"{JAX_CONV}:200"),
 }
+# T1's path: the A/B tool at its own batch, stage 4's shape
+TOOL = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                    "fused_conv_epilogue_torch.py")
+TOOL_BATCH, TOOL_S, TOOL_C = 1024, 2, 512
+EPILOGUE_SHAPES = [(2, 512), (4, 256)]
+EPILOGUE_BATCHES = [3, 128, TOOL_BATCH]
 OFF_PATH = ("conv3x3_small",)
 # ResNet-50 at 64x64: (S, C, stride-1 3x3 convs per forward). Stage 2's
 # blocks 2-4 run the mixed op at 8x8 (cuDNN forward, K1-dgrad + K2), stages
@@ -103,6 +135,8 @@ PER_STEP = {
 EXPECTED_PER_STEP = {name: sum(n for _, _, n in shapes)
                      for name, shapes in PER_STEP.items()}
 EXPECTED_PER_STEP["normalize_u8"] = 1
+# with augmentation the step divides in f32 after it, as JAX does: no T2
+EXPECTED_AUG_PER_STEP = {**EXPECTED_PER_STEP, "normalize_u8": 0}
 # bf16 output rounding: the JAX package's bf16 bound for these kernels
 # (tests/test_fused_conv.py, test_forward_bf16)
 RTOL = ATOL = 2e-2
@@ -119,15 +153,29 @@ FLAGSHIP = {
               "mode": "triplet"},
     "general": {"seed": SEED},
     "encodings": {"knn_k": 5},
+    "generator": {"augmentations": "default"},
 }
 N_CLASSES, PER_CLASS, DB_BATCH, MAX_BATCH = 1024, 10, 256, 32
 NOISE = 8   # gray levels of per-image noise around each class's base image
+# The augmented training phase's class images: 8x8 cells of one random
+# colour each (a class is a layout of coloured regions). The serving DB's
+# uniform-noise classes carry their identity in pixel detail only, which the
+# preset's brightness, contrast, gamma, HSV and noise ops swamp for a net at
+# initialisation (tools/augment_probe_torch.py: no separation in 40 steps).
+CELLS = 8
 
-# the training phase (configs/resnet50_batchall_1024.yml, augmentation off)
+# the training phases (configs/resnet50_batchall_1024.yml), augmentation
+# off and with the config's preset
 P_CLASSES, K_SAMPLES = 256, 4
 MARGIN, LR, LR_DECAY, STEPS_PER_EPOCH = 0.5, 1e-3, 0.99, 500
 BN_MOMENTUM = 0.9
-WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS, CUDNN_STEPS = 3, 20, 3, 5
+WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS, CUDNN_STEPS = 3, 10, 3, 5
+AUG_PRESET, AUG_TIMED_STEPS = FLAGSHIP["generator"]["augmentations"], 20
+# augmentation on the card against the CPU, from the same draws: the same
+# f32 ops, whose pow, division and sums round differently on the two (1e-3
+# gray levels of 0..255); chained, a CLAHE pixel whose luminance lands on
+# the other side of a bin edge maps elsewhere: at most 0.1% of the pixels
+AUG_CHECK_BATCH, AUG_ATOL, AUG_FLIP_SHARE = 128, 1e-3, 1e-3
 # One step from the same weights and batch through the kernel path and the
 # cuDNN path, both bf16, and the cuDNN path in f32 as the reference: the
 # two bf16 losses within 2e-2 relative of each other; the kernel path's
@@ -174,6 +222,7 @@ def conv_cost(name, b, s, c):
         "conv3x3_dgrad": 2 * act + weight,
         "conv3x3_wgrad": 2 * act + 2 * weight,    # f32 dW
         "conv3x3_wgrad_bn_relu": 2 * act + 2 * weight + affine,
+        "conv3x3_small_affine_relu": 2 * act + weight + affine,
     }[name]
     return flops, nbytes
 
@@ -375,6 +424,106 @@ def backward_kernel_phase(records):
           f"{bound_ms * 1e3:.2f} us ({bound_by})")
 
 
+def epilogue_kernel_phase(records):
+    """T1 against its plain version, in f32 (TF32 off) and in bf16, at the
+    A/B tool's batch and a ragged and a mid batch, at stage 4's and stage
+    3's shapes. Timed against the plain version, ``F.conv2d`` alone and the
+    tool's eager conv -> affine -> ReLU sequence."""
+    tool = runpy.run_path(TOOL)
+    rng = np.random.default_rng(SEED + 2)
+    name = "conv3x3_small_affine_relu"
+    for s, c in EPILOGUE_SHAPES:
+        w = _tensor(rng, (3, 3, c, c), 0.02).bfloat16()
+        scale, bias = _affine(rng, c)
+        w_lib = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        for b in EPILOGUE_BATCHES:
+            x = _tensor(rng, (b, s, s, c)).bfloat16()
+            run = lambda: fc.conv3x3_small_affine_relu(  # noqa: E731
+                x, w, scale, bias)
+            plain = lambda: fc._plain_conv3x3_affine_relu(  # noqa: E731
+                x, w, scale, bias)
+            got = run()
+            errs = [_check(f"{name} B={b} S={s} C={c} vs {label}", got,
+                           want.float(), ATOL, RTOL)
+                    for label, want in (
+                        ("f32 plain", fc._plain_conv3x3_affine_relu(
+                            x.float(), w.float(), scale, bias)),
+                        ("bf16 plain", plain()))]
+            xl = x.permute(0, 3, 1, 2)
+            conv_ms = cuda_ms(lambda: F.conv2d(xl, w_lib, padding=1))
+            seq_ms = cuda_ms(tool["library_path"](x, w, scale, bias))
+            _time_row(records, name, b, s, c, run, plain, None,
+                      max(e[0] for e in errs), max(e[1] for e in errs),
+                      conv2d_ms=conv_ms, eager_sequence_ms=seq_ms)
+
+
+def epilogue_tool_phase():
+    """T1's path: the A/B tool's ``main`` on the card at B = 1024; returns
+    (T1's launches in it, the tool's result)."""
+    tool = runpy.run_path(TOOL)
+    os.environ["FC_BATCH"] = str(TOOL_BATCH)
+    # ---- the main path: every launch count from here to the reading ----
+    fc.reset_launch_counts()
+    result = tool["main"](["--device", DEVICE])
+    launches = dict(fc.LAUNCHES)
+    # ---- end of the main path ----
+    name = "conv3x3_small_affine_relu"
+    others = {k: v for k, v in launches.items() if k != name and v}
+    if not launches[name] or others:
+        raise AssertionError(f"the A/B tool launched {launches}")
+    if result["batch"] != TOOL_BATCH:
+        raise AssertionError(f"the tool ran at B={result['batch']}")
+    print(f"epilogue A/B: T1 launched {launches[name]} times; best of 3: "
+          f"library sequence {result['library_s'] * 1e3:.4f} ms, T1 "
+          f"{result['t1_s'] * 1e3:.4f} ms")
+    return launches[name], result
+
+
+def _to(draws, device):
+    return [{k: v.to(device) for k, v in d.items()} for d in draws]
+
+
+def augmentation_check_phase(db_images):
+    """Every op of the four presets on the card against the same op on
+    the CPU, from the same draws and the same input (the CPU chain's), to
+    AUG_ATOL; then the ``default`` preset chained on both, counting the
+    pixels past AUG_ATOL (CLAHE bin flips), at most AUG_FLIP_SHARE."""
+    x_cpu = torch.from_numpy(db_images[:AUG_CHECK_BATCH]).float()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    seen = set()
+    for preset in ("default", "plates", "deepfake", "plates2"):
+        augment = aug.get_aug(preset)
+        draws = augment.sample(x_cpu.shape, gen)
+        h = x_cpu
+        for op, d in zip(augment.ops, draws):
+            want = op.apply(h, _to([d], "cpu")[0])
+            got = op.apply(h.to(DEVICE), d).cpu()
+            err = (got - want).abs().max().item()
+            key = (op.name, tuple(sorted(op.params.items())))
+            if key not in seen:
+                seen.add(key)
+                print(f"check augment {op.name} {op.params}: card vs CPU "
+                      f"max abs err {err:.3e} (tolerance {AUG_ATOL})")
+            if not torch.isfinite(got).all() or err > AUG_ATOL:
+                raise AssertionError(f"augment {op.name} on the card "
+                                     f"differs from the CPU by {err}")
+            h = want
+    augment = aug.get_aug(AUG_PRESET)
+    draws = augment.sample(x_cpu.shape, gen)
+    want = augment.apply(x_cpu, _to(draws, "cpu"))
+    got = augment.apply(x_cpu.to(DEVICE), draws).cpu()
+    off = ((got - want).abs().amax(-1) > AUG_ATOL)
+    share = off.float().mean().item()
+    print(f"check augment preset {AUG_PRESET} chained, B={AUG_CHECK_BATCH}: "
+          f"{int(off.sum())} of {off.numel()} pixels past {AUG_ATOL} (CLAHE "
+          f"bin flips; at most {AUG_FLIP_SHARE:g}), max abs err elsewhere "
+          f"{(got - want).abs().amax(-1)[~off].max().item():.3e}")
+    if share > AUG_FLIP_SHARE:
+        raise AssertionError(f"augment preset differs on {share:.4%} of "
+                             f"the pixels")
+
+
 def _sum(rec, b, per):
     """ms / plain_ms / bound_ms / library_ms summed over ``per`` = [(S, C,
     calls)] at batch ``b``."""
@@ -554,13 +703,14 @@ def _train_module(fast_conv, dtype=torch.bfloat16):
         bn_momentum=BN_MOMENTUM, fast_conv=fast_conv, dtype=dtype)
 
 
-def _trainer(module, dtype=torch.bfloat16):
+def _trainer(module, dtype=torch.bfloat16, augment_fn=None):
     spec = get_optimizer("adam", step_decay_schedule(LR, LR_DECAY, 1,
                                                      STEPS_PER_EPOCH))
     state = TrainState.create(module, spec)
     step = make_triplet_train_step(
         module, spec, margin=MARGIN, mode="batch_all",
-        compute_dtype=dtype, max_positives=K_SAMPLES - 1)
+        augment_fn=augment_fn, compute_dtype=dtype,
+        max_positives=K_SAMPLES - 1)
     return state, step
 
 
@@ -577,8 +727,9 @@ def _timed_steps(state, step, batches):
 
 
 def _device_busy(state, step, batches):
-    """(device-busy share, device ms per step, top kernels) over the
-    steps, from torch.profiler."""
+    """(device-busy share, device ms per step, the port's kernels, top
+    kernels, wall seconds, device ms per step under the step's "augment"
+    range) over the steps, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -601,18 +752,60 @@ def _device_busy(state, step, batches):
     ours = {name: us for name, us in by_name.items()
             if "conv3x3" in name or "sum_splits" in name
             or "normalize_u8" in name}
+    # the kernels launched inside the CPU-side "augment" ranges
+    ranges = [e for e in prof.events() if e.name == "augment"
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    augment_us = sum(e.device_time_total for e in ranges)
+
+    def launches(e):
+        return len(e.kernels) + sum(launches(c) for c in e.cpu_children)
+
+    augment = {"ms": augment_us * 1e-3 / len(batches),
+               "launches": sum(launches(e) for e in ranges) / len(batches),
+               "host_ms": sum(e.cpu_time_total for e in ranges) * 1e-3
+               / len(batches)}
     return (busy_us * 1e-6 / wall, busy_us * 1e-3 / len(batches),
-            ours, top, wall)
+            ours, top, wall, augment)
 
 
-def training_phase(db_images, db_classes):
+def _pk_batches(db_images, db_classes, n, seed=SEED):
     class_files = {}
     for i, c in enumerate(db_classes):
         class_files.setdefault(f"class_{c:04d}", []).append(str(i))
     sampler = PKSampler(class_files, sorted(class_files),
-                        k_classes=P_CLASSES, k_samples=K_SAMPLES, seed=SEED)
-    batches = _batches(sampler, db_images, WARMUP_STEPS + TIMED_STEPS
-                       + PROFILED_STEPS + 1)
+                        k_classes=P_CLASSES, k_samples=K_SAMPLES, seed=seed)
+    return _batches(sampler, db_images, n)
+
+
+def _check_training(label, metrics, launches, expected, steps):
+    """Finite, falling loss, mined triplets, exact launches per step."""
+    losses = [m["loss"] for m in metrics]
+    print(f"{label}: losses " + " ".join(f"{l:.4f}" for l in losses))
+    print(f"{label}: n_triplets " + " ".join(str(int(m["n_triplets"]))
+                                             for m in metrics))
+    print(f"{label}: launches over {steps} steps: {launches}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    if not all(m["n_triplets"] > 0 for m in metrics):
+        raise AssertionError("a step mined no triplet")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    print(f"{label}: mean loss of the first 5 steps {first:.4f}, of the "
+          f"last 5 {last:.4f}")
+    if not last < first:
+        raise AssertionError("the loss did not fall")
+    for name, per_step in expected.items():
+        if launches[name] != per_step * steps:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times over {steps} "
+                f"steps, expected {per_step} per step")
+    for name in OFF_PATH + ("conv3x3_small_affine_relu",):
+        if launches[name]:
+            raise AssertionError(f"{name} launched on the training path")
+
+
+def training_phase(db_images, db_classes):
+    batches = _pk_batches(db_images, db_classes, WARMUP_STEPS + TIMED_STEPS
+                          + PROFILED_STEPS + 1)
     warmup = batches[:WARMUP_STEPS]
     timed = batches[WARMUP_STEPS:WARMUP_STEPS + TIMED_STEPS]
     profiled = batches[WARMUP_STEPS + TIMED_STEPS:-1]
@@ -635,41 +828,20 @@ def training_phase(db_images, db_classes):
     launches = {**fc.LAUNCHES, **pre.LAUNCHES}
     # ---- end of the main path ----
     peak = torch.cuda.max_memory_allocated()
-    losses = [m["loss"] for m in metrics]
     med = float(np.median(times))
     print(f"train: {TIMED_STEPS} steps of B={P_CLASSES * K_SAMPLES}, "
           f"kernel path: step median {med * 1e3:.2f} ms (min "
           f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), "
           f"{P_CLASSES * K_SAMPLES / med:.0f} img/s, peak memory "
           f"{peak / 2 ** 30:.2f} GiB")
-    print("train: losses " + " ".join(f"{l:.4f}" for l in losses))
-    print("train: n_triplets " + " ".join(str(int(m["n_triplets"]))
-                                         for m in metrics))
     print(f"train: last step frac_mined {metrics[-1]['frac_mined']:.4f}, "
           f"mean_pos_dist {metrics[-1]['mean_pos_dist']:.4f}, "
           f"mean_neg_dist {metrics[-1]['mean_neg_dist']:.4f}")
-    print(f"train: launches over {TIMED_STEPS} steps: {launches}")
+    _check_training("train", metrics, launches, EXPECTED_PER_STEP,
+                    TIMED_STEPS)
 
-    # ---- checks ----
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"a loss is not finite: {losses}")
-    if not all(m["n_triplets"] > 0 for m in metrics):
-        raise AssertionError("a step mined no triplet")
-    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-    print(f"train: mean loss of the first 5 steps {first:.4f}, of the last "
-          f"5 {last:.4f}")
-    if not last < first:
-        raise AssertionError("the loss did not fall")
-    for name, per_step in EXPECTED_PER_STEP.items():
-        if launches[name] != per_step * TIMED_STEPS:
-            raise AssertionError(
-                f"{name} launched {launches[name]} times over {TIMED_STEPS} "
-                f"steps, expected {per_step} per step")
-    for name in OFF_PATH:
-        if launches[name]:
-            raise AssertionError(f"{name} launched on the training path")
-
-    busy, device_ms, ours, top, wall = _device_busy(state, step, profiled)
+    busy, device_ms, ours, top, wall, _ = _device_busy(state, step,
+                                                       profiled)
     ours_ms = sum(ours.values()) * 1e-3 / PROFILED_STEPS
     print(f"train: torch.profiler over {PROFILED_STEPS} steps: device busy "
           f"{busy:.3f} of {wall * 1e3:.1f} ms wall (profiled), "
@@ -745,6 +917,81 @@ def training_phase(db_images, db_classes):
     return launches
 
 
+def cell_images(rng, classes, cells=CELLS, size=64):
+    """uint8 images of ``classes``: each class a ``cells`` x ``cells`` grid
+    of random colours scaled up to ``size``, plus per-image noise."""
+    base = rng.integers(0, 256, (int(classes.max()) + 1, cells, cells, 3),
+                        dtype=np.uint8)
+    base = base.repeat(size // cells, 1).repeat(size // cells, 2)
+    return synthetic(rng, base, classes)
+
+
+def augmented_training_phase(db_classes):
+    """The flagship step as its config sets it, with the ``default``
+    augmentation, on images of coloured cells (CELLS): 20 timed steps with
+    exact launch counts, a falling loss, the busy share, peak memory and
+    the augmentation's device time."""
+    images = cell_images(np.random.default_rng(SEED + 3), db_classes)
+    batches = _pk_batches(images, db_classes, WARMUP_STEPS
+                          + AUG_TIMED_STEPS + PROFILED_STEPS, seed=SEED + 1)
+    warmup = batches[:WARMUP_STEPS]
+    timed = batches[WARMUP_STEPS:WARMUP_STEPS + AUG_TIMED_STEPS]
+    profiled = batches[WARMUP_STEPS + AUG_TIMED_STEPS:]
+
+    t0 = time.perf_counter()
+    module = _train_module(fast_conv=True)
+    module.reset_parameters(torch.Generator().manual_seed(SEED))
+    module.to(DEVICE)
+    state, step = _trainer(module, augment_fn=aug.augment_from_params(
+        FLAGSHIP))
+    if state.generator.device.type != torch.device(DEVICE).type:
+        raise AssertionError("the augmentation's generator is not on the "
+                             "card")
+    _timed_steps(state, step, warmup)
+    print(f"train+aug: model built and {WARMUP_STEPS} warm-up steps in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- the main path: every launch count from here to the reading ----
+    fc.reset_launch_counts()
+    pre.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = _timed_steps(state, step, timed)
+    launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    # ---- end of the main path ----
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(times))
+    print(f"train+aug: {AUG_TIMED_STEPS} steps of B={P_CLASSES * K_SAMPLES} "
+          f"with the {AUG_PRESET!r} preset, kernel path: step median "
+          f"{med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
+          f"{max(times) * 1e3:.2f}), {P_CLASSES * K_SAMPLES / med:.0f} "
+          f"img/s, peak memory {peak / 2 ** 30:.2f} GiB")
+    print(f"train+aug: frac_mined " + " ".join(
+        f"{m['frac_mined']:.3f}" for m in metrics) + "; last step "
+        f"mean_pos_dist {metrics[-1]['mean_pos_dist']:.4f}, mean_neg_dist "
+        f"{metrics[-1]['mean_neg_dist']:.4f}")
+    _check_training("train+aug", metrics, launches, EXPECTED_AUG_PER_STEP,
+                    AUG_TIMED_STEPS)
+
+    busy, device_ms, ours, top, wall, augment = _device_busy(state, step,
+                                                             profiled)
+    aug_ms = augment["ms"]
+    print(f"train+aug: torch.profiler over {PROFILED_STEPS} steps: device "
+          f"busy {busy:.3f} of {wall * 1e3:.1f} ms wall (profiled), "
+          f"{device_ms:.2f} ms of device time per step, "
+          f"{device_ms / (med * 1e3):.3f} of the unprofiled step median; "
+          f"augmentation {aug_ms:.3f} ms of device time per step in "
+          f"{augment['launches']:.0f} kernel launches, its range "
+          f"{augment['host_ms']:.2f} ms of host time (profiled); the "
+          f"port's kernels {sum(ours.values()) * 1e-3 / PROFILED_STEPS:.2f} "
+          f"ms per step")
+    for name, us in top:
+        print(f"  profile top: {us / PROFILED_STEPS / 1e3:8.3f} ms/step  "
+              f"{name[:90]}")
+    if aug_ms <= 0:
+        raise AssertionError("the profiler saw no augmentation kernels")
+    return launches
+
+
 def main():
     smi = check_card()
     # f32 references in full f32: cuDNN's convs default to TF32
@@ -754,31 +1001,47 @@ def main():
     records = {}
     forward_kernel_phase(records)
     backward_kernel_phase(records)
+    epilogue_kernel_phase(records)
+    tool_launches, _ = epilogue_tool_phase()
     fc.reset_launch_counts()
     pre.reset_launch_counts()
     serve_launches, db_images, db_classes = serving_phase()
-    train_launches = training_phase(db_images, db_classes)
+    augmentation_check_phase(db_images)
+    plain_launches = training_phase(db_images, db_classes)
+    train_launches = augmented_training_phase(db_classes)
 
     lines, step_sum = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     for name, (route, source, replaces) in KERNELS.items():
         rec = records[name]
+        launches = train_launches[name]
+        per = f"augmented training step, B={TRAIN_BATCH}"
         if name == "normalize_u8":
             row = rec["shapes"][0]
             sums = {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "library_ms", "bound_by")}
+            launches = plain_launches[name]
+            per = f"training step without augmentation, B={TRAIN_BATCH}"
+        elif name == "conv3x3_small_affine_relu":
+            row, = [r for r in rec["shapes"] if (r["B"], r["S"], r["C"])
+                    == (TOOL_BATCH, TOOL_S, TOOL_C)]
+            sums = {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "library_ms", "bound_by", "conv2d_ms",
+                                        "eager_sequence_ms")}
+            launches = tool_launches
+            per = (f"one call of the A/B tool's path, B={TOOL_BATCH}, "
+                   f"S={TOOL_S}, C={TOOL_C}")
         elif name in OFF_PATH:
             sums = _sum(rec, TRAIN_BATCH, FUSED_SHAPES)
         else:
             sums = _sum(rec, TRAIN_BATCH, PER_STEP[name])
         entry = {"name": name, "route": route, "source": source,
-                 "replaces": replaces, "launches": train_launches[name],
-                 "max_abs_err": rec["max_abs_err"], **sums,
-                 "per": f"training step, B={TRAIN_BATCH}"}
+                 "replaces": replaces, "launches": launches,
+                 "max_abs_err": rec["max_abs_err"], **sums, "per": per}
         if name == "conv3x3_small_bn_relu":
             entry["serve"] = {"launches": serve_launches[name],
                               "per": "serving forward, B=32",
                               **_sum(rec, 32, FUSED_SHAPES)}
-        if name not in OFF_PATH:
+        if name not in OFF_PATH + ("conv3x3_small_affine_relu",):
             for key in step_sum:
                 step_sum[key] += sums[key]
         lines.append(entry)

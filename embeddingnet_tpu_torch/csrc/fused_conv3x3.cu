@@ -1,17 +1,20 @@
 // Stride-1 SAME 3x3 convolution on a small square NHWC map, with an optional
-// BatchNorm-apply + ReLU prologue, for Hopper (sm_90a).
-//
-// Replaces two Pallas TPU kernels of embeddingnet_tpu/ops/fused_conv.py:
-//   kPrologue = true  -> _fwd_bn_kernel (via _conv_bn_fwd_impl):
-//                        out = conv3x3(relu(x * scale + bias), w)
-//   kPrologue = false -> _fwd_kernel    (via _conv_fwd_impl):
-//                        out = conv3x3(x, w)
-// x [B, S, S, Cin] bf16 NHWC, w [3, 3, Cin, Cout] bf16 (HWIO), scale/bias
-// [Cin] f32, out [B, S, S, Cout] bf16; S in {2, 4, 8}, Cin and Cout multiples
-// of 128 (the wrapper's gate). Accumulation is f32; the output is rounded to
-// bf16 once, in the epilogue. kPrologue = false is also the input gradient
-// of both ops (_conv_vjp_bwd / _bn_vjp_bwd_common): the conv of the output
-// gradient with the spatially flipped, in/out-swapped weight, at S = 8 too.
+// affine + ReLU before or after it, for Hopper (sm_90a). One template, three
+// modes:
+//   kPlain    -> _fwd_kernel of embeddingnet_tpu/ops/fused_conv.py (via
+//                _conv_fwd_impl):   out = conv3x3(x, w)
+//   kPrologue -> _fwd_bn_kernel of the same file (via _conv_bn_fwd_impl):
+//                out = conv3x3(relu(x * scale + bias), w)
+//   kEpilogue -> fused_kernel of tools/pallas_fused_conv.py (via
+//                fused_conv_bn_relu): out = relu(conv3x3(x, w) * scale + bias)
+// x [B, S, S, Cin] bf16 NHWC, w [3, 3, Cin, Cout] bf16 (HWIO), out
+// [B, S, S, Cout] bf16; scale/bias f32, [Cin] for the prologue and [Cout]
+// for the epilogue; S in {2, 4, 8}, Cin and Cout multiples of 128 (the
+// wrapper's gate). Accumulation is f32; the output is rounded to bf16 once,
+// in the epilogue. kPlain is also the input gradient of both ops of
+// ops/fused_conv.py (_conv_vjp_bwd / _bn_vjp_bwd_common): the conv of the
+// output gradient with the spatially flipped, in/out-swapped weight, at
+// S = 8 too.
 //
 // Design: an implicit GEMM. Rows are output positions, M = B*S*S, in NHWC
 // order, so the output is the row-major [M, Cout] matrix and needs no
@@ -24,7 +27,11 @@
 // applied while staging: relu(x*scale + bias) in f32, rounded to bf16 before
 // the product, exactly as _affine_relu_block does. Zeros for the
 // out-of-range taps are what "the padding ring stays zero after the affine"
-// becomes, and they remove the jnp.pad round trip of the TPU version. Four
+// becomes, and they remove the jnp.pad round trip of the TPU version. The
+// epilogue mode applies relu(acc*scale + bias) to the f32 accumulator tile
+// as it leaves shared memory, with the block's 64 scales and biases read
+// once into shared memory, the multiply and the add rounded separately (no
+// contraction into an FMA) as the plain version rounds them. Four
 // warps each multiply a 32x32 quarter with nvcuda::wmma bf16 16x16x16 into
 // f32 fragments. The next chunk's global loads are issued into registers
 // before the current chunk's products, so memory and tensor-core work
@@ -42,6 +49,9 @@
 // weight slice are adjacent in launch order (M is the fast grid axis), so
 // the slice is read from L2 after its first block. A deeper cp.async/TMA
 // pipeline, split-K over the taps and wgmma are the fixes, left for later.
+// The epilogue mode (T1) is the same GEMM, at B = 1024, S = 2, C = 512:
+// 19.3 GFLOP for 13.1 MB, bound by the tensor cores (19.5 us at the dense
+// bf16 peak), and as slow as kPlain there, by the same serial chain.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,7 +74,10 @@ constexpr int A_VECS = BM * BK / VEC / THREADS;  // 4 vectors per thread
 constexpr int B_VECS = BK * BN / VEC / THREADS;  // 4 vectors per thread
 constexpr int ROWS_PER_PASS = THREADS / (BK / VEC);  // 16
 
-template <bool kPrologue>
+// Where the affine + ReLU goes; the values are embn_conv3x3_small's `mode`.
+enum Mode : int { kPlain = 0, kPrologue = 1, kEpilogue = 2 };
+
+template <int kMode>
 __global__ void __launch_bounds__(THREADS)
 conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
                      const __nv_bfloat16* __restrict__ w,
@@ -75,6 +88,7 @@ conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
   __shared__ __align__(128) __nv_bfloat16 a_s[BM * LDA];
   __shared__ __align__(128) __nv_bfloat16 b_s[BK * LDB];
   __shared__ __align__(128) float c_s[BM * LDC];
+  __shared__ float scale_s[BN], bias_s[BN];   // the epilogue's, per block
 
   const int m_total = batch * s * s;
   const int m0 = blockIdx.x * BM;
@@ -140,7 +154,7 @@ conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
   // in-range taps only: the padding ring stays zero after the affine.
   auto stage_chunk = [&](int kt) {
     float sc[VEC], bi[VEC];
-    if (kPrologue) {
+    if (kMode == kPrologue) {
       const int k0 = kt * BK;
       const int c = k0 - (k0 / cin) * cin + seg * VEC;
       const float4* sp = reinterpret_cast<const float4*>(scale + c);
@@ -154,7 +168,7 @@ conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < A_VECS; ++i) {
       uint4 v = a_reg[i];
-      if (kPrologue && a_in[i]) {
+      if (kMode == kPrologue && a_in[i]) {
         __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
@@ -205,14 +219,19 @@ conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
     __syncthreads();
   }
 
-  // Epilogue: f32 tile through shared memory, one bf16 rounding, 16-byte
-  // stores of whole rows; rows past the batch are not written.
+  // Epilogue: f32 tile through shared memory, [relu(acc*scale + bias) in
+  // f32,] one bf16 rounding, 16-byte stores of whole rows; rows past the
+  // batch are not written.
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
       wmma::store_matrix_sync(&c_s[(wm + 16 * i) * LDC + wn + 16 * j],
                               acc[i][j], LDC, wmma::mem_row_major);
+  if (kMode == kEpilogue && tid < BN) {
+    scale_s[tid] = scale[n0 + tid];
+    bias_s[tid] = bias[n0 + tid];
+  }
   __syncthreads();
   for (int idx = tid; idx < BM * BN / VEC; idx += THREADS) {
     const int r = idx / (BN / VEC);
@@ -222,8 +241,14 @@ conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
     uint4 v;
     __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
 #pragma unroll
-    for (int j = 0; j < VEC; ++j)
-      e[j] = __float2bfloat16(c_s[r * LDC + cseg * VEC + j]);
+    for (int j = 0; j < VEC; ++j) {
+      float a = c_s[r * LDC + cseg * VEC + j];
+      if (kMode == kEpilogue) {
+        const int c = cseg * VEC + j;
+        a = fmaxf(__fadd_rn(__fmul_rn(a, scale_s[c]), bias_s[c]), 0.0f);
+      }
+      e[j] = __float2bfloat16(a);
+    }
     *reinterpret_cast<uint4*>(out + (size_t)m * cout + n0 + cseg * VEC) = v;
   }
 }
@@ -231,24 +256,36 @@ conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() of the launch (0 = launched).
-// The caller has checked shapes, dtypes, contiguity and 16-byte alignment.
+// synchronise, and returns cudaGetLastError() of the launch (0 = launched,
+// -1 = an unknown mode). `mode` is a Mode; scale and bias are unused (may be
+// null) in kPlain. The caller has checked shapes, dtypes, contiguity and
+// 16-byte alignment.
 extern "C" int embn_conv3x3_small(const void* x, const void* w,
                                   const void* scale, const void* bias,
                                   void* out, int batch, int s, int cin,
-                                  int cout, int prologue, void* stream) {
+                                  int cout, int mode, void* stream) {
   const dim3 grid((batch * s * s + BM - 1) / BM, cout / BN);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
-  if (prologue) {
-    conv3x3_small_kernel<true><<<grid, THREADS, 0, st>>>(
-        xb, wb, static_cast<const float*>(scale),
-        static_cast<const float*>(bias), ob, batch, s, cin, cout);
-  } else {
-    conv3x3_small_kernel<false><<<grid, THREADS, 0, st>>>(
-        xb, wb, nullptr, nullptr, ob, batch, s, cin, cout);
+  switch (mode) {
+    case kPlain:
+      conv3x3_small_kernel<kPlain><<<grid, THREADS, 0, st>>>(
+          xb, wb, nullptr, nullptr, ob, batch, s, cin, cout);
+      break;
+    case kPrologue:
+      conv3x3_small_kernel<kPrologue><<<grid, THREADS, 0, st>>>(
+          xb, wb, sc, bi, ob, batch, s, cin, cout);
+      break;
+    case kEpilogue:
+      conv3x3_small_kernel<kEpilogue><<<grid, THREADS, 0, st>>>(
+          xb, wb, sc, bi, ob, batch, s, cin, cout);
+      break;
+    default:
+      return -1;
   }
   return static_cast<int>(cudaGetLastError());
 }

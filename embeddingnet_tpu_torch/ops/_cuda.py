@@ -29,7 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Entry points of each source: name -> (argtypes); all return int (the
-# launch's cudaGetLastError()).
+# launch's cudaGetLastError()). embn_conv3x3_small: x, w, scale, bias, out,
+# batch, s, cin, cout, mode (plain 0, prologue 1, epilogue 2), stream.
 ENTRY_POINTS = {
     "fused_conv3x3": {"embn_conv3x3_small": [_P] * 5 + [_I] * 5 + [_P]},
     "conv3x3_wgrad": {"embn_conv3x3_wgrad": [_P] * 6 + [_I] * 6 + [_P]},

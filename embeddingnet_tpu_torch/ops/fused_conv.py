@@ -20,6 +20,10 @@ on the CPU their plain twins.
   ReLU chain rule as plain tensor code (as JAX leaves it to XLA), and K4
   (``_wgrad_bn_kernel``), which recomputes the normalised input from the
   raw ``x`` so that it is never stored.
+* :func:`conv3x3_small_affine_relu` — ``relu(conv3x3(x, w)*scale + bias)``,
+  forward only: T1 (the TPU's ``fused_kernel`` of
+  ``tools/pallas_fused_conv.py``, which has no VJP either), the BN-ReLU
+  epilogue experiment that ``tools/fused_conv_epilogue_torch.py`` times.
 * :class:`FastConv3x3`, :class:`BNScaleBias`, :class:`FusedBNReluConv3x3` —
   the modules the ResNet blocks use. Their ``state_dict``s equal those of
   ``nn.Conv2d(bias=False)`` and ``nn.BatchNorm2d``, so the fast path never
@@ -29,7 +33,7 @@ The public functions keep the JAX layout: NHWC activations, ``[3, 3, Cin,
 Cout]`` weights. The modules take the ResNet's NCHW tensors in
 ``torch.channels_last`` memory, whose NHWC view is contiguous and goes to the
 kernels without a copy. The kernels are in ``csrc/fused_conv3x3.cu`` (K1,
-K3) and ``csrc/conv3x3_wgrad.cu`` (K2, K4).
+K3, T1) and ``csrc/conv3x3_wgrad.cu`` (K2, K4).
 """
 
 from __future__ import annotations
@@ -47,7 +51,11 @@ from embeddingnet_tpu_torch.ops import _cuda
 # through the kernels. conv3x3_dgrad is K1 launched as the input gradient.
 LAUNCHES = {"conv3x3_small": 0, "conv3x3_small_bn_relu": 0,
             "conv3x3_dgrad": 0, "conv3x3_wgrad": 0,
-            "conv3x3_wgrad_bn_relu": 0}
+            "conv3x3_wgrad_bn_relu": 0, "conv3x3_small_affine_relu": 0}
+
+# The forward kernel's ``mode`` (csrc/fused_conv3x3.cu ``Mode``): where the
+# affine + ReLU goes.
+_PLAIN, _PROLOGUE, _EPILOGUE = 0, 1, 2
 
 # Map sizes the kernels take: the forward kernel is generic in S, and the
 # backward runs at 8x8 too (the mixed path).
@@ -145,6 +153,17 @@ def _affine_relu(x: torch.Tensor, scale: torch.Tensor,
     return (x.float() * scale + bias).clamp_min(0.0).to(x.dtype)
 
 
+def _plain_conv3x3_affine_relu(x: torch.Tensor, w: torch.Tensor,
+                               scale: torch.Tensor,
+                               bias: torch.Tensor) -> torch.Tensor:
+    """The plain version of T1: ``relu(conv3x3(x, w)*scale + bias)``, the
+    conv on ``x.float()`` and ``w.float()`` (bf16 products are exact in f32),
+    the affine and ReLU on the f32 result, one cast to x's dtype — what
+    ``xla_conv_bn_relu`` of ``tools/pallas_fused_conv.py`` computes."""
+    y = _plain_conv3x3(x.float(), w.float())
+    return (y * scale + bias).clamp_min(0.0).to(x.dtype)
+
+
 def _flip(w: torch.Tensor) -> torch.Tensor:
     """The dgrad's weight: spatially flipped, in/out swapped, HWIO."""
     return w.flip(0, 1).transpose(2, 3).contiguous()
@@ -180,19 +199,22 @@ def _plain_wgrad_bn_relu(x: torch.Tensor, g: torch.Tensor,
 
 def _check(name: str, x: torch.Tensor, w_shape: Sequence[int],
            tensors: Sequence[torch.Tensor],
-           scale: Optional[torch.Tensor]) -> None:
+           scale: Optional[torch.Tensor], affine_len: int = 0) -> None:
+    """Raises on what the kernel cannot take. ``scale`` and ``bias`` are the
+    last two of ``tensors`` where given, f32 of ``affine_len`` channels
+    (Cin unless given)."""
     if not _gate(tuple(x.shape), tuple(w_shape), (1, 1), 1, KERNEL_SPATIAL,
                  x.dtype):
         raise ValueError(
             f"{name}: the kernel takes bf16 x [B, S, S, Cin] with S in "
             f"{KERNEL_SPATIAL} and w [3, 3, Cin, Cout], channels multiples "
             f"of 128; got x {tuple(x.shape)} {x.dtype}, w {tuple(w_shape)}")
-    cin = x.shape[3]
+    n = affine_len or x.shape[3]
     if scale is not None:
         for t in tensors[-2:]:
-            if t.dtype != torch.float32 or tuple(t.shape) != (cin,):
+            if t.dtype != torch.float32 or tuple(t.shape) != (n,):
                 raise ValueError(
-                    f"{name}: scale and bias must be f32 [{cin}], got "
+                    f"{name}: scale and bias must be f32 [{n}], got "
                     f"{t.dtype} {tuple(t.shape)}")
     for t in tensors:
         if t.device != x.device:
@@ -212,11 +234,15 @@ def _stream(device: torch.device) -> int:
 
 def _launch_conv(name: str, x: torch.Tensor, w: torch.Tensor,
                  scale: Optional[torch.Tensor] = None,
-                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1 (no ``scale``) or K3: ``out = conv3x3([relu(x*scale+bias)], w)``,
-    bf16 [B, S, S, Cout]; counted under ``name``."""
+                 bias: Optional[torch.Tensor] = None,
+                 mode: int = _PLAIN) -> torch.Tensor:
+    """K1 (``_PLAIN``, no ``scale``), K3 (``_PROLOGUE``:
+    ``conv3x3(relu(x*scale+bias), w)``) or T1 (``_EPILOGUE``:
+    ``relu(conv3x3(x, w)*scale+bias)``), bf16 [B, S, S, Cout]; counted under
+    ``name``."""
     tensors = [x, w] + ([scale, bias] if scale is not None else [])
-    _check(name, x, tuple(w.shape), tensors, scale)
+    _check(name, x, tuple(w.shape), tensors, scale,
+           w.shape[3] if mode == _EPILOGUE else 0)
     if w.dtype != torch.bfloat16:
         raise ValueError(f"{name}: w must be bf16, got {w.dtype}")
     b, s, _, cin = x.shape
@@ -227,8 +253,7 @@ def _launch_conv(name: str, x: torch.Tensor, w: torch.Tensor,
     fn = _cuda.library("fused_conv3x3").embn_conv3x3_small
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(bias),
-                 out.data_ptr(), b, s, cin, cout, int(scale is not None),
-                 _stream(x.device))
+                 out.data_ptr(), b, s, cin, cout, mode, _stream(x.device))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     LAUNCHES[name] += 1
@@ -289,7 +314,8 @@ def _conv_fwd(x, w):
 def _conv_bn_fwd(x, w, scale, bias):
     if _on_cpu(x):
         return _plain_conv3x3(_affine_relu(x, scale, bias), w)
-    return _launch_conv("conv3x3_small_bn_relu", x, w, scale, bias)
+    return _launch_conv("conv3x3_small_bn_relu", x, w, scale, bias,
+                        _PROLOGUE)
 
 
 def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -387,6 +413,29 @@ def conv3x3_small(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     pass :func:`eligible` with its dtype); a CPU tensor runs the plain
     versions, forward and backward."""
     return _Conv3x3Small.apply(x, w)
+
+
+def conv3x3_small_affine_relu(x: torch.Tensor, w: torch.Tensor,
+                              scale: torch.Tensor,
+                              bias: torch.Tensor) -> torch.Tensor:
+    """``relu(conv3x3(x, w)*scale + bias)``: a stride-1 SAME 3x3 conv with
+    the following BatchNorm's affine and the ReLU on its f32 accumulator,
+    rounded once to x's dtype. Forward only, as the TPU kernel it ports.
+
+    ``x`` [B, S, S, Cin], ``w`` [3, 3, Cin, Cout], ``scale``/``bias`` f32
+    [Cout] (the TPU tool's [1, C] reshaped). A CUDA tensor launches T1 (bf16,
+    the shapes of :func:`eligible`, any B) and raises if an input requires
+    grad: the op has no backward. A CPU tensor runs the plain version."""
+    if _on_cpu(x):
+        return _plain_conv3x3_affine_relu(x, w, scale, bias)
+    if any(t.requires_grad for t in (x, w, scale, bias)) and \
+            torch.is_grad_enabled():
+        raise RuntimeError(
+            "conv3x3_small_affine_relu is forward only (T1 has no VJP); "
+            "call it on tensors that do not require grad, or under "
+            "torch.no_grad()")
+    return _launch_conv("conv3x3_small_affine_relu", x, w, scale, bias,
+                        _EPILOGUE)
 
 
 def conv3x3_small_mixed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

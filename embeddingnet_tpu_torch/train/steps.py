@@ -1,35 +1,55 @@
 """The triplet train step (port of ``make_triplet_train_step`` in
 ``embeddingnet_tpu/train/steps.py``).
 
-One step: uint8 P-K batch -> ``/255`` in the compute dtype
-(:func:`~embeddingnet_tpu_torch.ops.preprocess.preprocess`) -> encoder in
-train mode (BatchNorm on batch statistics, running averages updated) -> f32
-embeddings -> mined triplet loss + L2 penalty -> backward -> optimizer
-update with the learning rate of the schedule at this step. Augmentation is
-not ported yet (``ROADMAP.md``); the JAX step's ``augment_fn`` has no
-counterpart here.
+One step: uint8 P-K batch -> [augmentation in 0..255 ->] ``/255`` in the
+compute dtype (:func:`_preprocess`) -> encoder in train mode (BatchNorm on
+batch statistics, running averages updated) -> f32 embeddings -> mined
+triplet loss + L2 penalty -> backward -> optimizer update with the learning
+rate of the schedule at this step.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from embeddingnet_tpu_torch.ops import mining
+from embeddingnet_tpu_torch.ops.augment import Augment, Draws
 from embeddingnet_tpu_torch.ops.preprocess import preprocess
 from embeddingnet_tpu_torch.train.optim import OptimizerSpec, l2_penalty
 from embeddingnet_tpu_torch.train.state import TrainState
 
 
+def _preprocess(images: torch.Tensor, dtype: torch.dtype,
+                augment_fn: Optional[Augment], generator: torch.Generator,
+                draws: Optional[List[Draws]]) -> torch.Tensor:
+    """uint8 (or float 0..255) BGR batch -> augmented, ``/255`` batch in
+    ``dtype`` (the JAX ``_preprocess``): augmentation runs on f32 images in
+    0..255, the division after it, as the reference orders them. Without
+    augmentation this is :func:`preprocess` (T2 for uint8 to bf16); with
+    it, the f32 divide, as JAX skips its bf16 shortcut then. The draws come
+    from ``generator`` unless ``draws`` are given; the augmentation runs
+    inside a ``record_function("augment")`` range for the profiler."""
+    if augment_fn is None:
+        return preprocess(images, dtype)
+    with torch.profiler.record_function("augment"):
+        x = images.float()
+        if draws is None:
+            draws = augment_fn.sample(x.shape, generator, x.device)
+        x = augment_fn.apply(x, draws)
+    return (x / 255.0).to(dtype)
+
+
 def make_triplet_train_step(module: torch.nn.Module,
                             optimizer: OptimizerSpec, *,
                             margin: float = 0.5, mode: str = "semihard",
+                            augment_fn: Optional[Augment] = None,
                             reg_rules: Sequence = (),
                             compute_dtype: torch.dtype = torch.float32,
                             max_positives: Optional[int] = None):
     """Online-mining triplet step over P-K batches; returns
-    ``step(state, images_u8, labels) -> (state, metrics)``.
+    ``step(state, images_u8, labels, aug_draws=None) -> (state, metrics)``.
 
     The step updates ``state`` in place (parameters, BatchNorm statistics,
     optimizer moments, step count) and returns it. ``metrics`` holds device
@@ -38,9 +58,16 @@ def make_triplet_train_step(module: torch.nn.Module,
     ``.item()`` where the host needs them. ``optimizer`` is the spec the
     state was created from; its schedule sets the learning rate. Images and
     labels are moved to the module's device; the step differentiates
-    ``loss + l2_penalty``, as the JAX step's ``loss_fn`` does."""
+    ``loss + l2_penalty``, as the JAX step's ``loss_fn`` does.
 
-    def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor
+    ``augment_fn`` is a preset of :func:`~embeddingnet_tpu_torch.ops.
+    augment.get_aug` (None: no augmentation). The step samples its draws
+    from ``state.generator``, on the generator's device, so a generator on
+    the card keeps the step free of host synchronisation; ``aug_draws``
+    (the preset's draws for this batch) overrides that."""
+
+    def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
+             aug_draws: Optional[List[Draws]] = None
              ) -> Tuple[TrainState, dict]:
         if state.module is not module:
             raise ValueError("the state was created for another module")
@@ -48,7 +75,9 @@ def make_triplet_train_step(module: torch.nn.Module,
         device = next(module.parameters()).device
         images = torch.as_tensor(images).to(device, non_blocking=True)
         labels = torch.as_tensor(labels).to(device, non_blocking=True)
-        emb = module(preprocess(images, compute_dtype)).float()
+        x = _preprocess(images, compute_dtype, augment_fn, state.generator,
+                        aug_draws)
+        emb = module(x).float()
         loss, stats = mining.mined_triplet_loss(
             emb, labels, margin=margin, mode=mode,
             max_positives=max_positives)

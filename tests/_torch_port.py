@@ -40,3 +40,79 @@ def jax_init(module, x, **kw):
     """Jitted ``module.init`` (eager init dispatches op by op and is slow)."""
     return jax.jit(lambda k, x: module.init({"params": k}, x, train=False,
                                             **kw))(jax.random.PRNGKey(0), x)
+
+
+def jax_aug_draws(op, key, shape, noise_dtype=None):
+    """The random draws the JAX augmentation op ``op.name`` (with the
+    keyword arguments ``op.params``) makes from ``key`` for a batch of
+    ``shape``, as the port's draws (torch tensors in the dtypes JAX draws
+    them in: float64 under x64). The splits follow each JAX op
+    (``embeddingnet_tpu/ops/augment.py``) and its helpers ``_gate`` and
+    ``_uniform``; ``noise_dtype`` is the images' dtype that ``gauss_noise``
+    draws its noise in (default: JAX's default float)."""
+    import jax.numpy as jnp
+    import torch
+    from embeddingnet_tpu.ops.augment import _gate, _uniform
+
+    def t(a):
+        return torch.from_numpy(np.array(a))
+
+    b, hh, ww = shape[:3]
+    p = op.params
+    gate = op.params["p"]
+    name = op.name
+    if name in ("clahe_tiled", "clahe_approx", "horizontal_flip",
+                "vertical_flip", "center_crop_resize", "blur3"):
+        return {"gate": t(_gate(key, gate, b))}
+    if name == "brightness_contrast":
+        r1, r2, r3 = jax.random.split(key, 3)
+        cl, bl = p["contrast_limit"], p["brightness_limit"]
+        return {"alpha": t(1.0 + _uniform(r1, b, -cl, cl)),
+                "beta": t(_uniform(r2, b, -bl, bl) * 255.0),
+                "gate": t(_gate(r3, gate, b))}
+    if name in ("random_brightness", "random_contrast", "random_gamma"):
+        r1, r2 = jax.random.split(key)
+        if name == "random_gamma":
+            lo, hi = p["gamma_limit"]
+            draws = {"gamma": t(_uniform(r1, b, lo / 100.0, hi / 100.0))}
+        elif name == "random_brightness":
+            draws = {"beta": t(_uniform(r1, b, -p["limit"], p["limit"])
+                               * 255.0)}
+        else:
+            draws = {"alpha": t(1.0 + _uniform(r1, b, -p["limit"],
+                                               p["limit"]))}
+        return {**draws, "gate": t(_gate(r2, gate, b))}
+    if name == "hue_saturation_value":
+        r1, r2, r3, r4 = jax.random.split(key, 4)
+        h, s, v = (p["hue_shift_limit"], p["sat_shift_limit"],
+                   p["val_shift_limit"])
+        return {"h_shift": t(_uniform(r1, b, -h, h)[..., 0] * 2.0),
+                "s_shift": t(_uniform(r2, b, -s, s)[..., 0] / 255.0),
+                "v_shift": t(_uniform(r3, b, -v, v)[..., 0]),
+                "gate": t(_gate(r4, gate, b))}
+    if name == "random_rotate90":
+        r1, r2 = jax.random.split(key)
+        return {"k": t(jax.random.randint(r1, (b,), 0, 4)),
+                "gate": t(_gate(r2, gate, b))}
+    if name == "random_crop":
+        ch = max(int(hh * p["scale"]), 1)
+        cw = max(int(ww * p["scale"]), 1)
+        r1, r2, r3 = jax.random.split(key, 3)
+        return {"top": t(jax.random.randint(r1, (b,), 0, hh - ch + 1)),
+                "left": t(jax.random.randint(r2, (b,), 0, ww - cw + 1)),
+                "gate": t(_gate(r3, gate, b))}
+    if name == "gauss_noise":
+        r1, r2, r3 = jax.random.split(key, 3)
+        lo, hi = p["var_limit"]
+        dtype = noise_dtype or jnp.asarray(0.0).dtype
+        return {"var": t(_uniform(r1, b, lo, hi)),
+                "noise": t(jax.random.normal(r2, tuple(shape), dtype)),
+                "gate": t(_gate(r3, gate, b))}
+    raise ValueError(f"no JAX draws for {name}")
+
+
+def jax_preset_draws(augment, key, shape):
+    """A preset's draws as the JAX ``_compose`` makes them: one key per op,
+    split from ``key``, in order."""
+    keys = jax.random.split(key, len(augment.ops))
+    return [jax_aug_draws(op, k, shape) for op, k in zip(augment.ops, keys)]

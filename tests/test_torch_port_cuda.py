@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
-(the 3x3 conv forward K1/K3, its backward K1-as-dgrad/K2/K4, the u8
-normalisation T2) against their plain PyTorch versions, and the modules
-that launch them, forward and backward.
+(the 3x3 conv forward K1/K3, its backward K1-as-dgrad/K2/K4, the conv with
+the affine-ReLU epilogue T1, the u8 normalisation T2) against their plain
+PyTorch versions, the modules that launch them, forward and backward, and
+the augmentation presets on the card against the CPU.
 They skip on a machine without a card. On the card, run them with
 
     python -m pytest tests/test_torch_port_cuda.py -q -m cuda --noconftest
@@ -18,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from embeddingnet_tpu_torch.ops import augment as aug  # noqa: E402
 from embeddingnet_tpu_torch.ops import fused_conv as fc  # noqa: E402
 from embeddingnet_tpu_torch.ops import preprocess as pre  # noqa: E402
 
@@ -224,3 +226,67 @@ def test_resnet50_kernel_path_matches_cudnn(card):
         want = plain.to(card).eval()(x)
     assert fc.LAUNCHES["conv3x3_small_bn_relu"] == 7
     torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("b,s,c", [
+    (3, 2, 512), (128, 2, 512), (1024, 2, 512), (3, 4, 256), (128, 4, 256),
+    (1024, 4, 256)])
+def test_epilogue_kernel_matches_plain(card, b, s, c):
+    """T1, relu(conv3x3(x, w)*scale + bias), against its plain version in
+    f32 and in bf16, at the shapes chip_smoke.py checks."""
+    x, w, _, _ = _inputs(11, b, s, c, c, card)
+    rng = np.random.default_rng(12)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)
+                             ).to(card)
+    bias = torch.from_numpy((rng.normal(size=c) * 0.1).astype(np.float32)
+                            ).to(card)
+    got = fc.conv3x3_small_affine_relu(x, w, scale, bias)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, s, c)
+    torch.testing.assert_close(
+        got.float(), fc._plain_conv3x3_affine_relu(x.float(), w.float(),
+                                                   scale, bias), **BF16_TOL)
+    torch.testing.assert_close(
+        got.float(), fc._plain_conv3x3_affine_relu(x, w, scale, bias).float(),
+        **BF16_TOL)
+    assert (got > 0).float().mean() > 0.3
+    assert fc.LAUNCHES == _launched(conv3x3_small_affine_relu=1)
+    with pytest.raises(RuntimeError, match="forward only"):
+        fc.conv3x3_small_affine_relu(x.clone().requires_grad_(), w, scale,
+                                     bias)
+    assert fc.LAUNCHES == _launched(conv3x3_small_affine_relu=1)
+
+
+@pytest.mark.parametrize("name", ["default", "plates", "plates2"])
+def test_augmentation_on_the_card_matches_the_cpu(card, name):
+    """Each op of the preset on the card against the CPU, from the same
+    draws (sampled on the card's generator) and the same input, to 1e-3
+    gray levels: the same f32 ops, rounded differently by the two
+    devices' pow, division and sums."""
+    x = torch.from_numpy(np.random.default_rng(13).uniform(
+        0, 255, (64, 64, 64, 3)).astype(np.float32))
+    augment = aug.get_aug(name)
+    gen = torch.Generator(device=card).manual_seed(0)
+    draws = augment.sample(x.shape, gen)
+    assert all(t.device.type == "cuda" for d in draws for t in d.values())
+    for op, d in zip(augment.ops, draws):
+        want = op.apply(x, {k: v.cpu() for k, v in d.items()})
+        got = op.apply(x.to(card), d).cpu()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-3,
+                                   msg=op.name)
+        x = want
+
+
+def test_augmentation_does_not_synchronise(card):
+    """The preset samples on the card's generator and applies with no
+    host synchronisation (CUDA's sync debug mode raises on one)."""
+    x = torch.rand((32, 64, 64, 3), device=card) * 255
+    gen = torch.Generator(device=card).manual_seed(0)
+    augment = aug.get_aug("default")
+    augment(x, gen)                     # first call: allocations, set-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = augment(x, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out).all()

@@ -2,8 +2,9 @@
 are installed: in a fresh interpreter with ``jax``, ``flax``, ``optax``,
 ``yaml``, ``cv2``, ``sklearn`` and ``triton`` blocked, every module of the
 port imports, and a small CPU encode plus kNN vote, the HTTP server's
-``/healthz`` and a small CPU triplet train step run. No file of the port
-imports the JAX package, not even inside a function."""
+``/healthz``, a small CPU triplet train step with the ``default``
+augmentation and the T1 A/B tool run. No file of the port imports the JAX
+package, not even inside a function."""
 
 import os
 import re
@@ -23,6 +24,7 @@ MODULES = [
     "embeddingnet_tpu_torch.data",
     "embeddingnet_tpu_torch.data.images",
     "embeddingnet_tpu_torch.data.samplers",
+    "embeddingnet_tpu_torch.ops.augment",
     "embeddingnet_tpu_torch.ops.distances",
     "embeddingnet_tpu_torch.ops.mining",
     "embeddingnet_tpu_torch.ops.preprocess",
@@ -99,13 +101,22 @@ from embeddingnet_tpu_torch.train.steps import make_triplet_train_step
 module = EmbeddingModule("resnet18", encodings_len=16, fast_conv=True)
 spec = get_optimizer("adam", 1e-3)
 state = TrainState.create(module, spec)
+from embeddingnet_tpu_torch.ops.augment import get_aug
 step = make_triplet_train_step(module, spec, mode="batch_all",
-                               max_positives=3)
+                               max_positives=3, augment_fn=get_aug("default"))
 labels = torch.arange(2).repeat_interleave(4)
 state, metrics = step(state, torch.from_numpy(imgs[np.arange(8) % 6]),
                       labels)
 assert state.step == 1 and torch.isfinite(metrics["loss"])
 assert int(metrics["n_triplets"]) > 0
+
+# the T1 A/B tool, plain version
+import os, runpy
+os.environ["FC_BATCH"] = "2"
+tool = runpy.run_path("tools/fused_conv_epilogue_torch.py")
+assert tool["main"](["--device", "cpu"])["max_abs_err"] == 0.0
+assert not any(m == "embeddingnet_tpu" or m.startswith("embeddingnet_tpu.")
+               for m in sys.modules), "the JAX package was imported"
 print("ok")
 """
 
@@ -125,16 +136,23 @@ _JAX_PACKAGE_IMPORT = re.compile(
 
 
 def test_port_files_never_import_the_jax_package():
-    """Static: no file of the port, nor ``chip_smoke.py`` or
-    ``tools/serve_torch.py``, imports ``embeddingnet_tpu`` (a lazy import
-    inside a function would escape the run above)."""
+    """Static: no file of the port, nor ``chip_smoke.py`` or the port's
+    tools (``tools/*_torch.py``), imports ``embeddingnet_tpu`` (a lazy import inside a function would
+    escape the run above), and the T1 tool does not import the JAX tool
+    it ports."""
     root = Path(ROOT)
     files = sorted((root / "embeddingnet_tpu_torch").rglob("*.py"))
-    files += [root / "chip_smoke.py", root / "tools" / "serve_torch.py"]
+    files += [root / "chip_smoke.py"] + [
+        root / "tools" / f"{name}.py" for name in (
+            "serve_torch", "fused_conv_epilogue_torch",
+            "augment_probe_torch")]
     assert len(files) > 20
     offenders = [str(f.relative_to(root)) for f in files
                  if _JAX_PACKAGE_IMPORT.search(f.read_text())]
     assert not offenders, offenders
+    tool = (root / "tools" / "fused_conv_epilogue_torch.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|pallas_fused_conv)\b",
+                         tool, re.M)
     # the pattern does catch such imports
     for line in ("from embeddingnet_tpu.config import parse_params",
                  "    import embeddingnet_tpu.serving",

@@ -4,8 +4,9 @@ steps.py``), from the same converted weights and batches, for one and two
 steps of ResNet-18 at 64 px (its stride-1 3x3 convs at 8x8x128, 4x4x256 and
 2x2x512: the mixed op, K1 and K3 with their backward), batch-all P-K mining
 (4 classes x 4), Adam on a step-decay schedule, BatchNorm momentum 0.9,
-with ``fast_conv`` off and on (the JAX side in Pallas interpret mode).
-Also the schedule and the preprocessing against JAX's.
+with ``fast_conv`` off and on (the JAX side in Pallas interpret mode);
+and one step with the ``default`` augmentation preset from the JAX step's
+own draws. Also the schedule and the preprocessing against JAX's.
 
 The port runs in float32. The reference is the JAX step in float64 (x64
 on, float64 variables and compute dtype; the mining casts to float32 on
@@ -25,6 +26,7 @@ import optax  # noqa: E402
 
 from embeddingnet_tpu.models.registry import \
     EmbeddingModule as JEmbeddingModule  # noqa: E402
+from embeddingnet_tpu.ops.augment import get_aug as j_get_aug  # noqa: E402
 from embeddingnet_tpu.train import optim as joptim  # noqa: E402
 from embeddingnet_tpu.train.state import TrainState as JTrainState  # noqa
 from embeddingnet_tpu.train.steps import _preprocess as j_preprocess  # noqa
@@ -32,6 +34,7 @@ from embeddingnet_tpu.train.steps import \
     make_triplet_train_step as j_make_step  # noqa: E402
 from embeddingnet_tpu_torch.models.convert import flax_to_torch  # noqa
 from embeddingnet_tpu_torch.models.registry import EmbeddingModule  # noqa
+from embeddingnet_tpu_torch.ops.augment import get_aug  # noqa: E402
 from embeddingnet_tpu_torch.ops import fused_conv as tfc  # noqa: E402
 from embeddingnet_tpu_torch.ops import preprocess as tpre  # noqa: E402
 from embeddingnet_tpu_torch.train import optim as toptim  # noqa: E402
@@ -39,7 +42,7 @@ from embeddingnet_tpu_torch.train.state import TrainState  # noqa: E402
 from embeddingnet_tpu_torch.train.steps import \
     make_triplet_train_step  # noqa: E402
 
-from _torch_port import jax_init, randomize_bn  # noqa: E402
+from _torch_port import jax_init, jax_preset_draws, randomize_bn  # noqa
 
 P, K, SIZE, D = 4, 4, 64, 32
 LR, DECAY = 1e-3, 0.5     # one-step epochs: step 2 runs at LR * DECAY
@@ -80,14 +83,14 @@ def _jax_module(fast_conv):
                             fast_conv=fast_conv, bn_momentum=0.9)
 
 
-def _jax_run(fast_conv, variables, batches):
+def _jax_run(fast_conv, variables, batches, augment_fn=None):
     """The JAX step in float64: states and metrics after each step."""
     tx = optax.adam(joptim.step_decay_schedule(LR, DECAY, 1, 1))
     with jax.enable_x64(True):
         state = JTrainState.create(
             jax.tree.map(lambda a: np.asarray(a, np.float64), variables), tx)
         step = jax.jit(j_make_step(_jax_module(fast_conv), tx, margin=0.5,
-                                   mode="batch_all",
+                                   mode="batch_all", augment_fn=augment_fn,
                                    compute_dtype=jnp.float64,
                                    max_positives=K - 1))
         out = []
@@ -99,10 +102,10 @@ def _jax_run(fast_conv, variables, batches):
     return out
 
 
-def _port_step(module, state, step, images, labels):
+def _port_step(module, state, step, images, labels, **kw):
     """One port step; (state_dict, metrics, grads, Adam moments) after it."""
     state, metrics = step(state, torch.from_numpy(images),
-                          torch.from_numpy(labels))
+                          torch.from_numpy(labels), **kw)
     return (
         {k: v.detach().clone() for k, v in module.state_dict().items()},
         {k: float(v) for k, v in metrics.items()},
@@ -359,3 +362,74 @@ def test_normalize_u8_refuses_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="uint8"):
         tpre.normalize_u8(x)
     assert tpre.LAUNCHES == {"normalize_u8": 0}
+
+
+def test_augmented_step_matches_jax():
+    """One step with the ``default`` augmentation preset: the JAX step
+    (float64) with ``augment_fn=get_aug("default")``, and the port's step
+    with ``aug_draws`` reproduced from the JAX step's augmentation key
+    (``split(state.rng, 4)[1]``), drawn as the x64 run draws them (float64,
+    so the port's augmentation promotes to float64 as JAX's does). Held as
+    the first step without augmentation is."""
+    (images, labels), = _batches(1)
+    x0 = jnp.zeros((2, SIZE, SIZE, 3), jnp.float32)
+    variables = randomize_bn(jax_init(_jax_module(False), x0,
+                                      method="init_all"))
+    (jstate, jmetrics), = _jax_run(False, variables, [(images, labels)],
+                                   augment_fn=j_get_aug("default"))
+    augment = get_aug("default")
+    with jax.enable_x64(True):
+        aug_key = jax.random.split(jax.random.PRNGKey(0), 4)[1]
+        draws = jax_preset_draws(augment, aug_key, images.shape)
+    assert draws[0]["alpha"].dtype == torch.float64
+    assert draws[-1]["noise"].dtype == torch.float64
+    assert 0 < sum(float(d["gate"].sum()) for d in draws) < 6 * P * K
+
+    module = EmbeddingModule("resnet18", encodings_len=D, bn_momentum=0.9)
+    module.load_state_dict(flax_to_torch(variables, module))
+    spec = toptim.get_optimizer(
+        "adam", toptim.step_decay_schedule(LR, DECAY, 1, 1))
+    state = TrainState.create(module, spec)
+    step = make_triplet_train_step(module, spec, margin=0.5,
+                                   mode="batch_all", augment_fn=augment,
+                                   max_positives=K - 1)
+    port = _port_step(module, state, step, images, labels, aug_draws=draws)
+    _assert_metrics(port[1], jmetrics, RTOL)
+    want = flax_to_torch(jstate.variables, module)
+    _assert_batch_stats(port[0], want, RTOL)
+    _assert_grads_and_moments(module, port, jstate)
+    _assert_first_step_parameters(module, port[0], want, port[2])
+
+    # the augmentation moved the step: the same batch without it differs
+    plain = EmbeddingModule("resnet18", encodings_len=D, bn_momentum=0.9)
+    plain.load_state_dict(flax_to_torch(variables, plain))
+    plain_state = TrainState.create(plain, spec)
+    plain_step = make_triplet_train_step(plain, spec, margin=0.5,
+                                         mode="batch_all",
+                                         max_positives=K - 1)
+    _, metrics = plain_step(plain_state, torch.from_numpy(images),
+                            torch.from_numpy(labels))
+    assert abs(float(metrics["loss"]) - port[1]["loss"]) > 1e-4
+
+
+def test_augmented_step_draws_from_the_state_generator():
+    """Without ``aug_draws`` the step samples the preset from
+    ``state.generator``: two states seeded alike take the same step, and
+    the generator advances."""
+    (images, labels), = _batches(1)
+    results = []
+    for _ in range(2):
+        torch.manual_seed(0)
+        module = EmbeddingModule("resnet18", encodings_len=D)
+        spec = toptim.get_optimizer("adam", 1e-3)
+        state = TrainState.create(module, spec)
+        assert state.generator.device == torch.device("cpu")
+        before = state.generator.get_state().clone()
+        step = make_triplet_train_step(module, spec, mode="batch_all",
+                                       augment_fn=get_aug("default"),
+                                       max_positives=K - 1)
+        _, metrics = step(state, torch.from_numpy(images),
+                          torch.from_numpy(labels))
+        assert not torch.equal(state.generator.get_state(), before)
+        results.append(float(metrics["loss"]))
+    assert np.isfinite(results[0]) and results[0] == results[1]
