@@ -12,10 +12,11 @@ each through the hand-written kernels.
    at its first launch.
 3. Kernel phase: each kernel against its plain PyTorch version on the same
    inputs, in f32 with TF32 off, at the shapes ResNet-50 at 64x64 gives it
-   (the forward K3/K1 at B = 3, 32, 256 and 1024; the backward K1-as-dgrad,
-   K2, K4 and the normalisation T2 at B = 1024 and the conv kernels at
-   B = 8; T1, the conv with the affine-ReLU epilogue, at B = 3, 128 and
-   1024 at S=2, C=512 and S=4, C=256, against the f32 and the bf16 plain
+   (the forward K3/K1 at B = 3, 32, 256 and 1024, K1 at 8x8 too; the
+   backward K1-as-dgrad, K2, K4 and the normalisation T2 at B = 1024 and
+   the conv kernels at B = 8 and the ragged B = 37, K2 at all three
+   training shapes; T1, the conv with the affine-ReLU epilogue, at B = 3,
+   128 and 1024 at S=2, C=512 and S=4, C=256, against the f32 and the bf16 plain
    version), each check printed with its tolerance and its worst ratio to
    it. Times with CUDA events, against the plain version in bf16 and, where
    one PyTorch call computes the same function, against that call (for T1,
@@ -60,7 +61,8 @@ T2; the A/B tool's run for T1), its worst error, and ``ms`` / ``plain_ms``
 / ``bound_ms`` / ``library_ms``, the device time of the kernel, its plain
 version, the card's bound and the library call, summed over the calls one
 training step makes at B = 1024 (T1: one call at B = 1024, S = 2, C = 512);
-K3's serving numbers (per B=32 forward) are under ``serve``. The line
+K3's serving numbers (per B=32 forward) are under ``serve``; K1 as the
+dgrad and K2 add ``library_ratio``, their ``ms`` over ``library_ms``. The line
 before that is the card's name and power limit. Any failure raises, and
 the script exits non-zero without the last line.
 """
@@ -95,12 +97,13 @@ SEED = 0
 DEVICE = "cuda"
 CONV_SRC = "embeddingnet_tpu_torch/csrc/fused_conv3x3.cu"
 WGRAD_SRC = "embeddingnet_tpu_torch/csrc/conv3x3_wgrad.cu"
+SM90_SRC = "embeddingnet_tpu_torch/csrc/conv3x3_sm90.cu"
 JAX_CONV = "embeddingnet_tpu/ops/fused_conv.py"
 # name -> (route, source, the TPU kernel it replaces)
 KERNELS = {
     "conv3x3_small_bn_relu": ("cuda", CONV_SRC, f"{JAX_CONV}:556"),
-    "conv3x3_dgrad": ("cuda", CONV_SRC, f"{JAX_CONV}:200"),
-    "conv3x3_wgrad": ("cuda", WGRAD_SRC, f"{JAX_CONV}:225"),
+    "conv3x3_dgrad": ("cuda", SM90_SRC, f"{JAX_CONV}:200"),
+    "conv3x3_wgrad": ("cuda", SM90_SRC, f"{JAX_CONV}:225"),
     "conv3x3_wgrad_bn_relu": ("cuda", WGRAD_SRC, f"{JAX_CONV}:575"),
     "normalize_u8": ("triton", "embeddingnet_tpu_torch/ops/preprocess.py",
                      "tools/perf_probe3.py:63"),
@@ -108,8 +111,11 @@ KERNELS = {
                                   "tools/pallas_fused_conv.py:39"),
     # K1's forward: built and checked, but ResNet-50 does not reach it (its
     # stride-1 3x3 convs all follow a BatchNorm, so all are fused)
-    "conv3x3_small": ("cuda", CONV_SRC, f"{JAX_CONV}:200"),
+    "conv3x3_small": ("cuda", SM90_SRC, f"{JAX_CONV}:200"),
 }
+# the kernels whose per-step time is held to one library call's
+# (kernel ms / library ms in the kernels line)
+LIBRARY_RATIO = ("conv3x3_dgrad", "conv3x3_wgrad")
 # T1's path: the A/B tool at its own batch, stage 4's shape
 TOOL = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
                     "fused_conv_epilogue_torch.py")
@@ -125,6 +131,7 @@ FUSED_SHAPES = [(4, 256, 5), (2, 512, 2)]
 SERVE_BATCHES = [3, 32, 256]
 TRAIN_BATCH = 1024
 SMALL_BATCH = 8     # JAX's 8x8 gate needs a multiple of 8
+RAGGED_BATCH = 37   # fills no 128-row tile and no 64-position chunk
 # per training step at B = 1024: kernel -> [(S, C, calls)]
 PER_STEP = {
     "conv3x3_small_bn_relu": FUSED_SHAPES,
@@ -294,7 +301,7 @@ def forward_kernel_phase(records):
     """K3 and K1's forward against their plain version, at the serving
     batches and the training batch."""
     rng = np.random.default_rng(SEED)
-    for s, c, _ in FUSED_SHAPES:
+    for s, c, _ in MIXED_SHAPES + FUSED_SHAPES:
         w32 = _tensor(rng, (3, 3, c, c), 0.05)
         scale, bias = _affine(rng, c)
         w = w32.bfloat16()
@@ -303,7 +310,9 @@ def forward_kernel_phase(records):
         w_lib = w.permute(3, 2, 0, 1).contiguous()
         for b in SERVE_BATCHES + [TRAIN_BATCH]:
             x = _tensor(rng, (b, s, s, c)).bfloat16()
-            for name in ("conv3x3_small_bn_relu", "conv3x3_small"):
+            names = ("conv3x3_small",) if s == 8 else (
+                "conv3x3_small_bn_relu", "conv3x3_small")
+            for name in names:
                 if name == "conv3x3_small_bn_relu":
                     run = lambda: fc.conv3x3_small_bn_relu(  # noqa: E731
                         x, w, scale, bias)
@@ -352,7 +361,7 @@ def backward_kernel_phase(records):
         w = _tensor(rng, (3, 3, c, c), 0.05).bfloat16()
         w_lib = w.permute(3, 2, 0, 1).contiguous()
         scale, bias = _affine(rng, c)
-        for b in (TRAIN_BATCH, SMALL_BATCH):
+        for b in (TRAIN_BATCH, SMALL_BATCH, RAGGED_BATCH):
             x = _tensor(rng, (b, s, s, c)).bfloat16()
             g = _tensor(rng, (b, s, s, c)).bfloat16()
             x_lib, g_lib = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
@@ -368,33 +377,35 @@ def backward_kernel_phase(records):
                       lambda: F.conv_transpose2d(g_lib, w_lib, padding=1),
                       max_err, worst)
 
-            # K2 at 8x8 (the mixed op), K4 at 4x4 and 2x2 (the fused op)
-            if s == 8:
-                name, z = "conv3x3_wgrad", x
-                run = lambda: fc.conv3x3_wgrad(x, g)  # noqa: E731
-                plain = lambda: fc._plain_wgrad(x, g)  # noqa: E731
-                library = lambda: torch.ops.aten.convolution_backward(  # noqa
-                    g_lib, x_lib, w_lib, None, [1, 1], [1, 1], [1, 1],
-                    False, [0, 0], 1, [False, True, False])
-            else:
-                name, z = ("conv3x3_wgrad_bn_relu",
-                           fc._affine_relu(x, scale, bias))
-                run = lambda: fc.conv3x3_wgrad_bn_relu(  # noqa: E731
-                    x, g, scale, bias)
-                plain = lambda: fc._plain_wgrad_bn_relu(  # noqa: E731
-                    x, g, scale, bias)
-                library = None
-            want = fc._plain_wgrad(z.float(), g.float())
-            got = run()
-            if s == 8:
-                det = torch.equal(got, run())
-                if not det:
+            # K2 (on the step at 8x8, the mixed op) at every training
+            # shape; K4 at 4x4 and 2x2 (the fused op)
+            names = ["conv3x3_wgrad"] + (["conv3x3_wgrad_bn_relu"] if s != 8
+                                         else [])
+            for name in names:
+                if name == "conv3x3_wgrad":
+                    z = x
+                    run = lambda: fc.conv3x3_wgrad(x, g)  # noqa: E731
+                    plain = lambda: fc._plain_wgrad(x, g)  # noqa: E731
+                    library = lambda: (  # noqa: E731
+                        torch.ops.aten.convolution_backward(
+                            g_lib, x_lib, w_lib, None, [1, 1], [1, 1],
+                            [1, 1], False, [0, 0], 1, [False, True, False]))
+                else:
+                    z = fc._affine_relu(x, scale, bias)
+                    run = lambda: fc.conv3x3_wgrad_bn_relu(  # noqa: E731
+                        x, g, scale, bias)
+                    plain = lambda: fc._plain_wgrad_bn_relu(  # noqa: E731
+                        x, g, scale, bias)
+                    library = None
+                want = fc._plain_wgrad(z.float(), g.float())
+                got = run()
+                if not torch.equal(got, run()):
                     raise AssertionError(f"{name}: two launches differ")
-            max_err, worst = _check(
-                f"{name} B={b} S={s} C={c}", got, want,
-                WGRAD_REL * want.abs().max().item(), 0.0)
-            _time_row(records, name, b, s, c, run, plain, library, max_err,
-                      worst)
+                max_err, worst = _check(
+                    f"{name} B={b} S={s} C={c}", got, want,
+                    WGRAD_REL * want.abs().max().item(), 0.0)
+                _time_row(records, name, b, s, c, run, plain, library,
+                          max_err, worst)
 
     # T2: u8 [1024, 64, 64, 3] -> bf16 x / 255, exact
     x = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, 64, 64, 3),
@@ -1037,6 +1048,8 @@ def main():
         entry = {"name": name, "route": route, "source": source,
                  "replaces": replaces, "launches": launches,
                  "max_abs_err": rec["max_abs_err"], **sums, "per": per}
+        if name in LIBRARY_RATIO:
+            entry["library_ratio"] = sums["ms"] / sums["library_ms"]
         if name == "conv3x3_small_bn_relu":
             entry["serve"] = {"launches": serve_launches[name],
                               "per": "serving forward, B=32",

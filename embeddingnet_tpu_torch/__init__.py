@@ -2,11 +2,13 @@
 
 The JAX package beside it is the reference: every module here mirrors the
 module of the same name there, and the tests run both on the same inputs.
-This slice ports serving: uint8 images -> ResNet encoder -> L2-normalised
+It covers serving (uint8 images -> ResNet encoder -> L2-normalised
 embedding -> kNN vote over the encodings DB, behind the micro-batching
-:class:`embeddingnet_tpu_torch.serving.InferenceEngine`. The fused
-BN-ReLU 3x3 conv of the ResNet's late stages is a CUDA kernel written for
-Hopper (``csrc/fused_conv3x3.cu``).
+:class:`embeddingnet_tpu_torch.serving.InferenceEngine`) and the triplet
+training step with its augmentation. The small-map 3x3 convs of the
+ResNet's late stages, forward and backward, are CUDA kernels written for
+Hopper (``csrc/``: ``conv3x3_sm90.cu``, ``fused_conv3x3.cu``,
+``conv3x3_wgrad.cu``).
 
 Importing the package loads nothing heavy; import the submodules.
 """

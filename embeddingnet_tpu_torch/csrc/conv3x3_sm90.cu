@@ -1,0 +1,670 @@
+// Stride-1 SAME 3x3 convolution on a small square NHWC map, its input
+// gradient and its weight gradient, as TMA-fed wgmma implicit GEMMs for
+// Hopper (sm_90a).
+//
+// Replaces two Pallas TPU kernels of embeddingnet_tpu/ops/fused_conv.py:
+//   conv3x3_sm90_kernel<false> -> _fwd_kernel (K1, via _conv_fwd_impl):
+//                                 out = conv3x3(x, w)
+//   conv3x3_sm90_kernel<true>  -> _fwd_kernel as the input gradient
+//                                 (_conv_vjp_bwd): dx = conv3x3(g, flip(w)),
+//                                 reading w as it stands
+//   conv3x3_wgrad_sm90_kernel  -> _wgrad_kernel (K2, via _wgrad_impl):
+//                                 dW[t] = sum_m x_pad[shift t]^T g
+// x [B, S, S, Cin] bf16 NHWC, w [3, 3, Cin, Cout] bf16 (HWIO), g
+// [B, S, S, Cout] bf16; out and dx bf16, dW [3, 3, Cin, Cout] f32. S in
+// {2, 4, 8}, Cin and Cout multiples of 128 (the wrapper's gate), any B >= 1.
+// Accumulation is f32 in registers; each output is summed in one fixed
+// order, with no atomics, so every result is the same bit for bit from
+// launch to launch.
+//
+// The conv (forward and dgrad) is the GEMM [M = B*S*S, K = 9*Ck] x [K, N],
+// M in NHWC order, K tap-major, in output tiles of kRows (128 or 256, the
+// wrapper's choice) by 128. The grid is persistent: one block per SM walks
+// the tiles `ctas` apart. In a block, two consumer warpgroups each run
+// wgmma m64n128k16 on kRows/2 of a tile's rows, and one producer thread
+// keeps a ring of kStages stages of TMA loads in flight, each stage one
+// 64-wide K chunk (kRows x 128 bytes of A, 16 KB of B), with a full and an
+// empty mbarrier per stage. The consumers keep one wgmma group in flight
+// and release a stage when the group that read it has completed; the
+// producer runs on into the next tile while the consumers store this one,
+// so a tile's pipeline fill and epilogue overlap its neighbours'.
+//
+// The A tile is one TMA box of a 4-D tensor map over the activation,
+// innermost first (C, W, H, B): a box [64, S, S, kRows/(S*S)] is kRows
+// output positions in NHWC order by 64 channels, the K-major A tile,
+// 128-byte swizzled. For tap (dy, dx) the producer loads the box at (c0,
+// dx-1, dy-1, b0): TMA writes zeros for every coordinate outside the
+// tensor, negative ones included, which is SAME padding, and for the rows
+// past a ragged batch. The B operand comes from a 2-D map over w seen as [9*Cin, Cout] in
+// boxes of 64x64: for the forward, B[k = (t, ci), n = co] = w[t, ci, co] is
+// N-major (wgmma's transpose bit for B); for the dgrad,
+// B[k = (t, co), n = ci] = w[8-t, ci, co] is K-major, wgmma's native B
+// layout, with the tap reversed in the producer's coordinates, so the
+// flipped, transposed weight is never made. The epilogue rounds the
+// accumulators to bf16 and stores them from registers, rows past the batch
+// masked.
+//
+// The weight gradient is dW [9*Cin, Cout] = A^T G reduced over the M
+// positions. A block owns a 128x128 dW tile within one tap and reduces its
+// part of M in chunks of 64 positions: the A tile is two boxes of the same
+// 4-D map at the tap's shift ([64, S, S, 64/(S*S)], channels contiguous:
+// the M-major A operand, wgmma's transpose bit for A), G two 64x64 boxes of
+// a 2-D map over g [B*S*S, Cout] (N-major B). The positions are split into
+// `parts` parts (grid.z); each part writes an f32 partial and
+// conv3x3_sum_parts_kernel adds the parts in a fixed order. The wrapper
+// picks the parts (ops/fused_conv.py, plan_sm90) so that the blocks fill
+// whole waves of the card's SMs.
+//
+// TMA needs 16-byte aligned bases and strides: the wrapper checks the
+// pointers, and channels that are multiples of 128 make every stride a
+// multiple of 256 bytes. The inner box is 64 bf16 = 128 bytes, the span of
+// the 128-byte swizzle; every box dimension is at most 256. The tensor maps
+// are encoded on the host at every launch (activations move between calls)
+// and passed as __grid_constant__ parameters. cuTensorMapEncodeTiled is
+// resolved through cudaGetDriverEntryPoint, so nothing beyond the CUDA
+// runtime is linked.
+//
+// What bounds it on an H100: 2*B*S*S*9*Cin*Cout FLOPs, 19.3 GFLOP at every
+// training shape at B = 1024, against about 10 MB read and written: the
+// tensor cores, 19.5 us at the dense bf16 peak. Measured (NVIDIA H100 80GB
+// HBM3, 700 W; PERF.md) the mainloop with 128-row tiles runs a 64-wide
+// chunk in about 0.49 us against 0.28 at the peak, loading 32 KB per chunk
+// per SM: the L2-to-SM traffic bounds it. 256-row tiles load a quarter less
+// per product, so the wrapper takes them where they still give a block to
+// 90% of the SMs (S = 4 and 8 at B = 1024); at S = 2 there are only 128
+// tiles of 128 rows. Deeper rings (5, 6 stages) gained nothing measurable.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 128;           // output columns (and K2's rows) a block
+constexpr int kChunk = 64;           // K per stage (bf16: one 128-byte row)
+constexpr int kStages = 4;           // depth of the TMA ring
+constexpr int kHalfBytes = 64 * 128;             // one 64x64 bf16 box
+constexpr int kBBytes = 2 * kHalfBytes;          // a stage's B (16 KB)
+constexpr int kThreads = 384;        // two consumer warpgroups, a producer
+constexpr int kMaxDevices = 64;
+
+// A stage: A (rows x 128 bytes) then B; the dynamic shared memory of a ring
+// of such stages, with room to align it to 1024 bytes.
+__host__ __device__ constexpr int stage_bytes(int rows) {
+  return rows * 128 + kBBytes;
+}
+__host__ __device__ constexpr int smem_bytes(int rows) {
+  return kStages * stage_bytes(rows) + 1024;
+}
+
+// ---------------------------------------------------------------------------
+// PTX wrappers: mbarriers, TMA, wgmma.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Waits until the barrier's phase differs from `parity`. A wait that lasts
+// seconds (a fault in the ring) traps, so that the launch fails instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t start = 0;
+  for (uint32_t polls = 1; !done; ++polls) {
+    if ((polls & 0xFFFF) == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+      if (start == 0) {
+        start = now;
+      } else if (now - start > 4000000000ull) {
+        __trap();
+      }
+    }
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand (the
+// layout TMA's CU_TENSOR_MAP_SWIZZLE_128B writes into a 1024-byte aligned
+// buffer). K-major: `lbo` unused (1), `sbo` the 1024 bytes between groups of
+// eight 128-byte rows. M/N-major: `lbo` the bytes between 64-wide M/N
+// blocks, `sbo` the bytes between groups of eight K rows.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// d[64x128] += A[64x16] B[16x128], bf16 in, f32 accumulators. kTransA /
+// kTransB: 0 K-major, 1 M/N-major.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+// The ring's shared memory: kStages stages of [A kRows x 128 bytes | B
+// 16 KB], 1024-byte aligned for the 128-byte swizzle, and the full/empty
+// barriers.
+template <int kRows>
+struct Ring {
+  uint32_t tiles;
+  uint32_t full;
+  uint32_t empty;
+  __device__ uint32_t a(int stage) const {
+    return tiles + stage * stage_bytes(kRows);
+  }
+  __device__ uint32_t b(int stage) const { return a(stage) + kRows * 128; }
+  __device__ uint32_t full_bar(int stage) const { return full + 8 * stage; }
+  __device__ uint32_t empty_bar(int stage) const { return empty + 8 * stage; }
+};
+
+template <int kRows>
+__device__ __forceinline__ Ring<kRows> make_ring(uint8_t* smem_raw,
+                                                 uint64_t* full,
+                                                 uint64_t* empty) {
+  Ring<kRows> r;
+  r.tiles = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  r.full = smem_u32(full);
+  r.empty = smem_u32(empty);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(r.full_bar(i), 1);       // the producer's expect_tx arrival
+      mbar_init(r.empty_bar(i), 2);      // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// The consumer side of the ring: the next `chunks` stages from (stage,
+// phase), which it advances, each multiplied by `mma(stage)`; one wgmma
+// group stays in flight, and a stage is released once the group that read
+// it has completed.
+template <int kRows, class Mma>
+__device__ __forceinline__ void consume(const Ring<kRows>& ring, int chunks,
+                                        int& stage, uint32_t& phase,
+                                        Mma mma) {
+  const bool signals = threadIdx.x % 128 == 0;
+  int prev = stage;
+  for (int kc = 0; kc < chunks; ++kc) {
+    mbar_wait(ring.full_bar(stage), phase);
+    wgmma_fence();
+    mma(stage);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (kc > 0 && signals) mbar_arrive(ring.empty_bar(prev));
+    prev = stage;
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  if (chunks > 0 && signals) mbar_arrive(ring.empty_bar(prev));
+}
+
+// ---------------------------------------------------------------------------
+// The conv: forward (kDgrad = false) and input gradient (kDgrad = true).
+// act_map: 4-D over the input activation [B, S, S, Ck]; w_map: 2-D over
+// w [9*Cin_w, Cout_w] in 64x64 boxes. Ck = Cin_w for the forward and
+// Cout_w for the dgrad; the output has N = Cout_w (forward) or Cin_w
+// (dgrad) channels.
+// ---------------------------------------------------------------------------
+
+template <bool kDgrad, int kRows>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap act_map,
+                    const __grid_constant__ CUtensorMap w_map,
+                    __nv_bfloat16* __restrict__ out, int batch, int s,
+                    int ck, int n_total, int cin_w, int m_tiles) {
+  constexpr int kSub = kRows / 128;    // m64 products per warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  const Ring<kRows> ring = make_ring<kRows>(smem_raw, full, empty);
+
+  const int m_total = batch * s * s;
+  const int images = kRows / (s * s);          // the A box's batch extent
+  const int tiles = m_tiles * (n_total / kTile);
+  const int per_tap = ck / kChunk;
+  const int chunks = 9 * per_tap;
+  const int wg = threadIdx.x / 128;
+  // The block walks tiles blockIdx.x, blockIdx.x + gridDim.x, ...; the M
+  // tile is the fast index, so the blocks at work share weight slices.
+  int stage = 0;
+  uint32_t phase = 0;
+
+  if (wg == 2) {
+    // Producer: one thread starts every load, running ahead into the next
+    // tile while the consumers store this one.
+    if (threadIdx.x != 256) return;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int b0 = (tile % m_tiles) * images;
+      const int n0 = (tile / m_tiles) * kTile;
+      for (int kc = 0; kc < chunks; ++kc) {
+        const int t = kc / per_tap;
+        const int c0 = (kc - t * per_tap) * kChunk;
+        const uint32_t bar = ring.full_bar(stage);
+        mbar_wait(ring.empty_bar(stage), phase ^ 1);
+        mbar_expect_tx(bar, stage_bytes(kRows));
+        tma_load_4d(ring.a(stage), &act_map, bar, c0, t % 3 - 1, t / 3 - 1,
+                    b0);
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t dst = ring.b(stage) + h * kHalfBytes;
+          if (kDgrad) {
+            // B[(t, co), ci] = w[8 - t, ci, co]: rows of ci, co contiguous
+            tma_load_2d(dst, &w_map, bar, c0, (8 - t) * cin_w + n0 + 64 * h);
+          } else {
+            // B[(t, ci), co] = w[t, ci, co]: rows of k, co contiguous
+            tma_load_2d(dst, &w_map, bar, n0 + 64 * h, t * ck + c0);
+          }
+        }
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg multiplies the kSub 64-row blocks wg*kSub ..
+  // of a tile, each against the whole 128-wide B.
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float acc[kSub][64];
+#pragma unroll
+    for (int u = 0; u < kSub; ++u)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[u][i] = 0.0f;
+    consume(ring, chunks, stage, phase, [&](int slot) {
+#pragma unroll
+      for (int k = 0; k < kChunk / 16; ++k) {
+        // B: for the dgrad K-major, 128 rows of n; for the forward N-major,
+        // two 64-wide N blocks 8 KB apart, 16 K rows = 2 KB
+        const uint64_t db =
+            kDgrad ? smem_desc(ring.b(slot) + 32 * k, 16, 1024)
+                   : smem_desc(ring.b(slot) + 2048 * k, kHalfBytes, 1024);
+#pragma unroll
+        for (int u = 0; u < kSub; ++u) {
+          // A: K-major, 128-byte rows; a 16-wide K step is 32 bytes in.
+          const uint64_t da = smem_desc(
+              ring.a(slot) + (wg * kSub + u) * kHalfBytes + 32 * k, 16, 1024);
+          wgmma_m64n128k16<0, kDgrad ? 0 : 1>(acc[u], da, db);
+        }
+      }
+    });
+
+    // Epilogue: acc[u][4j + 2h + e] is row 16*warp + lane/4 + 8h, column
+    // 8j + 2*(lane%4) + e of the warpgroup's u-th 64x128 block.
+    const int m0 = (tile % m_tiles) * kRows;
+    const int n0 = (tile / m_tiles) * kTile;
+#pragma unroll
+    for (int u = 0; u < kSub; ++u) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m =
+            m0 + 64 * (wg * kSub + u) + 16 * warp + lane / 4 + 8 * h;
+        if (m >= m_total) continue;
+        __nv_bfloat16* row = out + static_cast<size_t>(m) * n_total + n0 +
+                             2 * (lane % 4);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+              __floats2bfloat162_rn(acc[u][4 * j + 2 * h],
+                                    acc[u][4 * j + 2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The weight gradient. x_map: 4-D over x [B, S, S, Cin] in boxes of 64
+// positions; g_map: 2-D over g [B*S*S, Cout] in 64x64 boxes. Block
+// (blockIdx.x, blockIdx.y) owns dW rows 128*x .. (within one tap) and
+// columns 128*y ..; part blockIdx.z reduces chunks [z*per_part, ...).
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_wgrad_sm90_kernel(const __grid_constant__ CUtensorMap x_map,
+                          const __grid_constant__ CUtensorMap g_map,
+                          float* __restrict__ dst, int batch, int s, int cin,
+                          int cout, int per_part) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  const Ring<kTile> ring = make_ring<kTile>(smem_raw, full, empty);
+
+  const int ss = s * s;
+  const int chunks_total = (batch * ss + kChunk - 1) / kChunk;
+  const int first = blockIdx.z * per_part;
+  const int chunks = max(0, min(chunks_total, first + per_part) - first);
+  const int k0 = blockIdx.x * kTile;
+  const int t = k0 / cin;
+  const int c0 = k0 - t * cin;
+  const int n0 = blockIdx.y * kTile;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {
+    if (threadIdx.x != 256) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kc = 0; kc < chunks; ++kc) {
+      const int p0 = (first + kc) * kChunk;        // first position
+      mbar_wait(ring.empty_bar(stage), phase ^ 1);
+      mbar_expect_tx(ring.full_bar(stage), stage_bytes(kTile));
+      for (int h = 0; h < 2; ++h) {
+        tma_load_4d(ring.a(stage) + h * kHalfBytes, &x_map,
+                    ring.full_bar(stage), c0 + 64 * h, t % 3 - 1, t / 3 - 1,
+                    p0 / ss);
+        tma_load_2d(ring.b(stage) + h * kHalfBytes, &g_map,
+                    ring.full_bar(stage), n0 + 64 * h, p0);
+      }
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  int stage = 0;
+  uint32_t phase = 0;
+  consume(ring, chunks, stage, phase, [&](int slot) {
+#pragma unroll
+    for (int k = 0; k < kChunk / 16; ++k) {
+      // A^T: this warpgroup's 64 channels are one M-major block (positions
+      // are rows of 128 bytes); 16 positions = 2 KB.
+      const uint64_t da =
+          smem_desc(ring.a(slot) + wg * kHalfBytes + 2048 * k, kHalfBytes,
+                    1024);
+      // G: N-major, two 64-wide N blocks 8 KB apart
+      const uint64_t db =
+          smem_desc(ring.b(slot) + 2048 * k, kHalfBytes, 1024);
+      wgmma_m64n128k16<1, 1>(acc, da, db);
+    }
+  });
+
+  float* part = dst + static_cast<size_t>(blockIdx.z) * 9 * cin * cout;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = k0 + 64 * wg + 16 * warp + lane / 4 + 8 * h;
+    float* row = part + static_cast<size_t>(r) * cout + n0 + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      *reinterpret_cast<float2*>(row + 8 * j) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// dW = sum of the parts' partials, added in part order.
+__global__ void conv3x3_sum_parts_kernel(const float4* __restrict__ parts,
+                                         float4* __restrict__ out,
+                                         int n_parts, int n4) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  float4 acc = parts[i];
+  for (int p = 1; p < n_parts; ++p) {
+    const float4 v = parts[static_cast<size_t>(p) * n4 + i];
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  out[i] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// Host side: tensor maps and launches.
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// bf16, 128-byte swizzle, zeros outside the tensor. dims/box innermost
+// first; strides in bytes of dims 1.. .
+bool encode(CUtensorMap* map, const void* base, int rank,
+            const cuuint64_t* dims, const cuuint64_t* strides,
+            const cuuint32_t* box) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+            const_cast<void*>(base), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// 4-D map over an NHWC activation [batch, s, s, c], boxes of 64 channels by
+// `images` whole maps.
+bool encode_act(CUtensorMap* map, const void* base, int batch, int s, int c,
+                int images) {
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)s, (cuuint64_t)s,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)s * c * 2,
+                                 (cuuint64_t)s * s * c * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)s, (cuuint32_t)s,
+                             (cuuint32_t)images};
+  return encode(map, base, 4, dims, strides, box);
+}
+
+// 2-D map over a row-major [rows, cols] matrix, 64x64 boxes.
+bool encode_matrix(CUtensorMap* map, const void* base, int rows, int cols) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, 64};
+  return encode(map, base, 2, dims, strides, box);
+}
+
+// Lifts the kernel's dynamic shared memory limit to `bytes`, once per
+// device, and launches it on `grid` with `args`.
+template <class... Params, class... Args>
+cudaError_t launch(void (*kernel)(Params...), bool (&ready)[kMaxDevices],
+                   int bytes, dim3 grid, cudaStream_t stream,
+                   Args&&... args) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !ready[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) ready[dev] = true;
+  }
+  kernel<<<grid, kThreads, bytes, stream>>>(static_cast<Args&&>(args)...);
+  return cudaGetLastError();
+}
+
+template <bool kDgrad, int kRows>
+cudaError_t launch_conv(const CUtensorMap& act_map, const CUtensorMap& w_map,
+                        __nv_bfloat16* out, int batch, int s, int ck,
+                        int n_total, int cin_w, int m_tiles, int ctas,
+                        cudaStream_t stream) {
+  static bool ready[kMaxDevices];
+  return launch(conv3x3_sm90_kernel<kDgrad, kRows>, ready,
+                smem_bytes(kRows), dim3(ctas), stream, act_map, w_map, out,
+                batch, s, ck, n_total, cin_w, m_tiles);
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes. Each launches on `stream`, does
+// not synchronise, and returns cudaGetLastError() of its launches (0 =
+// launched; -1 = a tile height other than 128 or 256; -2 = a tensor map
+// could not be encoded). The caller has checked shapes, dtypes, contiguity
+// and 16-byte alignment.
+
+// The conv with the weight w [3, 3, cin_w, cout_w]: dgrad = 0: out [batch,
+// s, s, cout_w] = conv3x3(x [batch, s, s, cin_w], w); dgrad = 1: out
+// [batch, s, s, cin_w] = conv3x3(x [batch, s, s, cout_w], flip(w)), the
+// input gradient for the output gradient x. The output is cut into tiles
+// of `rows` (128 or 256) by 128, which `ctas` persistent blocks share (at
+// most one block per SM: more are idle).
+extern "C" int embn_conv3x3_sm90(const void* x, const void* w, void* out,
+                                 int batch, int s, int cin_w, int cout_w,
+                                 int dgrad, int rows, int ctas,
+                                 void* stream) {
+  if (rows != 128 && rows != 256) return -1;
+  const int ck = dgrad ? cout_w : cin_w;
+  const int n_total = dgrad ? cin_w : cout_w;
+  const int images = rows / (s * s);
+  const int m_tiles = (batch + images - 1) / images;
+  CUtensorMap act_map, w_map;
+  if (!encode_act(&act_map, x, batch, s, ck, images) ||
+      !encode_matrix(&w_map, w, 9 * cin_w, cout_w)) {
+    return -2;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+  const auto conv = dgrad ? (rows == 256 ? launch_conv<true, 256>
+                                         : launch_conv<true, 128>)
+                          : (rows == 256 ? launch_conv<false, 256>
+                                         : launch_conv<false, 128>);
+  return static_cast<int>(conv(act_map, w_map, ob, batch, s, ck, n_total,
+                               cin_w, m_tiles, ctas, st));
+}
+
+// dW [3, 3, cin, cout] f32 of the conv of x [batch, s, s, cin] for the
+// output gradient g [batch, s, s, cout]. The positions are reduced in
+// `parts` parts of `per_part` 64-position chunks; with more than one part,
+// `ws` holds the [parts, 9*cin, cout] f32 partials that are then added in
+// part order into `out`.
+extern "C" int embn_conv3x3_wgrad_sm90(const void* x, const void* g,
+                                       void* ws, void* out, int batch, int s,
+                                       int cin, int cout, int parts,
+                                       int per_part, void* stream) {
+  CUtensorMap x_map, g_map;
+  if (!encode_act(&x_map, x, batch, s, cin, kChunk / (s * s)) ||
+      !encode_matrix(&g_map, g, batch * s * s, cout)) {
+    return -2;
+  }
+  static bool ready[kMaxDevices];
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* dst = static_cast<float*>(parts > 1 ? ws : out);
+  const cudaError_t err = launch(
+      conv3x3_wgrad_sm90_kernel, ready, smem_bytes(kTile),
+      dim3(9 * cin / kTile, cout / kTile, parts), st, x_map, g_map, dst,
+      batch, s, cin, cout, per_part);
+  if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
+  const int n4 = 9 * cin * cout / 4;
+  conv3x3_sum_parts_kernel<<<(n4 + 255) / 256, 256, 0, st>>>(
+      static_cast<const float4*>(ws), static_cast<float4*>(out), parts, n4);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,13 +1,11 @@
-// Weight gradient of the stride-1 SAME 3x3 convolution on a small square
-// NHWC map, with an optional BatchNorm-apply + ReLU prologue, for Hopper
-// (sm_90a).
+// Weight gradient of the stride-1 SAME 3x3 convolution of relu(x * scale +
+// bias) on a small square NHWC map, for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of embeddingnet_tpu/ops/fused_conv.py:
-//   kPrologue = false -> _wgrad_kernel    (via _wgrad_impl):
-//                        dW[t] = sum_m x_pad[shift t]^T g
-//   kPrologue = true  -> _wgrad_bn_kernel (via _wgrad_bn_impl):
-//                        the same with x replaced by relu(x * scale + bias),
-//                        recomputed from the raw x (never stored)
+// Replaces _wgrad_bn_kernel (K4, via _wgrad_bn_impl) of
+// embeddingnet_tpu/ops/fused_conv.py: dW[t] = sum_m z_pad[shift t]^T g with
+// z = relu(x * scale + bias) recomputed from the raw x (never stored). The
+// plain weight gradient (K2) is csrc/conv3x3_sm90.cu's; this entry point
+// refuses prologue = 0.
 // x [B, S, S, Cin] bf16 NHWC, g [B, S, S, Cout] bf16 (the output gradient),
 // scale/bias [Cin] f32; dW [3, 3, Cin, Cout] f32 (HWIO), which the caller
 // rounds once to the weight's dtype. S in {2, 4, 8}, Cin and Cout multiples
@@ -20,7 +18,7 @@
 // tap, zero where the tap falls off the map) and G the [M, Cout] output
 // gradient. Each block owns a 64x64 tile of dW and reduces over its share
 // of the M rows in chunks of 64: per chunk it stages the 64 shifted input
-// rows of its tap (the prologue applied to the in-map taps only, so the
+// rows of its tap (the affine applied to the in-map taps only, so the
 // padding ring stays zero after the affine, as _affine_relu_block masks it)
 // and the 64 matching rows of G in shared memory, and four warps each
 // accumulate a 32x32 quarter with nvcuda::wmma bf16 16x16x16 products in
@@ -38,7 +36,8 @@
 // training shape at B=1024) against x and g read once and dW written once
 // (about 10 MB), so the tensor cores at 989 TFLOP/s, 19.5 us. This simple
 // kernel (wmma, one chunk in flight per block) is far from that; wgmma with
-// a TMA pipeline is the fix, left for later.
+// a TMA pipeline is the fix: csrc/conv3x3_sm90.cu's design, which K2
+// already uses.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,9 +59,8 @@ constexpr int LDC = BN + 4;
 constexpr int ROW_VECS = BM * BK / VEC / THREADS;  // 4 rows per thread
 constexpr int ROWS_PER_PASS = THREADS / (BK / VEC);  // 16
 
-template <bool kPrologue>
 __global__ void __launch_bounds__(THREADS)
-conv3x3_wgrad_kernel(const __nv_bfloat16* __restrict__ x,
+conv3x3_wgrad_bn_kernel(const __nv_bfloat16* __restrict__ x,
                      const __nv_bfloat16* __restrict__ g,
                      const float* __restrict__ scale,
                      const float* __restrict__ bias,
@@ -107,12 +105,10 @@ conv3x3_wgrad_kernel(const __nv_bfloat16* __restrict__ x,
   }
 
   float sc[VEC], bi[VEC];
-  if (kPrologue) {
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      sc[j] = scale[c0 + seg * VEC + j];
-      bi[j] = bias[c0 + seg * VEC + j];
-    }
+  for (int j = 0; j < VEC; ++j) {
+    sc[j] = scale[c0 + seg * VEC + j];
+    bi[j] = bias[c0 + seg * VEC + j];
   }
 
   const int chunks = (m_total + BM - 1) / BM;
@@ -146,7 +142,7 @@ conv3x3_wgrad_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < ROW_VECS; ++i) {
       uint4 v = a_reg[i];
-      if (kPrologue && a_in[i]) {
+      if (a_in[i]) {
         __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
@@ -236,13 +232,15 @@ __global__ void sum_splits_kernel(const float4* __restrict__ parts,
 // Plain C entry point, loaded with ctypes. `ws` holds `splits` partial dW
 // (unused when splits == 1: the kernel then writes `out` directly). Launches
 // on `stream`, does not synchronise, and returns cudaGetLastError() after
-// the launches (0 = launched). The caller has checked shapes, dtypes,
+// the launches (0 = launched, -1 = prologue 0, the plain weight gradient,
+// which this source no longer has). The caller has checked shapes, dtypes,
 // contiguity and 16-byte alignment.
 extern "C" int embn_conv3x3_wgrad(const void* x, const void* g,
                                   const void* scale, const void* bias,
                                   void* ws, void* out, int batch, int s,
                                   int cin, int cout, int splits,
                                   int prologue, void* stream) {
+  if (!prologue) return -1;
   const int chunks = (batch * s * s + BM - 1) / BM;
   const int per_split = (chunks + splits - 1) / splits;
   const dim3 grid(9 * cin / BK, cout / BN, splits);
@@ -250,15 +248,9 @@ extern "C" int embn_conv3x3_wgrad(const void* x, const void* g,
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(g);
   float* dst = static_cast<float*>(splits > 1 ? ws : out);
-  if (prologue) {
-    conv3x3_wgrad_kernel<true><<<grid, THREADS, 0, st>>>(
-        xb, gb, static_cast<const float*>(scale),
-        static_cast<const float*>(bias), dst, batch, s, cin, cout,
-        per_split);
-  } else {
-    conv3x3_wgrad_kernel<false><<<grid, THREADS, 0, st>>>(
-        xb, gb, nullptr, nullptr, dst, batch, s, cin, cout, per_split);
-  }
+  conv3x3_wgrad_bn_kernel<<<grid, THREADS, 0, st>>>(
+      xb, gb, static_cast<const float*>(scale),
+      static_cast<const float*>(bias), dst, batch, s, cin, cout, per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const int n4 = 9 * cin * cout / 4;

@@ -1,20 +1,16 @@
-// Stride-1 SAME 3x3 convolution on a small square NHWC map, with an optional
-// affine + ReLU before or after it, for Hopper (sm_90a). One template, three
-// modes:
-//   kPlain    -> _fwd_kernel of embeddingnet_tpu/ops/fused_conv.py (via
-//                _conv_fwd_impl):   out = conv3x3(x, w)
-//   kPrologue -> _fwd_bn_kernel of the same file (via _conv_bn_fwd_impl):
+// Stride-1 SAME 3x3 convolution on a small square NHWC map with an affine +
+// ReLU before or after it, for Hopper (sm_90a). One template, two modes:
+//   kPrologue -> _fwd_bn_kernel of embeddingnet_tpu/ops/fused_conv.py (K3,
+//                via _conv_bn_fwd_impl):
 //                out = conv3x3(relu(x * scale + bias), w)
-//   kEpilogue -> fused_kernel of tools/pallas_fused_conv.py (via
+//   kEpilogue -> fused_kernel of tools/pallas_fused_conv.py (T1, via
 //                fused_conv_bn_relu): out = relu(conv3x3(x, w) * scale + bias)
 // x [B, S, S, Cin] bf16 NHWC, w [3, 3, Cin, Cout] bf16 (HWIO), out
 // [B, S, S, Cout] bf16; scale/bias f32, [Cin] for the prologue and [Cout]
 // for the epilogue; S in {2, 4, 8}, Cin and Cout multiples of 128 (the
 // wrapper's gate). Accumulation is f32; the output is rounded to bf16 once,
-// in the epilogue. kPlain is also the input gradient of both ops of
-// ops/fused_conv.py (_conv_vjp_bwd / _bn_vjp_bwd_common): the conv of the
-// output gradient with the spatially flipped, in/out-swapped weight, at
-// S = 8 too.
+// in the epilogue. The plain conv (K1, forward and input gradient) is
+// csrc/conv3x3_sm90.cu's; this entry point refuses mode 0.
 //
 // Design: an implicit GEMM. Rows are output positions, M = B*S*S, in NHWC
 // order, so the output is the row-major [M, Cout] matrix and needs no
@@ -51,7 +47,9 @@
 // pipeline, split-K over the taps and wgmma are the fixes, left for later.
 // The epilogue mode (T1) is the same GEMM, at B = 1024, S = 2, C = 512:
 // 19.3 GFLOP for 13.1 MB, bound by the tensor cores (19.5 us at the dense
-// bf16 peak), and as slow as kPlain there, by the same serial chain.
+// bf16 peak), and as slow as the prologue mode there, by the same serial
+// chain. csrc/conv3x3_sm90.cu is the wgmma/TMA design these modes are to
+// move to.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,7 +73,7 @@ constexpr int B_VECS = BK * BN / VEC / THREADS;  // 4 vectors per thread
 constexpr int ROWS_PER_PASS = THREADS / (BK / VEC);  // 16
 
 // Where the affine + ReLU goes; the values are embn_conv3x3_small's `mode`.
-enum Mode : int { kPlain = 0, kPrologue = 1, kEpilogue = 2 };
+enum Mode : int { kPrologue = 1, kEpilogue = 2 };
 
 template <int kMode>
 __global__ void __launch_bounds__(THREADS)
@@ -257,9 +255,8 @@ conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
 
 // Plain C entry point, loaded with ctypes. Launches on `stream`, does not
 // synchronise, and returns cudaGetLastError() of the launch (0 = launched,
-// -1 = an unknown mode). `mode` is a Mode; scale and bias are unused (may be
-// null) in kPlain. The caller has checked shapes, dtypes, contiguity and
-// 16-byte alignment.
+// -1 = a mode other than a Mode, the plain conv's 0 included). The caller
+// has checked shapes, dtypes, contiguity and 16-byte alignment.
 extern "C" int embn_conv3x3_small(const void* x, const void* w,
                                   const void* scale, const void* bias,
                                   void* out, int batch, int s, int cin,
@@ -272,10 +269,6 @@ extern "C" int embn_conv3x3_small(const void* x, const void* w,
   const float* bi = static_cast<const float*>(bias);
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
   switch (mode) {
-    case kPlain:
-      conv3x3_small_kernel<kPlain><<<grid, THREADS, 0, st>>>(
-          xb, wb, nullptr, nullptr, ob, batch, s, cin, cout);
-      break;
     case kPrologue:
       conv3x3_small_kernel<kPrologue><<<grid, THREADS, 0, st>>>(
           xb, wb, sc, bi, ob, batch, s, cin, cout);

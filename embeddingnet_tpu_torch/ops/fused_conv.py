@@ -10,8 +10,9 @@ on the CPU their plain twins.
 
 * :func:`conv3x3_small` — stride-1 SAME 3x3 conv: forward K1 (the TPU's
   ``_fwd_kernel``); backward K1 as the dgrad (the conv of the output
-  gradient with the spatially flipped, in/out-swapped weight) and K2 (the
-  TPU's ``_wgrad_kernel``) for the weight gradient.
+  gradient with the spatially flipped, in/out-swapped weight, read from the
+  weight as it stands) and K2 (the TPU's ``_wgrad_kernel``) for the weight
+  gradient.
 * :func:`conv3x3_small_mixed` — the same op with the plain conv (cuDNN)
   as forward and the kernel backward, for the 8x8 maps where JAX keeps
   XLA's forward (:func:`eligible_mixed`).
@@ -32,12 +33,17 @@ on the CPU their plain twins.
 The public functions keep the JAX layout: NHWC activations, ``[3, 3, Cin,
 Cout]`` weights. The modules take the ResNet's NCHW tensors in
 ``torch.channels_last`` memory, whose NHWC view is contiguous and goes to the
-kernels without a copy. The kernels are in ``csrc/fused_conv3x3.cu`` (K1,
-K3, T1) and ``csrc/conv3x3_wgrad.cu`` (K2, K4).
+kernels without a copy. The kernels are in ``csrc/conv3x3_sm90.cu`` (K1,
+forward and dgrad, and K2: TMA-fed wgmma implicit GEMMs, laid out by
+:func:`plan_sm90`), ``csrc/fused_conv3x3.cu`` (K3, T1) and
+``csrc/conv3x3_wgrad.cu`` (K4).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -53,9 +59,9 @@ LAUNCHES = {"conv3x3_small": 0, "conv3x3_small_bn_relu": 0,
             "conv3x3_dgrad": 0, "conv3x3_wgrad": 0,
             "conv3x3_wgrad_bn_relu": 0, "conv3x3_small_affine_relu": 0}
 
-# The forward kernel's ``mode`` (csrc/fused_conv3x3.cu ``Mode``): where the
-# affine + ReLU goes.
-_PLAIN, _PROLOGUE, _EPILOGUE = 0, 1, 2
+# The fused kernel's ``mode`` (csrc/fused_conv3x3.cu ``Mode``): where the
+# affine + ReLU goes. The plain conv (mode 0) is csrc/conv3x3_sm90.cu's.
+_PROLOGUE, _EPILOGUE = 1, 2
 
 # Map sizes the kernels take: the forward kernel is generic in S, and the
 # backward runs at 8x8 too (the mixed path).
@@ -65,6 +71,21 @@ KERNEL_SPATIAL = (2, 4, 8)
 # H100's 132, reached by splitting the reduction over the B*S*S rows.
 _WGRAD_TARGET_BLOCKS = 4 * 132
 _WGRAD_MIN_CHUNKS = 16      # 64-row chunks a split reduces, at least
+
+# csrc/conv3x3_sm90.cu: the H100 SXM's SMs, the kernels' 128x128 tile and
+# their 64-wide K chunk (the conv's channels, K2's positions).
+_SMS = 132
+_SM90_TILE = 128
+_SM90_CHUNK = 64
+# K2's part rule counts time in chunks, one block's 128x128x64 product at
+# the card's peak rate (about 0.28 us): a block's start and end cost about
+# four, and one MiB of f32 partials written and read back (at 3.35 TB/s)
+# about one.
+_PART_OVERHEAD_CHUNKS = 4
+# K1 takes 256-row tiles where they number at least this share of the SMs
+_WIDE_TILE_SHARE = 0.9
+_PARTIAL_BYTES_PER_CHUNK = 1 << 20
+_MAX_PARTS = 64
 
 
 def reset_launch_counts() -> None:
@@ -133,6 +154,153 @@ def eligible_mixed(x_shape: Sequence[int], w_shape: Sequence[int],
         return False
     return _jax_batch_tile_fits(x_shape[0], x_shape[1], x_shape[3],
                                 w_shape[3])
+
+
+@dataclasses.dataclass(frozen=True)
+class Sm90Plan:
+    """How ``csrc/conv3x3_sm90.cu`` lays one call out; the C entry points
+    compute the same grid and box coordinates.
+
+    ``kind`` is ``"fprop"`` (K1's forward), ``"dgrad"`` (K1 as the input
+    gradient) or ``"wgrad"`` (K2). The A operand is a box of the 4-D tensor
+    map over the activation ``[batch, s, s, k_channels]`` (innermost first:
+    channels, W, H, batch): ``box`` = (64, s, s, ``images``). The conv's
+    output is ``[batch*s*s, n_channels]`` in ``tiles`` of ``rows`` x 128
+    (rows 128 or 256), reduced over 9 taps x ``k_channels``; its ``grid`` is
+    persistent, one block per SM, block ``i`` taking the tiles of
+    :meth:`block_tiles`. K2's output is dW ``[9*k_channels, n_channels]`` in
+    128x128 ``tiles``, one block each (grid x, y), its ``batch*s*s``
+    positions reduced in ``parts`` parts (grid z) of ``per_part`` chunks of
+    64 positions."""
+
+    kind: str
+    batch: int
+    s: int
+    k_channels: int
+    n_channels: int
+    rows: int
+    images: int
+    tiles: Tuple[int, int]
+    grid: Tuple[int, int, int]
+    parts: int = 1
+    per_part: int = 0
+
+    @property
+    def box(self) -> Tuple[int, int, int, int]:
+        return (_SM90_CHUNK, self.s, self.s, self.images)
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def block_tiles(self, block: int) -> Tuple[Tuple[int, int], ...]:
+        """The conv's (row tile, column tile) pairs that persistent block
+        ``block`` computes, in order: every ``grid[0]``-th tile from
+        ``block``, the row tile the fast index."""
+        rows, cols = self.tiles
+        return tuple((t % rows, t // rows)
+                     for t in range(block, rows * cols, self.grid[0]))
+
+    @property
+    def weight_taps(self) -> Tuple[int, ...]:
+        """The weight tap that A's tap ``t`` meets: ``8 - t`` for the dgrad,
+        which reads the spatially flipped weight from ``w`` as it stands."""
+        return tuple(8 - t if self.kind == "dgrad" else t for t in range(9))
+
+    @property
+    def chunks(self) -> int:
+        """K2's 64-position chunks over ``batch*s*s``."""
+        return -(-self.batch * self.s * self.s // _SM90_CHUNK)
+
+    def a_origin(self, bx: int, t: int, c0: int, chunk: int = 0
+                 ) -> Tuple[int, int, int, int]:
+        """Origin (channel, W, H, batch) of the A box for tap ``t`` at
+        channel ``c0``: of row tile ``bx`` for the conv, of position chunk
+        ``chunk`` for K2. Coordinates off the tensor read as zeros."""
+        b0 = (chunk * _SM90_CHUNK // (self.s * self.s) if self.kind == "wgrad"
+              else bx * self.images)
+        return (c0, t % 3 - 1, t // 3 - 1, b0)
+
+    def b_origin(self, by: int, t: int, c0: int, half: int
+                 ) -> Tuple[int, int]:
+        """Origin (column, row) of the conv's 64x64 B box ``half`` for tap
+        ``t`` and K offset ``c0``, in ``w`` seen as ``[9*Cin, Cout]``: the
+        forward's box is 64 K rows by 64 output channels; the dgrad's is 64
+        output-gradient channels (K, the columns) by 64 rows of input
+        channels (N)."""
+        n = by * _SM90_TILE + 64 * half
+        if self.kind == "dgrad":
+            return (c0, self.weight_taps[t] * self.n_channels + n)
+        return (n, t * self.k_channels + c0)
+
+    def wgrad_tile(self, bx: int) -> Tuple[int, int]:
+        """(tap, first input channel) of K2's dW row tile ``bx``."""
+        k0 = bx * _SM90_TILE
+        return k0 // self.k_channels, k0 % self.k_channels
+
+    def g_origin(self, by: int, chunk: int, half: int) -> Tuple[int, int]:
+        """Origin (column, row) of K2's 64x64 box ``half`` of g, seen as
+        ``[batch*s*s, Cout]``, for position chunk ``chunk``."""
+        return (by * _SM90_TILE + 64 * half, chunk * _SM90_CHUNK)
+
+    def part_chunks(self, z: int) -> range:
+        """The chunks part ``z`` of K2 reduces."""
+        return range(z * self.per_part,
+                     min(self.chunks, (z + 1) * self.per_part))
+
+
+def wgrad_sm90_parts(batch: int, s: int, cin: int, cout: int,
+                     sms: int = _SMS) -> Tuple[int, int]:
+    """(parts, chunks per part) of K2's reduction over ``batch*s*s``
+    positions. Among the splits whose blocks fill at least one wave of
+    ``sms`` SMs (where the chunks allow), the one with the least estimated
+    time: whole waves times the chunks of a part plus its start and end,
+    plus the f32 partials written and added back. Every part has a chunk."""
+    tiles = (9 * cin // _SM90_TILE) * (cout // _SM90_TILE)
+    chunks = -(-batch * s * s // _SM90_CHUNK)
+    partial_chunks = 2 * 9 * cin * cout * 4 / _PARTIAL_BYTES_PER_CHUNK
+    best = None
+    for p in range(1, min(chunks, _MAX_PARTS) + 1):
+        per = -(-chunks // p)
+        parts = -(-chunks // per)
+        if parts != p:
+            continue
+        waves = -(-tiles * parts // sms)
+        cost = (waves * (per + _PART_OVERHEAD_CHUNKS)
+                + (parts * partial_chunks if parts > 1 else 0.0))
+        fills = tiles * parts >= sms
+        key = (not fills, cost)
+        if best is None or key < best[0]:
+            best = (key, parts, per)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def plan_sm90(kind: str, batch: int, s: int, cin: int, cout: int,
+              sms: int = _SMS) -> Sm90Plan:
+    """The layout of one call of ``csrc/conv3x3_sm90.cu`` for the weight
+    ``[3, 3, cin, cout]`` at ``[batch, s, s, .]`` on a card of ``sms`` SMs:
+    ``kind`` ``"fprop"`` (x has cin channels, the output cout), ``"dgrad"``
+    (g has cout, dx cin) or ``"wgrad"``. Cached: the wrappers ask it at
+    every launch."""
+    if kind == "wgrad":
+        parts, per = wgrad_sm90_parts(batch, s, cin, cout, sms)
+        tiles = (9 * cin // _SM90_TILE, cout // _SM90_TILE)
+        return Sm90Plan(kind, batch, s, cin, cout, _SM90_TILE,
+                        _SM90_CHUNK // (s * s), tiles, tiles + (parts,),
+                        parts, per)
+    if kind not in ("fprop", "dgrad"):
+        raise ValueError(f"unknown kind {kind!r}")
+    k, n = (cout, cin) if kind == "dgrad" else (cin, cout)
+    # 256-row tiles load a quarter fewer bytes per product (the limit of
+    # the mainloop: L2-to-SM traffic) where they still number 90% of the SMs
+    for rows in (2 * _SM90_TILE, _SM90_TILE):
+        images = rows // (s * s)
+        tiles = (-(-batch // images), n // _SM90_TILE)
+        if tiles[0] * tiles[1] >= _WIDE_TILE_SHARE * sms:
+            break
+    return Sm90Plan(kind, batch, s, k, n, rows, images, tiles,
+                    (min(tiles[0] * tiles[1], sms), 1, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -232,16 +400,26 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _on_device(device: torch.device):
+    """Makes ``device`` current for a launch, where it is not already (a
+    device switch costs a few microseconds of host time a launch)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _launch_conv(name: str, x: torch.Tensor, w: torch.Tensor,
-                 scale: Optional[torch.Tensor] = None,
-                 bias: Optional[torch.Tensor] = None,
-                 mode: int = _PLAIN) -> torch.Tensor:
-    """K1 (``_PLAIN``, no ``scale``), K3 (``_PROLOGUE``:
-    ``conv3x3(relu(x*scale+bias), w)``) or T1 (``_EPILOGUE``:
-    ``relu(conv3x3(x, w)*scale+bias)``), bf16 [B, S, S, Cout]; counted under
-    ``name``."""
-    tensors = [x, w] + ([scale, bias] if scale is not None else [])
-    _check(name, x, tuple(w.shape), tensors, scale,
+                 scale: torch.Tensor, bias: torch.Tensor,
+                 mode: int) -> torch.Tensor:
+    """K3 (``_PROLOGUE``: ``conv3x3(relu(x*scale+bias), w)``) or T1
+    (``_EPILOGUE``: ``relu(conv3x3(x, w)*scale+bias)``), bf16 [B, S, S,
+    Cout]; counted under ``name``."""
+    _check(name, x, tuple(w.shape), [x, w, scale, bias], scale,
            w.shape[3] if mode == _EPILOGUE else 0)
     if w.dtype != torch.bfloat16:
         raise ValueError(f"{name}: w must be bf16, got {w.dtype}")
@@ -251,7 +429,7 @@ def _launch_conv(name: str, x: torch.Tensor, w: torch.Tensor,
     if b == 0:
         return out
     fn = _cuda.library("fused_conv3x3").embn_conv3x3_small
-    with torch.cuda.device(x.device):
+    with _on_device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(bias),
                  out.data_ptr(), b, s, cin, cout, mode, _stream(x.device))
     if err != 0:
@@ -260,8 +438,37 @@ def _launch_conv(name: str, x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def _launch_sm90(name: str, x: torch.Tensor, w: torch.Tensor,
+                 dgrad: bool) -> torch.Tensor:
+    """K1 of ``csrc/conv3x3_sm90.cu``: ``conv3x3(x, w)`` or, with
+    ``dgrad``, ``conv3x3(x, _flip(w))`` read from ``w`` as it stands (``x``
+    is then the output gradient, with w's Cout channels); bf16 [B, S, S,
+    N]; counted under ``name``."""
+    if w.dtype != torch.bfloat16 or w.dim() != 4:
+        raise ValueError(f"{name}: w must be bf16 [3, 3, Cin, Cout], got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    kh, kw, cin, cout = w.shape
+    # the dgrad's conv reads w as the flipped [3, 3, Cout, Cin] weight
+    w_shape = (kh, kw, cout, cin) if dgrad else (kh, kw, cin, cout)
+    _check(name, x, w_shape, [x, w], None)
+    b, s = x.shape[0], x.shape[1]
+    out = torch.empty((b, s, s, w_shape[3]), dtype=x.dtype, device=x.device)
+    if b == 0:
+        return out
+    plan = plan_sm90("dgrad" if dgrad else "fprop", b, s, cin, cout,
+                     _sm_count(x.device.index))
+    fn = _cuda.library("conv3x3_sm90").embn_conv3x3_sm90
+    with _on_device(x.device):
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, s, cin, cout,
+                 int(dgrad), plan.rows, plan.grid[0], _stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
+    LAUNCHES[name] += 1
+    return out
+
+
 def wgrad_splits(batch: int, s: int, cin: int, cout: int) -> int:
-    """Parts the weight-gradient kernel splits its reduction over the
+    """Parts K4 (``csrc/conv3x3_wgrad.cu``) splits its reduction over the
     ``batch*s*s`` rows into: enough blocks to fill the card (about
     :data:`_WGRAD_TARGET_BLOCKS`), each part at least
     :data:`_WGRAD_MIN_CHUNKS` chunks of 64 rows. The parts' f32 sums are
@@ -275,7 +482,8 @@ def wgrad_splits(batch: int, s: int, cin: int, cout: int) -> int:
 def _launch_wgrad(name: str, x: torch.Tensor, g: torch.Tensor,
                   scale: Optional[torch.Tensor] = None,
                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K2 (no ``scale``) or K4: the [3, 3, Cin, Cout] f32 weight gradient of
+    """K2 (no ``scale``, ``csrc/conv3x3_sm90.cu``) or K4 (``csrc/
+    conv3x3_wgrad.cu``): the [3, 3, Cin, Cout] f32 weight gradient of
     ``conv3x3([relu(x*scale+bias)], w)`` for the output gradient ``g``."""
     b, s, _, cin = x.shape
     cout = g.shape[3]
@@ -288,14 +496,24 @@ def _launch_wgrad(name: str, x: torch.Tensor, g: torch.Tensor,
                       device=x.device)
     if b == 0:
         return out.zero_()
-    splits = wgrad_splits(b, s, cin, cout)
+    if scale is None:
+        plan = plan_sm90("wgrad", b, s, cin, cout,
+                         _sm_count(x.device.index))
+        splits = plan.parts
+    else:
+        splits = wgrad_splits(b, s, cin, cout)
     ws = (torch.empty((splits, 9 * cin, cout), dtype=torch.float32,
                       device=x.device) if splits > 1 else out)
-    fn = _cuda.library("conv3x3_wgrad").embn_conv3x3_wgrad
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), g.data_ptr(), _ptr(scale), _ptr(bias),
-                 ws.data_ptr(), out.data_ptr(), b, s, cin, cout, splits,
-                 int(scale is not None), _stream(x.device))
+    with _on_device(x.device):
+        if scale is None:
+            err = _cuda.library("conv3x3_sm90").embn_conv3x3_wgrad_sm90(
+                x.data_ptr(), g.data_ptr(), ws.data_ptr(), out.data_ptr(), b,
+                s, cin, cout, plan.parts, plan.per_part, _stream(x.device))
+        else:
+            err = _cuda.library("conv3x3_wgrad").embn_conv3x3_wgrad(
+                x.data_ptr(), g.data_ptr(), scale.data_ptr(),
+                bias.data_ptr(), ws.data_ptr(), out.data_ptr(), b, s, cin,
+                cout, splits, 1, _stream(x.device))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     LAUNCHES[name] += 1
@@ -308,7 +526,7 @@ def _on_cpu(x: torch.Tensor) -> bool:
 
 def _conv_fwd(x, w):
     return _plain_conv3x3(x, w) if _on_cpu(x) else \
-        _launch_conv("conv3x3_small", x, w)
+        _launch_sm90("conv3x3_small", x, w, dgrad=False)
 
 
 def _conv_bn_fwd(x, w, scale, bias):
@@ -321,11 +539,11 @@ def _conv_bn_fwd(x, w, scale, bias):
 def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Input gradient of the stride-1 SAME 3x3 conv: the same conv of the
     output gradient ``g`` [B, S, S, Cout] with the flipped, transposed
-    weight, [B, S, S, Cin] in g's dtype. A CUDA tensor launches K1."""
-    wf = _flip(w)
+    weight, [B, S, S, Cin] in g's dtype. A CUDA tensor launches K1 as the
+    dgrad, which reads ``w`` as it stands: no flipped copy is made."""
     if _on_cpu(g):
-        return _plain_conv3x3(g, wf)
-    return _launch_conv("conv3x3_dgrad", g, wf)
+        return _plain_conv3x3(g, _flip(w))
+    return _launch_sm90("conv3x3_dgrad", g, w, dgrad=True)
 
 
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

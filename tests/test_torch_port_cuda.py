@@ -1,5 +1,6 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
-(the 3x3 conv forward K1/K3, its backward K1-as-dgrad/K2/K4, the conv with
+(the 3x3 conv forward K1/K3, its backward K1-as-dgrad/K2/K4 — K1 and K2 in
+csrc/conv3x3_sm90.cu, the TMA/wgmma design — the conv with
 the affine-ReLU epilogue T1, the u8 normalisation T2) against their plain
 PyTorch versions, the modules that launch them, forward and backward, and
 the augmentation presets on the card against the CPU.
@@ -101,10 +102,70 @@ def test_wgrad_is_deterministic(card):
     give the same dW bit for bit."""
     x, _, scale, bias = _inputs(7, 1024, 8, 128, 128, card)
     g = _inputs(8, 1024, 8, 128, 128, card)[0]
+    assert fc.plan_sm90("wgrad", 1024, 8, 128, 128).parts > 1
     assert fc.wgrad_splits(1024, 8, 128, 128) > 1
     assert torch.equal(fc.conv3x3_wgrad(x, g), fc.conv3x3_wgrad(x, g))
     assert torch.equal(fc.conv3x3_wgrad_bn_relu(x, g, scale, bias),
                        fc.conv3x3_wgrad_bn_relu(x, g, scale, bias))
+
+
+@pytest.mark.parametrize("b", [1, 3, 37, 1001, 1024])
+@pytest.mark.parametrize("s,cin,cout", [
+    (8, 128, 128), (4, 256, 256), (2, 512, 512), (4, 128, 256),
+    (2, 384, 128)])
+def test_sm90_kernels_match_plain(card, b, s, cin, cout):
+    """csrc/conv3x3_sm90.cu: K1's forward and dgrad and K2 against their
+    plain versions at the training shapes, at Cin != Cout and at batches
+    that fill no tile (the TMA boxes' zero fill); B=1001 and 1024 take
+    256-row tiles at S=4 and 8, the others 128."""
+    x, w, _, _ = _inputs(20, b, s, cin, cout, card)
+    g = _inputs(21, b, s, cout, cout, card)[0]
+    torch.testing.assert_close(fc.conv3x3_small(x, w).float(),
+                               fc._plain_conv3x3(x.float(), w.float()),
+                               **BF16_TOL)
+    torch.testing.assert_close(
+        fc.conv3x3_dgrad(g, w).float(),
+        fc._plain_conv3x3(g.float(), fc._flip(w).float()), **BF16_TOL)
+    _assert_wgrad_close(fc.conv3x3_wgrad(x, g),
+                        fc._plain_wgrad(x.float(), g.float()))
+    assert fc.LAUNCHES == _launched(conv3x3_small=1, conv3x3_dgrad=1,
+                                    conv3x3_wgrad=1)
+
+
+def test_dgrad_launches_one_kernel_and_copies_no_weight(card):
+    """The dgrad reads the weight as it stands: one call is one kernel,
+    with no flip, transpose or copy of the weight beside it."""
+    from torch.profiler import ProfilerActivity, profile
+    _, w, _, _ = _inputs(22, 1024, 4, 256, 256, card)
+    g = _inputs(23, 1024, 4, 256, 256, card)[0]
+    fc.conv3x3_dgrad(g, w)                  # build and first launch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fc.conv3x3_dgrad(g, w)
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device) == 1 and "conv3x3_sm90_kernel" in device[0], device
+
+
+def test_sm90_wrappers_refuse_what_the_kernels_cannot_take(card):
+    """A misaligned or non-contiguous input raises before any launch."""
+    x, w, _, _ = _inputs(24, 8, 4, 128, 128, card)
+    n = x.numel()
+    shifted = torch.empty(n + 8, dtype=x.dtype, device=card)[1:n + 1]
+    shifted = shifted.view(x.shape).copy_(x)        # 2 bytes off 16
+    for bad in (shifted, x.transpose(1, 2)):
+        with pytest.raises(ValueError, match="contiguous and 16-byte"):
+            fc.conv3x3_small(bad, w)
+        with pytest.raises(ValueError, match="contiguous and 16-byte"):
+            fc.conv3x3_dgrad(bad, w)
+        with pytest.raises(ValueError, match="contiguous and 16-byte"):
+            fc.conv3x3_wgrad(bad, x)
+        with pytest.raises(ValueError, match="contiguous and 16-byte"):
+            fc.conv3x3_wgrad(x, bad)
+    with pytest.raises(ValueError, match="contiguous and 16-byte"):
+        fc.conv3x3_dgrad(x, w.transpose(2, 3))
+    assert fc.LAUNCHES == _launched()
 
 
 def test_normalize_u8_matches_plain(card):
