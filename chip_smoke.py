@@ -9,7 +9,8 @@ each through the hand-written kernels.
    power limit as ``nvidia-smi`` reports them.
 2. Builds the kernels: every ``embeddingnet_tpu_torch/csrc/*.cu`` with
    ``nvcc`` (one process per source, in parallel), and the Triton kernel T2
-   at its first launch.
+   at its first launch; prints ptxas's registers and spills for each
+   kernel instance.
 3. Kernel phase: each kernel against its plain PyTorch version on the same
    inputs, in f32 with TF32 off, at the shapes ResNet-50 at 64x64 gives it
    (the forward K3/K1 at B = 3, 32, 256 and 1024, K1 at 8x8 too; the
@@ -19,9 +20,12 @@ each through the hand-written kernels.
    128 and 1024 at S=2, C=512 and S=4, C=256, against the f32 and the bf16 plain
    version), each check printed with its tolerance and its worst ratio to
    it. Times with CUDA events, against the plain version in bf16 and, where
-   one PyTorch call computes the same function, against that call (for T1,
-   which has none, ``F.conv2d`` alone and the eager conv -> affine -> ReLU
-   sequence).
+   one PyTorch call computes the same function, against that call; where
+   none does, against the eager sequence of library calls (``sequence_ms``:
+   K3 ``_affine_relu`` then ``F.conv2d``, K4 ``_affine_relu`` then the
+   weight-only ``convolution_backward``; T1 ``F.conv2d`` alone and the
+   eager conv -> affine -> ReLU sequence). T2 and ``torch.mul`` into bf16
+   also by ``torch.profiler`` device time.
 4. Serving phase: the flagship model (ResNet-50 v1.5, 64x64x3, 256-d
    L2-normalised embedding, kNN k=5, bf16, fused BN-ReLU conv on), with
    seeded random weights, encodes a DB of 10,240 synthetic images
@@ -62,13 +66,17 @@ T2; the A/B tool's run for T1), its worst error, and ``ms`` / ``plain_ms``
 version, the card's bound and the library call, summed over the calls one
 training step makes at B = 1024 (T1: one call at B = 1024, S = 2, C = 512);
 K3's serving numbers (per B=32 forward) are under ``serve``; K1 as the
-dgrad and K2 add ``library_ratio``, their ``ms`` over ``library_ms``. The line
-before that is the card's name and power limit. Any failure raises, and
+dgrad and K2 add ``library_ratio``, their ``ms`` over ``library_ms``; K3 and
+K4 add ``sequence_ms``; the conv kernels add ``device_ms``, their
+``torch.profiler`` device time per augmented step (the part sums apart, in
+``training_step_part_sums_ms``). The line before that is the card's name
+and power limit. Any failure raises, and
 the script exits non-zero without the last line.
 """
 
 import json
 import os
+import re
 import runpy
 import subprocess
 import sys
@@ -95,19 +103,18 @@ from embeddingnet_tpu_torch.train.steps import make_triplet_train_step
 
 SEED = 0
 DEVICE = "cuda"
-CONV_SRC = "embeddingnet_tpu_torch/csrc/fused_conv3x3.cu"
-WGRAD_SRC = "embeddingnet_tpu_torch/csrc/conv3x3_wgrad.cu"
+EPILOGUE_SRC = "embeddingnet_tpu_torch/csrc/fused_conv3x3.cu"
 SM90_SRC = "embeddingnet_tpu_torch/csrc/conv3x3_sm90.cu"
 JAX_CONV = "embeddingnet_tpu/ops/fused_conv.py"
 # name -> (route, source, the TPU kernel it replaces)
 KERNELS = {
-    "conv3x3_small_bn_relu": ("cuda", CONV_SRC, f"{JAX_CONV}:556"),
+    "conv3x3_small_bn_relu": ("cuda", SM90_SRC, f"{JAX_CONV}:556"),
     "conv3x3_dgrad": ("cuda", SM90_SRC, f"{JAX_CONV}:200"),
     "conv3x3_wgrad": ("cuda", SM90_SRC, f"{JAX_CONV}:225"),
-    "conv3x3_wgrad_bn_relu": ("cuda", WGRAD_SRC, f"{JAX_CONV}:575"),
+    "conv3x3_wgrad_bn_relu": ("cuda", SM90_SRC, f"{JAX_CONV}:575"),
     "normalize_u8": ("triton", "embeddingnet_tpu_torch/ops/preprocess.py",
                      "tools/perf_probe3.py:63"),
-    "conv3x3_small_affine_relu": ("cuda", CONV_SRC,
+    "conv3x3_small_affine_relu": ("cuda", EPILOGUE_SRC,
                                   "tools/pallas_fused_conv.py:39"),
     # K1's forward: built and checked, but ResNet-50 does not reach it (its
     # stride-1 3x3 convs all follow a BatchNorm, so all are fused)
@@ -116,10 +123,21 @@ KERNELS = {
 # the kernels whose per-step time is held to one library call's
 # (kernel ms / library ms in the kernels line)
 LIBRARY_RATIO = ("conv3x3_dgrad", "conv3x3_wgrad")
+# each conv kernel's instances in torch.profiler's kernel names; K2's and
+# K4's part sums share one kernel
+PROFILED_NAMES = {
+    "conv3x3_small_bn_relu": ("conv3x3_sm90_kernel<false,", ", true>"),
+    "conv3x3_dgrad": ("conv3x3_sm90_kernel<true,",),
+    "conv3x3_wgrad": ("conv3x3_wgrad_sm90_kernel<false>",),
+    "conv3x3_wgrad_bn_relu": ("conv3x3_wgrad_sm90_kernel<true>",),
+}
+PART_SUM_NAME = "conv3x3_sum_parts_kernel"
 # T1's path: the A/B tool at its own batch, stage 4's shape
 TOOL = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
                     "fused_conv_epilogue_torch.py")
 TOOL_BATCH, TOOL_S, TOOL_C = 1024, 2, 512
+# the conv kernels' A/B tool, whose profiler timing T2's device time uses
+AB_TOOL = os.path.join(os.path.dirname(TOOL), "conv3x3_kernels_ab_torch.py")
 EPILOGUE_SHAPES = [(2, 512), (4, 256)]
 EPILOGUE_BATCHES = [3, 128, TOOL_BATCH]
 OFF_PATH = ("conv3x3_small",)
@@ -257,10 +275,28 @@ def build():
           f"{time.perf_counter() - t0:.1f} s")
     for path in paths:
         log = path.with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line or "smem" in line:
-                    print(f"  ptxas {path.stem}: {line.strip()}")
+        if not log.exists():
+            continue
+        kernel = "?"
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                kernel = _kernel_label(m.group(1))
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {kernel}: "
+                      f"{line.replace('ptxas info    :', '').strip()}")
+
+
+def _kernel_label(mangled):
+    """``conv3x3_sm90_kernel<false, 256, true>`` from the mangled name of a
+    kernel instance (bool and int template arguments)."""
+    m = re.search(r"\d+(conv3x3_\w+?_kernel)(?:I((?:L[bi]\d+E)+)E)?",
+                  mangled)
+    if not m:
+        return mangled
+    args = [("true" if v == "1" else "false") if k == "b" else v
+            for k, v in re.findall(r"L([bi])(\d+)E", m.group(2) or "")]
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 def _tensor(rng, shape, scale=1.0):
@@ -313,6 +349,7 @@ def forward_kernel_phase(records):
             names = ("conv3x3_small",) if s == 8 else (
                 "conv3x3_small_bn_relu", "conv3x3_small")
             for name in names:
+                extra = {"weight_prep_ms": prep_ms}
                 if name == "conv3x3_small_bn_relu":
                     run = lambda: fc.conv3x3_small_bn_relu(  # noqa: E731
                         x, w, scale, bias)
@@ -320,6 +357,10 @@ def forward_kernel_phase(records):
                     plain = lambda: fc._plain_conv3x3(  # noqa: E731
                         fc._affine_relu(x, scale, bias), w)
                     library = None
+                    # the eager two-call sequence the fusion replaces
+                    extra["sequence_ms"] = cuda_ms(lambda: F.conv2d(
+                        fc._affine_relu(x, scale, bias).permute(0, 3, 1, 2),
+                        w_lib, padding=1))
                 else:
                     run = lambda: fc.conv3x3_small(x, w)  # noqa: E731
                     z = x
@@ -331,7 +372,7 @@ def forward_kernel_phase(records):
                     f"{name} B={b} S={s} C={c}", run(),
                     fc._plain_conv3x3(z.float(), w.float()), ATOL, RTOL)
                 _time_row(records, name, b, s, c, run, plain, library,
-                          max_err, worst, weight_prep_ms=prep_ms)
+                          max_err, worst, **extra)
 
 
 def _time_row(records, name, b, s, c, run, plain, library, max_err, worst,
@@ -351,6 +392,13 @@ def _time_row(records, name, b, s, c, run, plain, library, max_err, worst,
           f"plain bf16 {plain_ms1 * 1e3:.1f}/{plain_ms2 * 1e3:.1f} us, "
           f"library {lib}, bound {bound_ms * 1e3:.2f} us ({bound_by})"
           + "".join(f", {k} {v * 1e3:.1f} us" for k, v in extra.items()))
+
+
+def _wgrad_library(g_nchw, x_nchw, w_oihw):
+    """The weight gradient alone, in one library call."""
+    return torch.ops.aten.convolution_backward(
+        g_nchw, x_nchw, w_oihw, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
+        1, [False, True, False])
 
 
 def backward_kernel_phase(records):
@@ -386,10 +434,9 @@ def backward_kernel_phase(records):
                     z = x
                     run = lambda: fc.conv3x3_wgrad(x, g)  # noqa: E731
                     plain = lambda: fc._plain_wgrad(x, g)  # noqa: E731
-                    library = lambda: (  # noqa: E731
-                        torch.ops.aten.convolution_backward(
-                            g_lib, x_lib, w_lib, None, [1, 1], [1, 1],
-                            [1, 1], False, [0, 0], 1, [False, True, False]))
+                    library = lambda: _wgrad_library(  # noqa: E731
+                        g_lib, x_lib, w_lib)
+                    extra = {}
                 else:
                     z = fc._affine_relu(x, scale, bias)
                     run = lambda: fc.conv3x3_wgrad_bn_relu(  # noqa: E731
@@ -397,6 +444,10 @@ def backward_kernel_phase(records):
                     plain = lambda: fc._plain_wgrad_bn_relu(  # noqa: E731
                         x, g, scale, bias)
                     library = None
+                    # the eager two-call sequence the fusion replaces
+                    extra = {"sequence_ms": cuda_ms(lambda: _wgrad_library(
+                        g_lib, fc._affine_relu(x, scale, bias).permute(
+                            0, 3, 1, 2), w_lib))}
                 want = fc._plain_wgrad(z.float(), g.float())
                 got = run()
                 if not torch.equal(got, run()):
@@ -405,7 +456,7 @@ def backward_kernel_phase(records):
                     f"{name} B={b} S={s} C={c}", got, want,
                     WGRAD_REL * want.abs().max().item(), 0.0)
                 _time_row(records, name, b, s, c, run, plain, library,
-                          max_err, worst)
+                          max_err, worst, **extra)
 
     # T2: u8 [1024, 64, 64, 3] -> bf16 x / 255, exact
     x = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, 64, 64, 3),
@@ -423,16 +474,23 @@ def backward_kernel_phase(records):
     ms = cuda_ms(lambda: pre.normalize_u8(x))
     plain_ms2 = cuda_ms(lambda: pre._plain_normalize_u8(x))
     library_ms = cuda_ms(lambda: torch.mul(x, 1.0 / 255.0, out=out))
+    profiled_ms = runpy.run_path(AB_TOOL)["device_ms"]
+    device_ms = profiled_ms(lambda: pre.normalize_u8(x))
+    library_device_ms = profiled_ms(
+        lambda: torch.mul(x, 1.0 / 255.0, out=out))
     bound_ms, bound_by = bound(0, x.numel() * 3)
     _record(records, "normalize_u8", {
         "B": TRAIN_BATCH, "shape": [64, 64, 3], "max_abs_err": 0.0,
         "err_over_bound": 0.0, "ms": ms, "plain_ms": (plain_ms1 + plain_ms2)
         / 2, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms})
+        "library_ms": library_ms, "device_ms": device_ms,
+        "library_device_ms": library_device_ms})
     print(f"time normalize_u8 B={TRAIN_BATCH}: kernel {ms * 1e3:.1f} us, "
           f"plain bf16 {plain_ms1 * 1e3:.1f}/{plain_ms2 * 1e3:.1f} us, "
           f"library (torch.mul into bf16) {library_ms * 1e3:.1f} us, bound "
-          f"{bound_ms * 1e3:.2f} us ({bound_by})")
+          f"{bound_ms * 1e3:.2f} us ({bound_by}); device time (profiler) "
+          f"kernel {device_ms * 1e3:.2f} us, torch.mul "
+          f"{library_device_ms * 1e3:.2f} us")
 
 
 def epilogue_kernel_phase(records):
@@ -540,7 +598,10 @@ def _sum(rec, b, per):
     calls)] at batch ``b``."""
     rows = {(r["S"], r["C"]): r for r in rec["shapes"] if r["B"] == b}
     out = {}
-    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+    keys = ["ms", "plain_ms", "bound_ms", "library_ms"]
+    if all("sequence_ms" in rows[(s, c)] for s, c, _ in per):
+        keys.append("sequence_ms")
+    for key in keys:
         vals = [rows[(s, c)][key] for s, c, _ in per]
         out[key] = (None if any(v is None for v in vals)
                     else sum(v * n for v, (_, _, n) in zip(vals, per)))
@@ -761,8 +822,7 @@ def _device_busy(state, step, batches):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     ours = {name: us for name, us in by_name.items()
-            if "conv3x3" in name or "sum_splits" in name
-            or "normalize_u8" in name}
+            if "conv3x3" in name or "normalize_u8" in name}
     # the kernels launched inside the CPU-side "augment" ranges
     ranges = [e for e in prof.events() if e.name == "augment"
               and e.device_type == torch.autograd.DeviceType.CPU]
@@ -998,9 +1058,20 @@ def augmented_training_phase(db_classes):
     for name, us in top:
         print(f"  profile top: {us / PROFILED_STEPS / 1e3:8.3f} ms/step  "
               f"{name[:90]}")
+    for name, us in sorted(ours.items()):
+        print(f"  profile port kernel: {us / PROFILED_STEPS / 1e3:8.3f} "
+              f"ms/step  {name[:90]}")
     if aug_ms <= 0:
         raise AssertionError("the profiler saw no augmentation kernels")
-    return launches
+    device = {name: sum(us for n, us in ours.items()
+                        if all(p in n for p in parts)) * 1e-3 / PROFILED_STEPS
+              for name, parts in PROFILED_NAMES.items()}
+    device[PART_SUM_NAME] = sum(us for n, us in ours.items()
+                                if PART_SUM_NAME in n) * 1e-3 / PROFILED_STEPS
+    missing = [n for n in PROFILED_NAMES if not device[n]]
+    if missing:
+        raise AssertionError(f"the profiler saw no device time of {missing}")
+    return launches, device
 
 
 def main():
@@ -1019,7 +1090,7 @@ def main():
     serve_launches, db_images, db_classes = serving_phase()
     augmentation_check_phase(db_images)
     plain_launches = training_phase(db_images, db_classes)
-    train_launches = augmented_training_phase(db_classes)
+    train_launches, device = augmented_training_phase(db_classes)
 
     lines, step_sum = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     for name, (route, source, replaces) in KERNELS.items():
@@ -1029,7 +1100,8 @@ def main():
         if name == "normalize_u8":
             row = rec["shapes"][0]
             sums = {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "library_ms", "bound_by")}
+                                        "library_ms", "bound_by", "device_ms",
+                                        "library_device_ms")}
             launches = plain_launches[name]
             per = f"training step without augmentation, B={TRAIN_BATCH}"
         elif name == "conv3x3_small_affine_relu":
@@ -1050,6 +1122,8 @@ def main():
                  "max_abs_err": rec["max_abs_err"], **sums, "per": per}
         if name in LIBRARY_RATIO:
             entry["library_ratio"] = sums["ms"] / sums["library_ms"]
+        if name in PROFILED_NAMES:
+            entry["device_ms"] = device[name]
         if name == "conv3x3_small_bn_relu":
             entry["serve"] = {"launches": serve_launches[name],
                               "per": "serving forward, B=32",
@@ -1062,7 +1136,8 @@ def main():
                                   if e["name"] not in OFF_PATH],
                       "off_path_kernels": [e for e in lines
                                            if e["name"] in OFF_PATH],
-                      "training_step_kernels_sum": step_sum}))
+                      "training_step_kernels_sum": step_sum,
+                      "training_step_part_sums_ms": device[PART_SUM_NAME]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

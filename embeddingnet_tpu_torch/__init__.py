@@ -7,8 +7,8 @@ embedding -> kNN vote over the encodings DB, behind the micro-batching
 :class:`embeddingnet_tpu_torch.serving.InferenceEngine`) and the triplet
 training step with its augmentation. The small-map 3x3 convs of the
 ResNet's late stages, forward and backward, are CUDA kernels written for
-Hopper (``csrc/``: ``conv3x3_sm90.cu``, ``fused_conv3x3.cu``,
-``conv3x3_wgrad.cu``).
+Hopper (``csrc/``: ``conv3x3_sm90.cu``, and ``fused_conv3x3.cu`` for the
+conv with a BN-ReLU epilogue).
 
 Importing the package loads nothing heavy; import the submodules.
 """

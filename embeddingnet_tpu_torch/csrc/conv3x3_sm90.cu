@@ -1,28 +1,38 @@
 // Stride-1 SAME 3x3 convolution on a small square NHWC map, its input
-// gradient and its weight gradient, as TMA-fed wgmma implicit GEMMs for
-// Hopper (sm_90a).
+// gradient and its weight gradient, each optionally after a per-channel
+// affine + ReLU of its input, as TMA-fed wgmma implicit GEMMs for Hopper
+// (sm_90a).
 //
-// Replaces two Pallas TPU kernels of embeddingnet_tpu/ops/fused_conv.py:
-//   conv3x3_sm90_kernel<false> -> _fwd_kernel (K1, via _conv_fwd_impl):
-//                                 out = conv3x3(x, w)
-//   conv3x3_sm90_kernel<true>  -> _fwd_kernel as the input gradient
-//                                 (_conv_vjp_bwd): dx = conv3x3(g, flip(w)),
-//                                 reading w as it stands
-//   conv3x3_wgrad_sm90_kernel  -> _wgrad_kernel (K2, via _wgrad_impl):
+// Replaces four Pallas TPU kernels of embeddingnet_tpu/ops/fused_conv.py:
+//   conv3x3_sm90_kernel<false, *, false> -> _fwd_kernel (K1, via
+//                                 _conv_fwd_impl): out = conv3x3(x, w)
+//   conv3x3_sm90_kernel<true, *, false>  -> _fwd_kernel as the input
+//                                 gradient (_conv_vjp_bwd):
+//                                 dx = conv3x3(g, flip(w)), reading w as
+//                                 it stands
+//   conv3x3_sm90_kernel<false, *, true>  -> _fwd_bn_kernel (K3, via
+//                                 _conv_bn_fwd_impl):
+//                                 out = conv3x3(relu(x*scale + bias), w)
+//   conv3x3_wgrad_sm90_kernel<false>     -> _wgrad_kernel (K2, via
+//                                 _wgrad_impl):
 //                                 dW[t] = sum_m x_pad[shift t]^T g
+//   conv3x3_wgrad_sm90_kernel<true>      -> _wgrad_bn_kernel (K4, via
+//                                 _wgrad_bn_impl): the same with
+//                                 z = relu(x*scale + bias) for x, recomputed
+//                                 from the raw x and never stored
 // x [B, S, S, Cin] bf16 NHWC, w [3, 3, Cin, Cout] bf16 (HWIO), g
-// [B, S, S, Cout] bf16; out and dx bf16, dW [3, 3, Cin, Cout] f32. S in
-// {2, 4, 8}, Cin and Cout multiples of 128 (the wrapper's gate), any B >= 1.
-// Accumulation is f32 in registers; each output is summed in one fixed
-// order, with no atomics, so every result is the same bit for bit from
-// launch to launch.
+// [B, S, S, Cout] bf16, scale and bias [Cin] f32; out and dx bf16, dW
+// [3, 3, Cin, Cout] f32. S in {2, 4, 8}, Cin and Cout multiples of 128 (the
+// wrapper's gate), any B >= 1. Accumulation is f32 in registers; each
+// output is summed in one fixed order, with no atomics, so every result is
+// the same bit for bit from launch to launch.
 //
 // The conv (forward and dgrad) is the GEMM [M = B*S*S, K = 9*Ck] x [K, N],
 // M in NHWC order, K tap-major, in output tiles of kRows (128 or 256, the
 // wrapper's choice) by 128. The grid is persistent: one block per SM walks
 // the tiles `ctas` apart. In a block, two consumer warpgroups each run
 // wgmma m64n128k16 on kRows/2 of a tile's rows, and one producer thread
-// keeps a ring of kStages stages of TMA loads in flight, each stage one
+// keeps a ring of 4 (or 6) stages of TMA loads in flight, each stage one
 // 64-wide K chunk (kRows x 128 bytes of A, 16 KB of B), with a full and an
 // empty mbarrier per stage. The consumers keep one wgmma group in flight
 // and release a stage when the group that read it has completed; the
@@ -55,6 +65,28 @@
 // picks the parts (ops/fused_conv.py, plan_sm90) so that the blocks fill
 // whole waves of the card's SMs.
 //
+// The prologue (K3, K4) runs on each landed A stage in shared memory,
+// between the consumer's wait on the stage's full barrier and its wgmma:
+// each consumer warpgroup rewrites in place the rows that only it reads
+// (K3: its kRows/2 rows of the tile; K4: its 64-channel box), 16 bytes (8
+// channels of one position) per vector, z = relu(x*scale + bias) with the
+// product and the sum rounded apart (no FMA) and one round to bf16, as the
+// plain version rounds; then fence.proxy.async (the rewrite is a
+// generic-proxy write, wgmma reads through the async proxy) and a barrier
+// over the warpgroup's 128 threads. The 128-byte swizzle keeps logical
+// 16-byte chunk j of a 128-byte row r at physical chunk j ^ (r % 8) (the
+// stage is 1024-byte aligned), which names the 8 channels a vector holds;
+// every vector of a thread has the same r % 8 and physical chunk, so a
+// thread needs 8 scales and biases per K chunk (K3, from a copy of all Cin
+// in shared memory) or per block (K4, in registers). The padding ring and
+// the rows past the batch stay zero after the affine (relu(bias) != 0):
+// a row (b, h, w) of a box at (c0, dx-1, dy-1, b0) is rewritten only when
+// 0 <= h+dy-1 < S, 0 <= w+dx-1 < S and b0+b < B, from coordinates, never
+// from the value. With one wgmma group in flight, the rewrite of stage k+1
+// overlaps the products of stage k. K3's consumers raise their register
+// cap to 232 (setmaxnreg; the producer lowers its own to 40), since 256-row
+// tiles keep 128 f32 accumulators a thread live through the rewrite.
+//
 // TMA needs 16-byte aligned bases and strides: the wrapper checks the
 // pointers, and channels that are multiples of 128 make every stride a
 // multiple of 256 bytes. The inner box is 64 bf16 = 128 bytes, the span of
@@ -73,6 +105,12 @@
 // per product, so the wrapper takes them where they still give a block to
 // 90% of the SMs (S = 4 and 8 at B = 1024); at S = 2 there are only 128
 // tiles of 128 rows. Deeper rings (5, 6 stages) gained nothing measurable.
+// K3 and K4 run the same GEMMs at 51-56 and 55-80 us a launch at B = 1024
+// against K1's 34-38 and K2's 43-58 (tools/conv3x3_kernels_ab_torch.py,
+// same card; PERF.md): the rewrite, about 30 instructions per 16-byte
+// vector on the two consumer warps of each scheduler, grows with the
+// vectors a thread owns and does not hide under the products. A warpgroup
+// that only rewrites stages would take it off the consumers' path.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -83,7 +121,6 @@ namespace {
 
 constexpr int kTile = 128;           // output columns (and K2's rows) a block
 constexpr int kChunk = 64;           // K per stage (bf16: one 128-byte row)
-constexpr int kStages = 4;           // depth of the TMA ring
 constexpr int kHalfBytes = 64 * 128;             // one 64x64 bf16 box
 constexpr int kBBytes = 2 * kHalfBytes;          // a stage's B (16 KB)
 constexpr int kThreads = 384;        // two consumer warpgroups, a producer
@@ -94,8 +131,15 @@ constexpr int kMaxDevices = 64;
 __host__ __device__ constexpr int stage_bytes(int rows) {
   return rows * 128 + kBBytes;
 }
-__host__ __device__ constexpr int smem_bytes(int rows) {
-  return kStages * stage_bytes(rows) + 1024;
+__host__ __device__ constexpr int smem_bytes(int rows, int depth) {
+  return depth * stage_bytes(rows) + 1024;
+}
+// The ring's depth: 4 stages; 6 for the prologue's 128-row stages, where
+// shared memory holds them: a stage stays in the ring through its own
+// rewrite and the next stage's, since the consumers release it after
+// issuing the next stage's products.
+__host__ __device__ constexpr int ring_depth(int rows, bool prologue) {
+  return prologue && rows == 128 ? 6 : 4;
 }
 
 // ---------------------------------------------------------------------------
@@ -200,6 +244,40 @@ __device__ __forceinline__ void wgmma_wait() {
                : "memory");
 }
 
+// Generic-proxy shared-memory access for the prologue, and what orders it
+// before wgmma's async-proxy reads.
+__device__ __forceinline__ void ld_shared_v4(uint32_t addr, uint32_t (&v)[4]) {
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void st_shared_v4(uint32_t addr,
+                                             const uint32_t (&v)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Named barrier `id` (1 + the warpgroup; 0 is __syncthreads) over the 128
+// threads of one warpgroup.
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// Moves registers between the warpgroups: every warp of a warpgroup runs
+// the same instruction.
+template <int kRegs>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
 // d[64x128] += A[64x16] B[16x128], bf16 in, f32 accumulators. kTransA /
 // kTransB: 0 K-major, 1 M/N-major.
 template <int kTransA, int kTransB>
@@ -233,11 +311,12 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
-// The ring's shared memory: kStages stages of [A kRows x 128 bytes | B
+// The ring's shared memory: kDepth stages of [A kRows x 128 bytes | B
 // 16 KB], 1024-byte aligned for the 128-byte swizzle, and the full/empty
 // barriers.
-template <int kRows>
+template <int kRows, int kDepth>
 struct Ring {
+  static constexpr int depth = kDepth;
   uint32_t tiles;
   uint32_t full;
   uint32_t empty;
@@ -249,16 +328,16 @@ struct Ring {
   __device__ uint32_t empty_bar(int stage) const { return empty + 8 * stage; }
 };
 
-template <int kRows>
-__device__ __forceinline__ Ring<kRows> make_ring(uint8_t* smem_raw,
-                                                 uint64_t* full,
-                                                 uint64_t* empty) {
-  Ring<kRows> r;
+template <int kRows, int kDepth>
+__device__ __forceinline__ Ring<kRows, kDepth> make_ring(uint8_t* smem_raw,
+                                                         uint64_t* full,
+                                                         uint64_t* empty) {
+  Ring<kRows, kDepth> r;
   r.tiles = (smem_u32(smem_raw) + 1023u) & ~1023u;
   r.full = smem_u32(full);
   r.empty = smem_u32(empty);
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kStages; ++i) {
+    for (int i = 0; i < kDepth; ++i) {
       mbar_init(r.full_bar(i), 1);       // the producer's expect_tx arrival
       mbar_init(r.empty_bar(i), 2);      // one arrival per consumer warpgroup
     }
@@ -269,24 +348,26 @@ __device__ __forceinline__ Ring<kRows> make_ring(uint8_t* smem_raw,
 }
 
 // The consumer side of the ring: the next `chunks` stages from (stage,
-// phase), which it advances, each multiplied by `mma(stage)`; one wgmma
-// group stays in flight, and a stage is released once the group that read
-// it has completed.
-template <int kRows, class Mma>
-__device__ __forceinline__ void consume(const Ring<kRows>& ring, int chunks,
+// phase), which it advances, each first handed to `prologue(stage, kc)`
+// (kc counts the chunks from 0) and then multiplied by `mma(stage)`; one
+// wgmma group stays in flight, and a stage is released once the group that
+// read it has completed.
+template <class RingT, class Prologue, class Mma>
+__device__ __forceinline__ void consume(const RingT& ring, int chunks,
                                         int& stage, uint32_t& phase,
-                                        Mma mma) {
+                                        Prologue prologue, Mma mma) {
   const bool signals = threadIdx.x % 128 == 0;
   int prev = stage;
   for (int kc = 0; kc < chunks; ++kc) {
     mbar_wait(ring.full_bar(stage), phase);
+    prologue(stage, kc);
     wgmma_fence();
     mma(stage);
     wgmma_commit();
     wgmma_wait<1>();
     if (kc > 0 && signals) mbar_arrive(ring.empty_bar(prev));
     prev = stage;
-    if (++stage == kStages) {
+    if (++stage == RingT::depth) {
       stage = 0;
       phase ^= 1;
     }
@@ -296,23 +377,138 @@ __device__ __forceinline__ void consume(const Ring<kRows>& ring, int chunks,
 }
 
 // ---------------------------------------------------------------------------
-// The conv: forward (kDgrad = false) and input gradient (kDgrad = true).
+// The prologue of K3 and K4 on a landed A stage. A consumer thread (tid =
+// threadIdx.x % 128 in its warpgroup) owns the 16-byte vectors tid + 128*i
+// of its warpgroup's rows: row tid/8 + 16*i, physical chunk tid % 8, so
+// logical chunk (tid % 8) ^ (tid/8 % 8) for every i.
+// ---------------------------------------------------------------------------
+
+constexpr int kTapBits = 9;
+
+// The 8-channel group of a box that this thread's vectors hold.
+__device__ __forceinline__ int prologue_group() {
+  const int tid = threadIdx.x % 128;
+  return (tid % 8) ^ ((tid / 8) % 8);
+}
+
+// Row r of a box of whole s x s maps: bit t set where tap t's shift keeps
+// the row's position on the map; the row's image in the box above the tap
+// bits.
+__device__ __forceinline__ uint32_t row_word(int r, int s) {
+  const int ss = s * s;
+  const int img = r / ss;
+  const int h = (r - img * ss) / s;
+  const int w = r - img * ss - h * s;
+  uint32_t taps = 0;
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    const int y = h + t / 3 - 1;
+    const int x = w + t % 3 - 1;
+    if (y >= 0 && y < s && x >= 0 && x < s) taps |= 1u << t;
+  }
+  return taps | static_cast<uint32_t>(img) << kTapBits;
+}
+
+// The words of this thread's kVecs rows, the warpgroup's rows starting at
+// row `first` of the box.
+template <int kVecs>
+__device__ __forceinline__ void row_words(uint32_t (&word)[kVecs], int first,
+                                          int s) {
+  const int tid = threadIdx.x % 128;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    word[i] = row_word(first + tid / 8 + 16 * i, s);
+  }
+}
+
+// relu(lo) and relu(hi) rounded to bf16 and packed, lo in the low half:
+// one instruction for the plain version's clamp and cast.
+__device__ __forceinline__ uint32_t relu_bf16x2(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// z = relu(x*scale + bias) in place on this thread's vectors of the rows at
+// shared address `rows` whose words call them real for tap t with `images`
+// images of the box left in the batch (the others keep TMA's zeros); `sc`
+// and `bi` are the thread's 8 channels. All the loads are issued before
+// the first product and all the stores after the last, so their latencies
+// overlap. Then the warpgroup's rewrite is made visible to its wgmma.
+template <int kVecs>
+__device__ __forceinline__ void affine_relu_rows(
+    uint32_t rows, const uint32_t (&word)[kVecs], int t, int images,
+    const float (&sc)[8], const float (&bi)[8]) {
+  const uint32_t base = rows + (threadIdx.x % 128) * 16;
+  uint32_t v[kVecs][4];
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) ld_shared_v4(base + 128 * 16 * i, v[i]);
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float lo = __uint_as_float(v[i][j] << 16);
+      const float hi = __uint_as_float(v[i][j] & 0xFFFF0000u);
+      v[i][j] = relu_bf16x2(__fadd_rn(__fmul_rn(lo, sc[2 * j]), bi[2 * j]),
+                            __fadd_rn(__fmul_rn(hi, sc[2 * j + 1]),
+                                      bi[2 * j + 1]));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    if (((word[i] >> t) & 1u) &&
+        static_cast<int>(word[i] >> kTapBits) < images) {
+      st_shared_v4(base + 128 * 16 * i, v[i]);
+    }
+  }
+  fence_proxy_async();
+  warpgroup_sync(1 + threadIdx.x / 128);
+}
+
+// 8 consecutive floats from 32-byte aligned `p`.
+__device__ __forceinline__ void load8(float (&dst)[8], const float* p) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
+  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
+}
+
+// ---------------------------------------------------------------------------
+// The conv: forward (kDgrad = false) and input gradient (kDgrad = true);
+// kPrologue (forward only) applies relu(x*scale + bias) to the input first.
 // act_map: 4-D over the input activation [B, S, S, Ck]; w_map: 2-D over
 // w [9*Cin_w, Cout_w] in 64x64 boxes. Ck = Cin_w for the forward and
 // Cout_w for the dgrad; the output has N = Cout_w (forward) or Cin_w
-// (dgrad) channels.
+// (dgrad) channels. With kPrologue, the Ck scales and then the Ck biases
+// follow the ring in dynamic shared memory.
 // ---------------------------------------------------------------------------
 
-template <bool kDgrad, int kRows>
+template <bool kDgrad, int kRows, bool kPrologue>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap act_map,
                     const __grid_constant__ CUtensorMap w_map,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ bias,
                     __nv_bfloat16* __restrict__ out, int batch, int s,
                     int ck, int n_total, int cin_w, int m_tiles) {
+  static_assert(!(kDgrad && kPrologue), "the prologue is the forward's");
   constexpr int kSub = kRows / 128;    // m64 products per warpgroup
+  constexpr int kVecs = 4 * kSub;      // prologue vectors a thread, a chunk
+  constexpr int kDepth = ring_depth(kRows, kPrologue);
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
-  const Ring<kRows> ring = make_ring<kRows>(smem_raw, full, empty);
+  __shared__ __align__(8) uint64_t full[kDepth], empty[kDepth];
+  float* affine = nullptr;
+  if (kPrologue) {
+    // after the ring, which starts at the first 1024-byte boundary
+    affine = reinterpret_cast<float*>(
+        smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u) +
+        kDepth * stage_bytes(kRows));
+    for (int i = threadIdx.x; i < ck; i += kThreads) {
+      affine[i] = scale[i];
+      affine[ck + i] = bias[i];
+    }
+  }
+  const auto ring = make_ring<kRows, kDepth>(smem_raw, full, empty);
 
   const int m_total = batch * s * s;
   const int images = kRows / (s * s);          // the A box's batch extent
@@ -328,6 +524,7 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap act_map,
   if (wg == 2) {
     // Producer: one thread starts every load, running ahead into the next
     // tile while the consumers store this one.
+    if (kPrologue) reg_dealloc<40>();
     if (threadIdx.x != 256) return;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int b0 = (tile % m_tiles) * images;
@@ -350,7 +547,7 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap act_map,
             tma_load_2d(dst, &w_map, bar, n0 + 64 * h, t * ck + c0);
           }
         }
-        if (++stage == kStages) {
+        if (++stage == kDepth) {
           stage = 0;
           phase ^= 1;
         }
@@ -361,31 +558,49 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap act_map,
 
   // Consumers: warpgroup wg multiplies the kSub 64-row blocks wg*kSub ..
   // of a tile, each against the whole 128-wide B.
+  if (kPrologue) reg_alloc<232>();
   const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
+  uint32_t word[kVecs];
+  if (kPrologue) row_words(word, wg * kSub * 64, s);
+  const int group = prologue_group();
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     float acc[kSub][64];
 #pragma unroll
     for (int u = 0; u < kSub; ++u)
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[u][i] = 0.0f;
-    consume(ring, chunks, stage, phase, [&](int slot) {
+    const int images_left = batch - (tile % m_tiles) * images;
+    consume(
+        ring, chunks, stage, phase,
+        [&](int slot, int kc) {
+          if (!kPrologue) return;
+          const int t = kc / per_tap;
+          const int c = (kc - t * per_tap) * kChunk + 8 * group;
+          float sc[8], bi[8];
+          load8(sc, affine + c);
+          load8(bi, affine + ck + c);
+          affine_relu_rows(ring.a(slot) + wg * kSub * kHalfBytes, word, t,
+                           images_left, sc, bi);
+        },
+        [&](int slot) {
 #pragma unroll
-      for (int k = 0; k < kChunk / 16; ++k) {
-        // B: for the dgrad K-major, 128 rows of n; for the forward N-major,
-        // two 64-wide N blocks 8 KB apart, 16 K rows = 2 KB
-        const uint64_t db =
-            kDgrad ? smem_desc(ring.b(slot) + 32 * k, 16, 1024)
-                   : smem_desc(ring.b(slot) + 2048 * k, kHalfBytes, 1024);
+          for (int k = 0; k < kChunk / 16; ++k) {
+            // B: for the dgrad K-major, 128 rows of n; for the forward
+            // N-major, two 64-wide N blocks 8 KB apart, 16 K rows = 2 KB
+            const uint64_t db =
+                kDgrad ? smem_desc(ring.b(slot) + 32 * k, 16, 1024)
+                       : smem_desc(ring.b(slot) + 2048 * k, kHalfBytes, 1024);
 #pragma unroll
-        for (int u = 0; u < kSub; ++u) {
-          // A: K-major, 128-byte rows; a 16-wide K step is 32 bytes in.
-          const uint64_t da = smem_desc(
-              ring.a(slot) + (wg * kSub + u) * kHalfBytes + 32 * k, 16, 1024);
-          wgmma_m64n128k16<0, kDgrad ? 0 : 1>(acc[u], da, db);
-        }
-      }
-    });
+            for (int u = 0; u < kSub; ++u) {
+              // A: K-major, 128-byte rows; a 16-wide K step is 32 bytes in.
+              const uint64_t da = smem_desc(
+                  ring.a(slot) + (wg * kSub + u) * kHalfBytes + 32 * k, 16,
+                  1024);
+              wgmma_m64n128k16<0, kDgrad ? 0 : 1>(acc[u], da, db);
+            }
+          }
+        });
 
     // Epilogue: acc[u][4j + 2h + e] is row 16*warp + lane/4 + 8h, column
     // 8j + 2*(lane%4) + e of the warpgroup's u-th 64x128 block.
@@ -412,20 +627,25 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap act_map,
 }
 
 // ---------------------------------------------------------------------------
-// The weight gradient. x_map: 4-D over x [B, S, S, Cin] in boxes of 64
-// positions; g_map: 2-D over g [B*S*S, Cout] in 64x64 boxes. Block
-// (blockIdx.x, blockIdx.y) owns dW rows 128*x .. (within one tap) and
-// columns 128*y ..; part blockIdx.z reduces chunks [z*per_part, ...).
+// The weight gradient; kPrologue takes relu(x*scale + bias) for x. x_map:
+// 4-D over x [B, S, S, Cin] in boxes of 64 positions; g_map: 2-D over g
+// [B*S*S, Cout] in 64x64 boxes. Block (blockIdx.x, blockIdx.y) owns dW rows
+// 128*x .. (within one tap) and columns 128*y ..; part blockIdx.z reduces
+// chunks [z*per_part, ...).
 // ---------------------------------------------------------------------------
 
+template <bool kPrologue>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_wgrad_sm90_kernel(const __grid_constant__ CUtensorMap x_map,
                           const __grid_constant__ CUtensorMap g_map,
+                          const float* __restrict__ scale,
+                          const float* __restrict__ bias,
                           float* __restrict__ dst, int batch, int s, int cin,
                           int cout, int per_part) {
+  constexpr int kDepth = ring_depth(kTile, kPrologue);
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
-  const Ring<kTile> ring = make_ring<kTile>(smem_raw, full, empty);
+  __shared__ __align__(8) uint64_t full[kDepth], empty[kDepth];
+  const auto ring = make_ring<kTile, kDepth>(smem_raw, full, empty);
 
   const int ss = s * s;
   const int chunks_total = (batch * ss + kChunk - 1) / kChunk;
@@ -452,7 +672,7 @@ conv3x3_wgrad_sm90_kernel(const __grid_constant__ CUtensorMap x_map,
         tma_load_2d(ring.b(stage) + h * kHalfBytes, &g_map,
                     ring.full_bar(stage), n0 + 64 * h, p0);
       }
-      if (++stage == kStages) {
+      if (++stage == kDepth) {
         stage = 0;
         phase ^= 1;
       }
@@ -460,25 +680,42 @@ conv3x3_wgrad_sm90_kernel(const __grid_constant__ CUtensorMap x_map,
     return;
   }
 
+  // The prologue's constants: the warpgroup rewrites its own box (channels
+  // c0 + 64*wg ..), whose 8 channels per thread are fixed for the block.
+  uint32_t word[4];
+  float sc[8], bi[8];
+  if (kPrologue) {
+    row_words(word, 0, s);
+    const int c = c0 + 64 * wg + 8 * prologue_group();
+    load8(sc, scale + c);
+    load8(bi, bias + c);
+  }
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
   int stage = 0;
   uint32_t phase = 0;
-  consume(ring, chunks, stage, phase, [&](int slot) {
+  consume(
+      ring, chunks, stage, phase,
+      [&](int slot, int kc) {
+        if (!kPrologue) return;
+        affine_relu_rows(ring.a(slot) + wg * kHalfBytes, word, t,
+                         batch - (first + kc) * kChunk / ss, sc, bi);
+      },
+      [&](int slot) {
 #pragma unroll
-    for (int k = 0; k < kChunk / 16; ++k) {
-      // A^T: this warpgroup's 64 channels are one M-major block (positions
-      // are rows of 128 bytes); 16 positions = 2 KB.
-      const uint64_t da =
-          smem_desc(ring.a(slot) + wg * kHalfBytes + 2048 * k, kHalfBytes,
-                    1024);
-      // G: N-major, two 64-wide N blocks 8 KB apart
-      const uint64_t db =
-          smem_desc(ring.b(slot) + 2048 * k, kHalfBytes, 1024);
-      wgmma_m64n128k16<1, 1>(acc, da, db);
-    }
-  });
+        for (int k = 0; k < kChunk / 16; ++k) {
+          // A^T: this warpgroup's 64 channels are one M-major block
+          // (positions are rows of 128 bytes); 16 positions = 2 KB.
+          const uint64_t da =
+              smem_desc(ring.a(slot) + wg * kHalfBytes + 2048 * k,
+                        kHalfBytes, 1024);
+          // G: N-major, two 64-wide N blocks 8 KB apart
+          const uint64_t db =
+              smem_desc(ring.b(slot) + 2048 * k, kHalfBytes, 1024);
+          wgmma_m64n128k16<1, 1>(acc, da, db);
+        }
+      });
 
   float* part = dst + static_cast<size_t>(blockIdx.z) * 9 * cin * cout;
   const int warp = (threadIdx.x % 128) / 32;
@@ -573,55 +810,81 @@ bool encode_matrix(CUtensorMap* map, const void* base, int rows, int cols) {
   return encode(map, base, 2, dims, strides, box);
 }
 
-// Lifts the kernel's dynamic shared memory limit to `bytes`, once per
-// device, and launches it on `grid` with `args`.
+// Lifts the kernel's dynamic shared memory limit to at least `bytes`, once
+// per device and size (`limit` holds what each device has), and launches it
+// on `grid` with `args`.
 template <class... Params, class... Args>
-cudaError_t launch(void (*kernel)(Params...), bool (&ready)[kMaxDevices],
+cudaError_t launch(void (*kernel)(Params...), int (&limit)[kMaxDevices],
                    int bytes, dim3 grid, cudaStream_t stream,
                    Args&&... args) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices || !ready[dev]) {
+  if (dev >= kMaxDevices || limit[dev] < bytes) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) ready[dev] = true;
+    if (dev < kMaxDevices) limit[dev] = bytes;
   }
   kernel<<<grid, kThreads, bytes, stream>>>(static_cast<Args&&>(args)...);
   return cudaGetLastError();
 }
 
-template <bool kDgrad, int kRows>
+template <bool kDgrad, int kRows, bool kPrologue>
 cudaError_t launch_conv(const CUtensorMap& act_map, const CUtensorMap& w_map,
+                        const float* scale, const float* bias,
                         __nv_bfloat16* out, int batch, int s, int ck,
                         int n_total, int cin_w, int m_tiles, int ctas,
                         cudaStream_t stream) {
-  static bool ready[kMaxDevices];
-  return launch(conv3x3_sm90_kernel<kDgrad, kRows>, ready,
-                smem_bytes(kRows), dim3(ctas), stream, act_map, w_map, out,
-                batch, s, ck, n_total, cin_w, m_tiles);
+  static int limit[kMaxDevices];
+  const int bytes = smem_bytes(kRows, ring_depth(kRows, kPrologue)) +
+                    (kPrologue ? 8 * ck : 0);
+  return launch(conv3x3_sm90_kernel<kDgrad, kRows, kPrologue>, limit, bytes,
+                dim3(ctas), stream, act_map, w_map, scale, bias, out, batch,
+                s, ck, n_total, cin_w, m_tiles);
+}
+
+template <bool kPrologue>
+cudaError_t launch_wgrad(const CUtensorMap& x_map, const CUtensorMap& g_map,
+                         const float* scale, const float* bias, float* dst,
+                         int batch, int s, int cin, int cout, int parts,
+                         int per_part, cudaStream_t stream) {
+  static int limit[kMaxDevices];
+  return launch(conv3x3_wgrad_sm90_kernel<kPrologue>, limit,
+                smem_bytes(kTile, ring_depth(kTile, kPrologue)),
+                dim3(9 * cin / kTile, cout / kTile, parts),
+                stream, x_map, g_map, scale, bias, dst, batch, s, cin, cout,
+                per_part);
 }
 
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Each launches on `stream`, does
 // not synchronise, and returns cudaGetLastError() of its launches (0 =
-// launched; -1 = a tile height other than 128 or 256; -2 = a tensor map
-// could not be encoded). The caller has checked shapes, dtypes, contiguity
-// and 16-byte alignment.
+// launched; -1 = arguments no kernel takes: a tile height other than 128 or
+// 256, one of scale and bias without the other, or a prologue on the dgrad;
+// -2 = a tensor map could not be encoded). The caller has checked shapes,
+// dtypes, contiguity and 16-byte alignment. `scale` and `bias` (f32, one per
+// input channel) are both null, or both given for the affine + ReLU
+// prologue.
 
 // The conv with the weight w [3, 3, cin_w, cout_w]: dgrad = 0: out [batch,
-// s, s, cout_w] = conv3x3(x [batch, s, s, cin_w], w); dgrad = 1: out
-// [batch, s, s, cin_w] = conv3x3(x [batch, s, s, cout_w], flip(w)), the
-// input gradient for the output gradient x. The output is cut into tiles
-// of `rows` (128 or 256) by 128, which `ctas` persistent blocks share (at
-// most one block per SM: more are idle).
-extern "C" int embn_conv3x3_sm90(const void* x, const void* w, void* out,
-                                 int batch, int s, int cin_w, int cout_w,
-                                 int dgrad, int rows, int ctas,
+// s, s, cout_w] = conv3x3(x [batch, s, s, cin_w], w), or with the prologue
+// conv3x3(relu(x*scale + bias), w); dgrad = 1: out [batch, s, s, cin_w] =
+// conv3x3(x [batch, s, s, cout_w], flip(w)), the input gradient for the
+// output gradient x. The output is cut into tiles of `rows` (128 or 256) by
+// 128, which `ctas` persistent blocks share (at most one block per SM: more
+// are idle).
+extern "C" int embn_conv3x3_sm90(const void* x, const void* w,
+                                 const void* scale, const void* bias,
+                                 void* out, int batch, int s, int cin_w,
+                                 int cout_w, int dgrad, int rows, int ctas,
                                  void* stream) {
-  if (rows != 128 && rows != 256) return -1;
+  const bool prologue = scale != nullptr;
+  if ((rows != 128 && rows != 256) || prologue != (bias != nullptr) ||
+      (prologue && dgrad)) {
+    return -1;
+  }
   const int ck = dgrad ? cout_w : cin_w;
   const int n_total = dgrad ? cin_w : cout_w;
   const int images = rows / (s * s);
@@ -631,37 +894,44 @@ extern "C" int embn_conv3x3_sm90(const void* x, const void* w, void* out,
       !encode_matrix(&w_map, w, 9 * cin_w, cout_w)) {
     return -2;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
-  const auto conv = dgrad ? (rows == 256 ? launch_conv<true, 256>
-                                         : launch_conv<true, 128>)
-                          : (rows == 256 ? launch_conv<false, 256>
-                                         : launch_conv<false, 128>);
-  return static_cast<int>(conv(act_map, w_map, ob, batch, s, ck, n_total,
-                               cin_w, m_tiles, ctas, st));
+  const auto conv =
+      prologue ? (rows == 256 ? launch_conv<false, 256, true>
+                              : launch_conv<false, 128, true>)
+      : dgrad  ? (rows == 256 ? launch_conv<true, 256, false>
+                              : launch_conv<true, 128, false>)
+               : (rows == 256 ? launch_conv<false, 256, false>
+                              : launch_conv<false, 128, false>);
+  return static_cast<int>(
+      conv(act_map, w_map, static_cast<const float*>(scale),
+           static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out),
+           batch, s, ck, n_total, cin_w, m_tiles, ctas,
+           static_cast<cudaStream_t>(stream)));
 }
 
-// dW [3, 3, cin, cout] f32 of the conv of x [batch, s, s, cin] for the
-// output gradient g [batch, s, s, cout]. The positions are reduced in
-// `parts` parts of `per_part` 64-position chunks; with more than one part,
-// `ws` holds the [parts, 9*cin, cout] f32 partials that are then added in
-// part order into `out`.
+// dW [3, 3, cin, cout] f32 of the conv of x [batch, s, s, cin], or with the
+// prologue of relu(x*scale + bias), for the output gradient g [batch, s, s,
+// cout]. The positions are reduced in `parts` parts of `per_part`
+// 64-position chunks; with more than one part, `ws` holds the [parts,
+// 9*cin, cout] f32 partials that are then added in part order into `out`.
 extern "C" int embn_conv3x3_wgrad_sm90(const void* x, const void* g,
+                                       const void* scale, const void* bias,
                                        void* ws, void* out, int batch, int s,
                                        int cin, int cout, int parts,
                                        int per_part, void* stream) {
+  const bool prologue = scale != nullptr;
+  if (prologue != (bias != nullptr)) return -1;
   CUtensorMap x_map, g_map;
   if (!encode_act(&x_map, x, batch, s, cin, kChunk / (s * s)) ||
       !encode_matrix(&g_map, g, batch * s * s, cout)) {
     return -2;
   }
-  static bool ready[kMaxDevices];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* dst = static_cast<float*>(parts > 1 ? ws : out);
-  const cudaError_t err = launch(
-      conv3x3_wgrad_sm90_kernel, ready, smem_bytes(kTile),
-      dim3(9 * cin / kTile, cout / kTile, parts), st, x_map, g_map, dst,
-      batch, s, cin, cout, per_part);
+  const auto wgrad = prologue ? launch_wgrad<true> : launch_wgrad<false>;
+  const cudaError_t err = wgrad(
+      x_map, g_map, static_cast<const float*>(scale),
+      static_cast<const float*>(bias), dst, batch, s, cin, cout, parts,
+      per_part, st);
   if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
   const int n4 = 9 * cin * cout / 4;
   conv3x3_sum_parts_kernel<<<(n4 + 255) / 256, 256, 0, st>>>(

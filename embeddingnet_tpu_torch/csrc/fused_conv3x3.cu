@@ -1,16 +1,14 @@
-// Stride-1 SAME 3x3 convolution on a small square NHWC map with an affine +
-// ReLU before or after it, for Hopper (sm_90a). One template, two modes:
-//   kPrologue -> _fwd_bn_kernel of embeddingnet_tpu/ops/fused_conv.py (K3,
-//                via _conv_bn_fwd_impl):
-//                out = conv3x3(relu(x * scale + bias), w)
-//   kEpilogue -> fused_kernel of tools/pallas_fused_conv.py (T1, via
-//                fused_conv_bn_relu): out = relu(conv3x3(x, w) * scale + bias)
+// Stride-1 SAME 3x3 convolution on a small square NHWC map followed by a
+// per-channel affine + ReLU, for Hopper (sm_90a).
+//
+// Replaces fused_kernel of tools/pallas_fused_conv.py (T1, via
+// fused_conv_bn_relu): out = relu(conv3x3(x, w) * scale + bias).
 // x [B, S, S, Cin] bf16 NHWC, w [3, 3, Cin, Cout] bf16 (HWIO), out
-// [B, S, S, Cout] bf16; scale/bias f32, [Cin] for the prologue and [Cout]
-// for the epilogue; S in {2, 4, 8}, Cin and Cout multiples of 128 (the
-// wrapper's gate). Accumulation is f32; the output is rounded to bf16 once,
-// in the epilogue. The plain conv (K1, forward and input gradient) is
-// csrc/conv3x3_sm90.cu's; this entry point refuses mode 0.
+// [B, S, S, Cout] bf16; scale/bias f32 [Cout]; S in {2, 4, 8}, Cin and Cout
+// multiples of 128 (the wrapper's gate). Accumulation is f32; the output is
+// rounded to bf16 once, in the epilogue. The plain conv (K1, forward and
+// input gradient) and the conv with the affine + ReLU before it (K3) are
+// csrc/conv3x3_sm90.cu's; this entry point takes only T1's mode, 2.
 //
 // Design: an implicit GEMM. Rows are output positions, M = B*S*S, in NHWC
 // order, so the output is the row-major [M, Cout] matrix and needs no
@@ -19,37 +17,25 @@
 // B operand. Each block owns a 64x64 output tile and walks K in chunks of 64
 // (a chunk never straddles a tap, since Cin % 64 == 0). Per chunk it gathers
 // the A tile, the 64 rows shifted by the chunk's tap, into shared memory;
-// taps that fall outside the map are written as zeros. The prologue is
-// applied while staging: relu(x*scale + bias) in f32, rounded to bf16 before
-// the product, exactly as _affine_relu_block does. Zeros for the
-// out-of-range taps are what "the padding ring stays zero after the affine"
-// becomes, and they remove the jnp.pad round trip of the TPU version. The
-// epilogue mode applies relu(acc*scale + bias) to the f32 accumulator tile
-// as it leaves shared memory, with the block's 64 scales and biases read
-// once into shared memory, the multiply and the add rounded separately (no
-// contraction into an FMA) as the plain version rounds them. Four
-// warps each multiply a 32x32 quarter with nvcuda::wmma bf16 16x16x16 into
-// f32 fragments. The next chunk's global loads are issued into registers
-// before the current chunk's products, so memory and tensor-core work
-// overlap. No atomics: every output is summed in one fixed order, and
-// results are deterministic.
+// taps that fall outside the map are written as zeros. The epilogue applies
+// relu(acc*scale + bias) to the f32 accumulator tile as it leaves shared
+// memory, with the block's 64 scales and biases read once into shared
+// memory, the multiply and the add rounded separately (no contraction into
+// an FMA) as the plain version rounds them. Four warps each multiply a
+// 32x32 quarter with nvcuda::wmma bf16 16x16x16 into f32 fragments. The
+// next chunk's global loads are issued into registers before the current
+// chunk's products, so memory and tensor-core work overlap. No atomics:
+// every output is summed in one fixed order, and results are deterministic.
 //
-// What bounds it on an H100: at the serving batch (B = 32), stage 4
-// (S=2, C=512) reads 4.7 MB of bf16 weights for 0.60 GFLOP, about 120 FLOP
-// per byte, under the card's ~295 FLOP/byte bf16 ridge, and has only
-// M/64 * N/64 = 2 * 8 = 16 tiles for 132 SMs. By the roofline it would be
-// bound by weight bandwidth; measured (H100 SXM, 700 W) it is bound by the
-// serial chain of K chunks inside each block: 72 chunks at C=512 with one
-// chunk in flight take about 1.3 us each, so B=32 (16 blocks) takes as long
-// as B=256 (128 blocks), about 90 us, far from both roofs. The blocks of one
-// weight slice are adjacent in launch order (M is the fast grid axis), so
-// the slice is read from L2 after its first block. A deeper cp.async/TMA
-// pipeline, split-K over the taps and wgmma are the fixes, left for later.
-// The epilogue mode (T1) is the same GEMM, at B = 1024, S = 2, C = 512:
-// 19.3 GFLOP for 13.1 MB, bound by the tensor cores (19.5 us at the dense
-// bf16 peak), and as slow as the prologue mode there, by the same serial
-// chain. csrc/conv3x3_sm90.cu is the wgmma/TMA design these modes are to
-// move to.
+// What bounds it on an H100: at B = 1024, S = 2, C = 512 (the A/B tool's
+// shape) 19.3 GFLOP for 13.1 MB, so the tensor cores (19.5 us at the dense
+// bf16 peak). Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md) it takes
+// about 150 us, bound by the serial chain of K chunks inside each block:
+// 72 chunks at C=512 with one chunk in flight take about 1.3 us each. The
+// blocks of one weight slice are adjacent in launch order (M is the fast
+// grid axis), so the slice is read from L2 after its first block.
+// csrc/conv3x3_sm90.cu's TMA/wgmma ring, with the affine + ReLU applied to
+// the accumulators before the bf16 store, is the design to move it to.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,21 +58,20 @@ constexpr int A_VECS = BM * BK / VEC / THREADS;  // 4 vectors per thread
 constexpr int B_VECS = BK * BN / VEC / THREADS;  // 4 vectors per thread
 constexpr int ROWS_PER_PASS = THREADS / (BK / VEC);  // 16
 
-// Where the affine + ReLU goes; the values are embn_conv3x3_small's `mode`.
-enum Mode : int { kPrologue = 1, kEpilogue = 2 };
+// embn_conv3x3_small's `mode` of T1: the affine + ReLU after the conv.
+constexpr int kEpilogue = 2;
 
-template <int kMode>
 __global__ void __launch_bounds__(THREADS)
-conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
-                     const __nv_bfloat16* __restrict__ w,
-                     const float* __restrict__ scale,
-                     const float* __restrict__ bias,
-                     __nv_bfloat16* __restrict__ out,
-                     int batch, int s, int cin, int cout) {
+conv3x3_affine_relu_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ w,
+                           const float* __restrict__ scale,
+                           const float* __restrict__ bias,
+                           __nv_bfloat16* __restrict__ out,
+                           int batch, int s, int cin, int cout) {
   __shared__ __align__(128) __nv_bfloat16 a_s[BM * LDA];
   __shared__ __align__(128) __nv_bfloat16 b_s[BK * LDB];
   __shared__ __align__(128) float c_s[BM * LDC];
-  __shared__ float scale_s[BN], bias_s[BN];   // the epilogue's, per block
+  __shared__ float scale_s[BN], bias_s[BN];   // the block's channels
 
   const int m_total = batch * s * s;
   const int m0 = blockIdx.x * BM;
@@ -119,7 +104,6 @@ conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
   }
 
   uint4 a_reg[A_VECS];
-  bool a_in[A_VECS];
   uint4 b_reg[B_VECS];
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
@@ -134,8 +118,8 @@ conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
     for (int i = 0; i < A_VECS; ++i) {
       const int iy = row_y[i] + dy;
       const int ix = row_x[i] + dx;
-      a_in[i] = row_b[i] >= 0 && iy >= 0 && iy < s && ix >= 0 && ix < s;
-      a_reg[i] = a_in[i]
+      const bool in = row_b[i] >= 0 && iy >= 0 && iy < s && ix >= 0 && ix < s;
+      a_reg[i] = in
           ? *reinterpret_cast<const uint4*>(
                 x + ((size_t)(row_b[i] * s + iy) * s + ix) * cin + c)
           : zero;
@@ -148,34 +132,12 @@ conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
     }
   };
 
-  // Registers of chunk kt into shared memory, applying the prologue to the
-  // in-range taps only: the padding ring stays zero after the affine.
-  auto stage_chunk = [&](int kt) {
-    float sc[VEC], bi[VEC];
-    if (kMode == kPrologue) {
-      const int k0 = kt * BK;
-      const int c = k0 - (k0 / cin) * cin + seg * VEC;
-      const float4* sp = reinterpret_cast<const float4*>(scale + c);
-      const float4* bp = reinterpret_cast<const float4*>(bias + c);
-      const float4 s0 = sp[0], s1 = sp[1], b0 = bp[0], b1 = bp[1];
-      sc[0] = s0.x; sc[1] = s0.y; sc[2] = s0.z; sc[3] = s0.w;
-      sc[4] = s1.x; sc[5] = s1.y; sc[6] = s1.z; sc[7] = s1.w;
-      bi[0] = b0.x; bi[1] = b0.y; bi[2] = b0.z; bi[3] = b0.w;
-      bi[4] = b1.x; bi[5] = b1.y; bi[6] = b1.z; bi[7] = b1.w;
-    }
+  // The loaded chunk's registers into shared memory.
+  auto stage_chunk = [&]() {
 #pragma unroll
     for (int i = 0; i < A_VECS; ++i) {
-      uint4 v = a_reg[i];
-      if (kMode == kPrologue && a_in[i]) {
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          const float z = __bfloat162float(e[j]) * sc[j] + bi[j];
-          e[j] = __float2bfloat16(fmaxf(z, 0.0f));
-        }
-      }
       *reinterpret_cast<uint4*>(
-          &a_s[(r0 + i * ROWS_PER_PASS) * LDA + seg * VEC]) = v;
+          &a_s[(r0 + i * ROWS_PER_PASS) * LDA + seg * VEC]) = a_reg[i];
     }
 #pragma unroll
     for (int i = 0; i < B_VECS; ++i) {
@@ -193,7 +155,7 @@ conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
   const int k_chunks = 9 * cin / BK;
   load_chunk(0);
   for (int kt = 0; kt < k_chunks; ++kt) {
-    stage_chunk(kt);
+    stage_chunk();
     __syncthreads();
     if (kt + 1 < k_chunks) load_chunk(kt + 1);
 #pragma unroll
@@ -217,8 +179,8 @@ conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
     __syncthreads();
   }
 
-  // Epilogue: f32 tile through shared memory, [relu(acc*scale + bias) in
-  // f32,] one bf16 rounding, 16-byte stores of whole rows; rows past the
+  // Epilogue: f32 tile through shared memory, relu(acc*scale + bias) in
+  // f32, one bf16 rounding, 16-byte stores of whole rows; rows past the
   // batch are not written.
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -226,7 +188,7 @@ conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
     for (int j = 0; j < 2; ++j)
       wmma::store_matrix_sync(&c_s[(wm + 16 * i) * LDC + wn + 16 * j],
                               acc[i][j], LDC, wmma::mem_row_major);
-  if (kMode == kEpilogue && tid < BN) {
+  if (tid < BN) {
     scale_s[tid] = scale[n0 + tid];
     bias_s[tid] = bias[n0 + tid];
   }
@@ -240,12 +202,10 @@ conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
     __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
-      float a = c_s[r * LDC + cseg * VEC + j];
-      if (kMode == kEpilogue) {
-        const int c = cseg * VEC + j;
-        a = fmaxf(__fadd_rn(__fmul_rn(a, scale_s[c]), bias_s[c]), 0.0f);
-      }
-      e[j] = __float2bfloat16(a);
+      const int c = cseg * VEC + j;
+      e[j] = __float2bfloat16(fmaxf(
+          __fadd_rn(__fmul_rn(c_s[r * LDC + c], scale_s[c]), bias_s[c]),
+          0.0f));
     }
     *reinterpret_cast<uint4*>(out + (size_t)m * cout + n0 + cseg * VEC) = v;
   }
@@ -255,30 +215,20 @@ conv3x3_small_kernel(const __nv_bfloat16* __restrict__ x,
 
 // Plain C entry point, loaded with ctypes. Launches on `stream`, does not
 // synchronise, and returns cudaGetLastError() of the launch (0 = launched,
-// -1 = a mode other than a Mode, the plain conv's 0 included). The caller
-// has checked shapes, dtypes, contiguity and 16-byte alignment.
+// -1 = a mode other than T1's 2: the plain conv's 0 and the prologue's 1
+// are csrc/conv3x3_sm90.cu's). The caller has checked shapes, dtypes,
+// contiguity and 16-byte alignment.
 extern "C" int embn_conv3x3_small(const void* x, const void* w,
                                   const void* scale, const void* bias,
                                   void* out, int batch, int s, int cin,
                                   int cout, int mode, void* stream) {
+  if (mode != kEpilogue) return -1;
   const dim3 grid((batch * s * s + BM - 1) / BM, cout / BN);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
-  const float* sc = static_cast<const float*>(scale);
-  const float* bi = static_cast<const float*>(bias);
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
-  switch (mode) {
-    case kPrologue:
-      conv3x3_small_kernel<kPrologue><<<grid, THREADS, 0, st>>>(
-          xb, wb, sc, bi, ob, batch, s, cin, cout);
-      break;
-    case kEpilogue:
-      conv3x3_small_kernel<kEpilogue><<<grid, THREADS, 0, st>>>(
-          xb, wb, sc, bi, ob, batch, s, cin, cout);
-      break;
-    default:
-      return -1;
-  }
+  conv3x3_affine_relu_kernel<<<grid, THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out),
+      batch, s, cin, cout);
   return static_cast<int>(cudaGetLastError());
 }

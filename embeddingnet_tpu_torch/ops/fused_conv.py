@@ -34,9 +34,9 @@ The public functions keep the JAX layout: NHWC activations, ``[3, 3, Cin,
 Cout]`` weights. The modules take the ResNet's NCHW tensors in
 ``torch.channels_last`` memory, whose NHWC view is contiguous and goes to the
 kernels without a copy. The kernels are in ``csrc/conv3x3_sm90.cu`` (K1,
-forward and dgrad, and K2: TMA-fed wgmma implicit GEMMs, laid out by
-:func:`plan_sm90`), ``csrc/fused_conv3x3.cu`` (K3, T1) and
-``csrc/conv3x3_wgrad.cu`` (K4).
+forward and dgrad, K2, and K3 and K4, which apply the affine and ReLU to
+each landed input tile in shared memory: TMA-fed wgmma implicit GEMMs, laid
+out by :func:`plan_sm90`) and ``csrc/fused_conv3x3.cu`` (T1).
 """
 
 from __future__ import annotations
@@ -59,18 +59,14 @@ LAUNCHES = {"conv3x3_small": 0, "conv3x3_small_bn_relu": 0,
             "conv3x3_dgrad": 0, "conv3x3_wgrad": 0,
             "conv3x3_wgrad_bn_relu": 0, "conv3x3_small_affine_relu": 0}
 
-# The fused kernel's ``mode`` (csrc/fused_conv3x3.cu ``Mode``): where the
-# affine + ReLU goes. The plain conv (mode 0) is csrc/conv3x3_sm90.cu's.
-_PROLOGUE, _EPILOGUE = 1, 2
+# T1's ``mode`` in csrc/fused_conv3x3.cu's entry point (the affine + ReLU
+# after the conv); the plain conv (0) and the prologue (1) are
+# csrc/conv3x3_sm90.cu's.
+_EPILOGUE = 2
 
 # Map sizes the kernels take: the forward kernel is generic in S, and the
 # backward runs at 8x8 too (the mixed path).
 KERNEL_SPATIAL = (2, 4, 8)
-
-# Blocks the weight-gradient kernel aims at: about four per SM of the
-# H100's 132, reached by splitting the reduction over the B*S*S rows.
-_WGRAD_TARGET_BLOCKS = 4 * 132
-_WGRAD_MIN_CHUNKS = 16      # 64-row chunks a split reduces, at least
 
 # csrc/conv3x3_sm90.cu: the H100 SXM's SMs, the kernels' 128x128 tile and
 # their 64-wide K chunk (the conv's channels, K2's positions).
@@ -161,8 +157,9 @@ class Sm90Plan:
     """How ``csrc/conv3x3_sm90.cu`` lays one call out; the C entry points
     compute the same grid and box coordinates.
 
-    ``kind`` is ``"fprop"`` (K1's forward), ``"dgrad"`` (K1 as the input
-    gradient) or ``"wgrad"`` (K2). The A operand is a box of the 4-D tensor
+    ``kind`` is ``"fprop"`` (K1's forward, and K3's), ``"dgrad"`` (K1 as the
+    input gradient) or ``"wgrad"`` (K2, and K4). The A operand is a box of
+    the 4-D tensor
     map over the activation ``[batch, s, s, k_channels]`` (innermost first:
     channels, W, H, batch): ``box`` = (64, s, s, ``images``). The conv's
     output is ``[batch*s*s, n_channels]`` in ``tiles`` of ``rows`` x 128
@@ -171,7 +168,11 @@ class Sm90Plan:
     :meth:`block_tiles`. K2's output is dW ``[9*k_channels, n_channels]`` in
     128x128 ``tiles``, one block each (grid x, y), its ``batch*s*s``
     positions reduced in ``parts`` parts (grid z) of ``per_part`` chunks of
-    64 positions."""
+    64 positions. A ring stage holds ``rows`` rows of 128 bytes of A: the
+    conv's box, or K2's two boxes (channels c0 and c0 + 64) one after the
+    other; K3's and K4's prologue rewrites it in place
+    (:meth:`prologue_vectors`, :meth:`real_rows`,
+    :func:`sm90_swizzle_group`)."""
 
     kind: str
     batch: int
@@ -248,6 +249,32 @@ class Sm90Plan:
         return range(z * self.per_part,
                      min(self.chunks, (z + 1) * self.per_part))
 
+    def real_rows(self, origin: Sequence[int]) -> torch.Tensor:
+        """Which rows of the A box at ``origin`` (channel, W, H, batch) are
+        positions of the tensor: ``(b, h, w)`` with ``0 <= h + origin[2] <
+        s``, ``0 <= w + origin[1] < s`` and ``origin[3] + b < batch``. The
+        prologue rewrites these rows only; the others, TMA's zero fill (the
+        padding ring and the rows past a ragged batch), stay zero, since
+        ``relu(0*scale + bias)`` need not be. Bool, one per box row."""
+        _, x0, y0, b0 = origin
+        ss = self.s * self.s
+        r = torch.arange(self.images * ss)
+        y = (r % ss) // self.s + y0
+        x = r % self.s + x0
+        return ((y >= 0) & (y < self.s) & (x >= 0) & (x < self.s)
+                & (b0 + r // ss < self.batch))
+
+    def prologue_vectors(self, thread: int) -> Tuple[Tuple[int, int], ...]:
+        """(row, physical 16-byte chunk) of the vectors of a ring stage
+        that consumer thread ``thread`` (0-255; warpgroup ``thread //
+        128``) rewrites in the prologue: the warpgroup's half of the
+        ``rows`` rows (the tile rows it multiplies, or K2's box of its 64
+        channels), vector ``thread % 128 + 128*i`` of it."""
+        wg, tid = divmod(thread, 128)
+        half = self.rows // 2
+        return tuple((wg * half + tid // 8 + 16 * i, tid % 8)
+                     for i in range(half // 16))
+
 
 def wgrad_sm90_parts(batch: int, s: int, cin: int, cout: int,
                      sms: int = _SMS) -> Tuple[int, int]:
@@ -273,6 +300,14 @@ def wgrad_sm90_parts(batch: int, s: int, cin: int, cout: int,
         if best is None or key < best[0]:
             best = (key, parts, per)
     return best[1], best[2]
+
+
+def sm90_swizzle_group(row, chunk):
+    """The logical 16-byte chunk (8 bf16 channels) that physical chunk
+    ``chunk`` of 128-byte row ``row`` of a ring stage holds: TMA's 128-byte
+    swizzle XORs the chunk with the row's place in its 1024-byte atom, the
+    stage being 1024-byte aligned. Takes ints or integer arrays."""
+    return chunk ^ (row % 8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -413,14 +448,11 @@ def _on_device(device: torch.device):
     return torch.cuda.device(device)
 
 
-def _launch_conv(name: str, x: torch.Tensor, w: torch.Tensor,
-                 scale: torch.Tensor, bias: torch.Tensor,
-                 mode: int) -> torch.Tensor:
-    """K3 (``_PROLOGUE``: ``conv3x3(relu(x*scale+bias), w)``) or T1
-    (``_EPILOGUE``: ``relu(conv3x3(x, w)*scale+bias)``), bf16 [B, S, S,
-    Cout]; counted under ``name``."""
-    _check(name, x, tuple(w.shape), [x, w, scale, bias], scale,
-           w.shape[3] if mode == _EPILOGUE else 0)
+def _launch_epilogue(name: str, x: torch.Tensor, w: torch.Tensor,
+                     scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """T1 of ``csrc/fused_conv3x3.cu``: ``relu(conv3x3(x, w)*scale +
+    bias)``, bf16 [B, S, S, Cout]; counted under ``name``."""
+    _check(name, x, tuple(w.shape), [x, w, scale, bias], scale, w.shape[3])
     if w.dtype != torch.bfloat16:
         raise ValueError(f"{name}: w must be bf16, got {w.dtype}")
     b, s, _, cin = x.shape
@@ -431,7 +463,8 @@ def _launch_conv(name: str, x: torch.Tensor, w: torch.Tensor,
     fn = _cuda.library("fused_conv3x3").embn_conv3x3_small
     with _on_device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(bias),
-                 out.data_ptr(), b, s, cin, cout, mode, _stream(x.device))
+                 out.data_ptr(), b, s, cin, cout, _EPILOGUE,
+                 _stream(x.device))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     LAUNCHES[name] += 1
@@ -439,10 +472,12 @@ def _launch_conv(name: str, x: torch.Tensor, w: torch.Tensor,
 
 
 def _launch_sm90(name: str, x: torch.Tensor, w: torch.Tensor,
-                 dgrad: bool) -> torch.Tensor:
-    """K1 of ``csrc/conv3x3_sm90.cu``: ``conv3x3(x, w)`` or, with
+                 dgrad: bool = False, scale: Optional[torch.Tensor] = None,
+                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``csrc/conv3x3_sm90.cu``'s conv: K1's ``conv3x3(x, w)``; with
     ``dgrad``, ``conv3x3(x, _flip(w))`` read from ``w`` as it stands (``x``
-    is then the output gradient, with w's Cout channels); bf16 [B, S, S,
+    is then the output gradient, with w's Cout channels); with ``scale``
+    and ``bias``, K3's ``conv3x3(relu(x*scale + bias), w)``. bf16 [B, S, S,
     N]; counted under ``name``."""
     if w.dtype != torch.bfloat16 or w.dim() != 4:
         raise ValueError(f"{name}: w must be bf16 [3, 3, Cin, Cout], got "
@@ -450,7 +485,8 @@ def _launch_sm90(name: str, x: torch.Tensor, w: torch.Tensor,
     kh, kw, cin, cout = w.shape
     # the dgrad's conv reads w as the flipped [3, 3, Cout, Cin] weight
     w_shape = (kh, kw, cout, cin) if dgrad else (kh, kw, cin, cout)
-    _check(name, x, w_shape, [x, w], None)
+    affine = [scale, bias] if scale is not None else []
+    _check(name, x, w_shape, [x, w] + affine, scale)
     b, s = x.shape[0], x.shape[1]
     out = torch.empty((b, s, s, w_shape[3]), dtype=x.dtype, device=x.device)
     if b == 0:
@@ -459,32 +495,21 @@ def _launch_sm90(name: str, x: torch.Tensor, w: torch.Tensor,
                      _sm_count(x.device.index))
     fn = _cuda.library("conv3x3_sm90").embn_conv3x3_sm90
     with _on_device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, s, cin, cout,
-                 int(dgrad), plan.rows, plan.grid[0], _stream(x.device))
+        err = fn(x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(bias),
+                 out.data_ptr(), b, s, cin, cout, int(dgrad), plan.rows,
+                 plan.grid[0], _stream(x.device))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     LAUNCHES[name] += 1
     return out
 
 
-def wgrad_splits(batch: int, s: int, cin: int, cout: int) -> int:
-    """Parts K4 (``csrc/conv3x3_wgrad.cu``) splits its reduction over the
-    ``batch*s*s`` rows into: enough blocks to fill the card (about
-    :data:`_WGRAD_TARGET_BLOCKS`), each part at least
-    :data:`_WGRAD_MIN_CHUNKS` chunks of 64 rows. The parts' f32 sums are
-    added in a fixed order, so the result does not depend on the launch."""
-    tiles = (9 * cin // 64) * (cout // 64)
-    chunks = -(-batch * s * s // 64)
-    return max(1, min(chunks // _WGRAD_MIN_CHUNKS,
-                      -(-_WGRAD_TARGET_BLOCKS // tiles)))
-
-
 def _launch_wgrad(name: str, x: torch.Tensor, g: torch.Tensor,
                   scale: Optional[torch.Tensor] = None,
                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K2 (no ``scale``, ``csrc/conv3x3_sm90.cu``) or K4 (``csrc/
-    conv3x3_wgrad.cu``): the [3, 3, Cin, Cout] f32 weight gradient of
-    ``conv3x3([relu(x*scale+bias)], w)`` for the output gradient ``g``."""
+    """K2 (no ``scale``) or K4 of ``csrc/conv3x3_sm90.cu``: the [3, 3,
+    Cin, Cout] f32 weight gradient of ``conv3x3([relu(x*scale+bias)], w)``
+    for the output gradient ``g``."""
     b, s, _, cin = x.shape
     cout = g.shape[3]
     tensors = [x, g] + ([scale, bias] if scale is not None else [])
@@ -496,24 +521,14 @@ def _launch_wgrad(name: str, x: torch.Tensor, g: torch.Tensor,
                       device=x.device)
     if b == 0:
         return out.zero_()
-    if scale is None:
-        plan = plan_sm90("wgrad", b, s, cin, cout,
-                         _sm_count(x.device.index))
-        splits = plan.parts
-    else:
-        splits = wgrad_splits(b, s, cin, cout)
-    ws = (torch.empty((splits, 9 * cin, cout), dtype=torch.float32,
-                      device=x.device) if splits > 1 else out)
+    plan = plan_sm90("wgrad", b, s, cin, cout, _sm_count(x.device.index))
+    ws = (torch.empty((plan.parts, 9 * cin, cout), dtype=torch.float32,
+                      device=x.device) if plan.parts > 1 else out)
     with _on_device(x.device):
-        if scale is None:
-            err = _cuda.library("conv3x3_sm90").embn_conv3x3_wgrad_sm90(
-                x.data_ptr(), g.data_ptr(), ws.data_ptr(), out.data_ptr(), b,
-                s, cin, cout, plan.parts, plan.per_part, _stream(x.device))
-        else:
-            err = _cuda.library("conv3x3_wgrad").embn_conv3x3_wgrad(
-                x.data_ptr(), g.data_ptr(), scale.data_ptr(),
-                bias.data_ptr(), ws.data_ptr(), out.data_ptr(), b, s, cin,
-                cout, splits, 1, _stream(x.device))
+        err = _cuda.library("conv3x3_sm90").embn_conv3x3_wgrad_sm90(
+            x.data_ptr(), g.data_ptr(), _ptr(scale), _ptr(bias),
+            ws.data_ptr(), out.data_ptr(), b, s, cin, cout, plan.parts,
+            plan.per_part, _stream(x.device))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     LAUNCHES[name] += 1
@@ -526,14 +541,14 @@ def _on_cpu(x: torch.Tensor) -> bool:
 
 def _conv_fwd(x, w):
     return _plain_conv3x3(x, w) if _on_cpu(x) else \
-        _launch_sm90("conv3x3_small", x, w, dgrad=False)
+        _launch_sm90("conv3x3_small", x, w)
 
 
 def _conv_bn_fwd(x, w, scale, bias):
     if _on_cpu(x):
         return _plain_conv3x3(_affine_relu(x, scale, bias), w)
-    return _launch_conv("conv3x3_small_bn_relu", x, w, scale, bias,
-                        _PROLOGUE)
+    return _launch_sm90("conv3x3_small_bn_relu", x, w, scale=scale,
+                        bias=bias)
 
 
 def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -652,8 +667,7 @@ def conv3x3_small_affine_relu(x: torch.Tensor, w: torch.Tensor,
             "conv3x3_small_affine_relu is forward only (T1 has no VJP); "
             "call it on tensors that do not require grad, or under "
             "torch.no_grad()")
-    return _launch_conv("conv3x3_small_affine_relu", x, w, scale, bias,
-                        _EPILOGUE)
+    return _launch_epilogue("conv3x3_small_affine_relu", x, w, scale, bias)
 
 
 def conv3x3_small_mixed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

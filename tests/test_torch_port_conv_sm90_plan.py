@@ -1,5 +1,6 @@
-"""The addressing of ``csrc/conv3x3_sm90.cu`` (K1 forward and dgrad, K2),
-checked without a card through the plan that its wrapper uses
+"""The addressing of ``csrc/conv3x3_sm90.cu`` (K1 forward and dgrad, K2, and
+K3 and K4, which add the BN-ReLU prologue), checked without a card through
+the plan that its wrapper uses
 (``embeddingnet_tpu_torch.ops.fused_conv.plan_sm90``).
 
 * Coverage: every output row and dW entry is owned by exactly one block,
@@ -12,8 +13,17 @@ checked without a card through the plan that its wrapper uses
   for the forward, for the dgrad from the unflipped weight, and for K2.
   f32, small widths; the sums are taken in another order than the plain
   versions', so to 1e-4.
+* The prologue of K3 and K4 in that model: each landed box laid out as
+  TMA's 128-byte swizzle writes it into the ring stage, each consumer
+  thread's vectors rewritten in place with the scales and biases of the
+  channel group the swizzle map gives, on the rows the plan calls real
+  only. In bf16 the rewritten stage equals the box of the zero-padded
+  plain ``_affine_relu`` bit for bit; in f32 the products equal the plain
+  versions, the JAX package's XLA references and its Pallas kernels in
+  interpret mode. A negative control (the affine on every row) fails.
 """
 
+import functools
 import itertools
 
 import numpy as np
@@ -50,11 +60,68 @@ def _box(t, origin, box):
     return out
 
 
-def _conv_model(plan, act, w):
+def _tma_swizzle(stage):
+    """``stage`` [rows, 64] as TMA's 128-byte swizzle writes it into a
+    1024-byte aligned buffer: [rows, 8 physical 16-byte chunks, 8]; the
+    16-byte chunk j of the row at byte address a lands at chunk
+    j ^ ((a >> 7) & 7)."""
+    rows = stage.shape[0]
+    r = np.arange(rows)[:, None]
+    phys = np.empty((rows, 8, 8), stage.dtype)
+    phys[r, np.arange(8)[None, :] ^ ((r * 128 >> 7) & 7)] = \
+        stage.reshape(rows, 8, 8)
+    return phys
+
+
+def _tma_unswizzle(phys):
+    rows = phys.shape[0]
+    r = np.arange(rows)[:, None]
+    return phys[r, np.arange(8)[None, :] ^ ((r * 128 >> 7) & 7)].reshape(
+        rows, 64)
+
+
+@functools.lru_cache(maxsize=None)
+def _prologue_index(plan):
+    """(rows, physical chunks) of every consumer thread's vectors."""
+    vectors = [v for thread in range(256)
+               for v in plan.prologue_vectors(thread)]
+    return tuple(np.array(a) for a in zip(*vectors))
+
+
+def _bf16_round(z):
+    """float32 -> the bits of bf16, rounded to nearest even (finite z)."""
+    bits = z.view(np.uint32)
+    return ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def _prologue(plan, stage, channel0, real, scale, bias):
+    """The kernel's prologue on a landed ring stage [rows, 64] (float32, or
+    uint16 holding bf16): swizzled as TMA lays it, every thread's vectors
+    on a real row rewritten in place, z = relu(x*scale + bias) (product and
+    sum rounded apart in f32, then one round to the stage's type) with the
+    channels ``channel0[row] + 8 * sm90_swizzle_group(row, chunk) + 0..7``;
+    read back unswizzled."""
+    rows, chunks = _prologue_index(plan)
+    phys = _tma_swizzle(stage)
+    keep = real[rows]
+    rows, chunks = rows[keep], chunks[keep]
+    channels = (channel0[rows] + 8 * tfc.sm90_swizzle_group(rows, chunks)
+                )[:, None] + np.arange(8)
+    vec = phys[rows, chunks]
+    if stage.dtype == np.uint16:
+        vec = (vec.astype(np.uint32) << 16).view(np.float32)
+    z = np.maximum(vec * scale[channels] + bias[channels], np.float32(0))
+    phys[rows, chunks] = _bf16_round(z) if stage.dtype == np.uint16 else z
+    return _tma_unswizzle(phys)
+
+
+def _conv_model(plan, act, w, affine=None, mask=True):
     """The conv as its kernel computes it: per persistent block, per tile
     of the block, per tap and 64-wide K chunk, the A box times the two B
     boxes; rows past the batch dropped. ``act`` [B, S, S, K], ``w`` [3, 3,
-    Cin, Cout]."""
+    Cin, Cout]. With ``affine`` = (scale, bias), K3: the prologue on each A
+    box, on the rows ``plan.real_rows`` calls real (all rows when ``mask``
+    is off: the negative control)."""
     m = plan.batch * plan.s * plan.s
     r = plan.rows
     w2d = w.reshape(-1, w.shape[3])
@@ -64,7 +131,12 @@ def _conv_model(plan, act, w):
         acc = np.zeros((r, 128), np.float32)
         for t, c0 in itertools.product(range(9),
                                        range(0, plan.k_channels, 64)):
-            a = _box(act, plan.a_origin(bx, t, c0), plan.box).reshape(r, 64)
+            origin = plan.a_origin(bx, t, c0)
+            a = _box(act, origin, plan.box).reshape(r, 64)
+            if affine is not None:
+                real = (plan.real_rows(origin).numpy() if mask
+                        else np.ones(r, bool))
+                a = _prologue(plan, a, np.full(r, c0), real, *affine)
             halves = [_box(w2d, plan.b_origin(by, t, c0, h), (64, 64))
                       for h in range(2)]
             if plan.kind == "dgrad":
@@ -78,9 +150,11 @@ def _conv_model(plan, act, w):
     return out[:m].reshape(plan.batch, plan.s, plan.s, plan.n_channels)
 
 
-def _wgrad_model(plan, x, g):
+def _wgrad_model(plan, x, g, affine=None, mask=True):
     """K2 as its kernel computes it: per part and dW tile, the A^T G
-    products of the part's chunks; the parts' partials added in order."""
+    products of the part's chunks; the parts' partials added in order. With
+    ``affine``, K4: the prologue on each stage of two boxes (channels c0 and
+    c0 + 64, 64 positions each)."""
     cin, cout = plan.k_channels, plan.n_channels
     g2d = g.reshape(-1, cout)
     parts = np.zeros((plan.parts, 9 * cin, cout), np.float32)
@@ -91,9 +165,17 @@ def _wgrad_model(plan, x, g):
         assert c0 + 128 <= cin          # a tile never straddles a tap
         acc = np.zeros((128, 128), np.float32)
         for chunk in plan.part_chunks(z):
-            a = np.concatenate(
-                [_box(x, plan.a_origin(bx, t, c0 + 64 * h, chunk),
-                      plan.box).reshape(64, 64) for h in range(2)], 1)
+            origins = [plan.a_origin(bx, t, c0 + 64 * h, chunk)
+                       for h in range(2)]
+            a = np.concatenate([_box(x, o, plan.box).reshape(64, 64)
+                                for o in origins], 0)       # the stage
+            if affine is not None:
+                real = (np.concatenate([plan.real_rows(o).numpy()
+                                        for o in origins]) if mask
+                        else np.ones(128, bool))
+                a = _prologue(plan, a, c0 + 64 * (np.arange(128) // 64),
+                              real, *affine)
+            a = np.concatenate([a[:64], a[64:]], 1)         # [64 pos, 128]
             b = np.concatenate(
                 [_box(g2d, plan.g_origin(by, chunk, h), (64, 64))
                  for h in range(2)], 1)
@@ -248,3 +330,205 @@ def test_box_model_wgrad_split_matches_plain():
     got = _wgrad_model(plan, x, g)
     want = tfc._plain_wgrad(torch.from_numpy(x), torch.from_numpy(g))
     np.testing.assert_allclose(got, want.numpy(), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4: the BN-ReLU prologue on the landed A stage.
+# ---------------------------------------------------------------------------
+
+PROLOGUE_PLANS = [("fprop", SMS), ("fprop", 1), ("wgrad", SMS)]
+
+
+def _affine(seed, c):
+    """scale and bias with most biases positive, so relu(bias) != 0 and a
+    rewritten padding ring shows."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.5, 2.0, size=c).astype(np.float32),
+            (rng.normal(size=c) + 1.0).astype(np.float32))
+
+
+def _bf16_bits(t):
+    return t.bfloat16().view(torch.int16).numpy().view(np.uint16)
+
+
+def _stages(plan):
+    """(origins, channel of each stage row) of every A stage the kernel
+    loads: the conv's box per tile, tap and chunk; K2's two boxes per dW
+    row tile and position chunk."""
+    if plan.kind == "wgrad":
+        for bx, chunk in itertools.product(range(plan.tiles[0]),
+                                           range(plan.chunks)):
+            t, c0 = plan.wgrad_tile(bx)
+            yield ([plan.a_origin(bx, t, c0 + 64 * h, chunk)
+                    for h in range(2)], c0 + 64 * (np.arange(128) // 64))
+    else:
+        for bx, t, c0 in itertools.product(range(plan.tiles[0]), range(9),
+                                           range(0, plan.k_channels, 64)):
+            yield [plan.a_origin(bx, t, c0)], np.full(plan.rows, c0)
+
+
+@pytest.mark.parametrize("kind,sms", PROLOGUE_PLANS)
+def test_prologue_vectors_cover_each_stage_once(kind, sms):
+    """The 256 consumer threads rewrite every 16-byte vector of a stage
+    exactly once, each warpgroup within its own half (the rows that only it
+    reads), and all the vectors of one thread hold the same channel group,
+    so a thread needs 8 scales and biases per chunk."""
+    plan = tfc.plan_sm90(kind, 1024, 4, 128, 128, sms)
+    assert plan.rows == (256 if sms == 1 else 128)
+    seen = np.zeros((plan.rows, 8), int)
+    for thread in range(256):
+        vectors = plan.prologue_vectors(thread)
+        assert len(vectors) == plan.rows // 32
+        half = thread // 128 * plan.rows // 2
+        groups = set()
+        for row, chunk in vectors:
+            assert half <= row < half + plan.rows // 2
+            seen[row, chunk] += 1
+            groups.add(tfc.sm90_swizzle_group(row, chunk))
+        assert len(groups) == 1
+    assert (seen == 1).all()
+
+
+def test_swizzle_group_is_a_bijection_on_every_atom():
+    """On every 1024-byte atom (8 rows of 128 bytes) the map (row, physical
+    chunk) -> (row, channel group) is a bijection, and it is the one TMA's
+    128-byte swizzle writes (modelled from the byte addresses)."""
+    rows = 256
+    stage = np.repeat(np.arange(8, dtype=np.float32), 8)[None, :].repeat(
+        rows, 0)                       # each element holds its group
+    phys = _tma_swizzle(stage)
+    r, p = np.meshgrid(np.arange(rows), np.arange(8), indexing="ij")
+    groups = tfc.sm90_swizzle_group(r, p)
+    assert (phys[..., 0] == groups).all()
+    for atom in range(rows // 8):
+        pairs = {(int(a), int(g)) for a, g in
+                 zip(r[8 * atom:8 * atom + 8].ravel(),
+                     groups[8 * atom:8 * atom + 8].ravel())}
+        assert len(pairs) == 64
+        assert all(sorted(groups[i]) == list(range(8))
+                   for i in range(8 * atom, 8 * atom + 8))
+
+
+@pytest.mark.parametrize("kind,sms", PROLOGUE_PLANS)
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("batch", [1, 3, 37])
+def test_prologue_stage_is_the_padded_z(kind, sms, s, batch):
+    """In bf16 every rewritten stage equals the box of z =
+    ``_affine_relu(x)`` with zeros off the tensor, bit for bit: the mask
+    keeps the padding ring and the rows past the batch at zero, the swizzle
+    map picks each vector's channels, and the rounding is the plain
+    version's."""
+    c = 256
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(batch, s, s, c)).astype(
+        np.float32)).bfloat16()
+    scale, bias = _affine(5, c)
+    z = tfc._affine_relu(x, torch.from_numpy(scale), torch.from_numpy(bias))
+    xb, zb = _bf16_bits(x), _bf16_bits(z)
+    plan = tfc.plan_sm90(kind, batch, s, c, c, sms)
+    stages = 0
+    for origins, channel0 in _stages(plan):
+        land = np.concatenate([_box(xb, o, plan.box).reshape(-1, 64)
+                               for o in origins])
+        want = np.concatenate([_box(zb, o, plan.box).reshape(-1, 64)
+                               for o in origins])
+        real = np.concatenate([plan.real_rows(o).numpy() for o in origins])
+        got = _prologue(plan, land, channel0, real, scale, bias)
+        np.testing.assert_array_equal(got, want)
+        stages += 1
+    assert stages > 0
+
+
+def _bn_data(seed, b, s, cin, cout):
+    x, w, g = _data(seed, b, s, cin, cout)
+    scale, bias = _affine(seed + 100, cin)
+    return x, w, g, scale, bias
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+BN_SHAPES = ([(b, s, 128, 128) for b in (1, 3, 37, 1024) for s in (2, 4)]
+             + [(3, 4, 128, 256), (2, 2, 256, 128)])
+
+
+@pytest.mark.parametrize("sms", [SMS, 1])
+@pytest.mark.parametrize("b,s,cin,cout", BN_SHAPES)
+def test_box_model_bn_forward_matches_plain(b, s, cin, cout, sms):
+    """K3: the boxes with the prologue times the weight boxes equal
+    ``conv3x3(_affine_relu(x), w)`` of the port and of the JAX package."""
+    x, w, _, scale, bias = _bn_data(6, b, s, cin, cout)
+    plan = tfc.plan_sm90("fprop", b, s, cin, cout, sms)
+    got = _conv_model(plan, x, w, (scale, bias))
+    xt, wt, st, bt = _t(x, w, scale, bias)
+    want = tfc._plain_conv3x3(tfc._affine_relu(xt, st, bt), wt)
+    np.testing.assert_allclose(got, want.numpy(), **TOL)
+    xj, wj, sj, bj = _j(x, w, scale, bias)
+    np.testing.assert_allclose(
+        got, np.asarray(jfc._lax_conv3x3(jfc._affine_relu(xj, sj, bj), wj)),
+        **TOL)
+
+
+def _assert_wgrad_close(got, want):
+    """dW sums up to B*S*S = 16,384 f32 products in another order than the
+    plain version: to 1e-4 relative plus 1e-5 of the largest entry (the
+    sums' rounding grows with their length; 1e-4 alone fails entries near
+    zero at B=1,024)."""
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("b,s,cin,cout", BN_SHAPES)
+def test_box_model_bn_wgrad_matches_plain(b, s, cin, cout):
+    """K4: the prologue on each stage of K2's boxes gives the weight
+    gradient of ``conv3x3(_affine_relu(x), w)``, of the port and of the
+    JAX package."""
+    x, _, g, scale, bias = _bn_data(7, b, s, cin, cout)
+    plan = tfc.plan_sm90("wgrad", b, s, cin, cout)
+    got = _wgrad_model(plan, x, g, (scale, bias))
+    xt, gt, st, bt = _t(x, g, scale, bias)
+    _assert_wgrad_close(got, tfc._plain_wgrad_bn_relu(xt, gt, st, bt).numpy())
+    xj, gj, sj, bj = _j(x, g, scale, bias)
+    _assert_wgrad_close(
+        got, np.asarray(jfc._lax_wgrad(jfc._affine_relu(xj, sj, bj), gj)))
+
+
+@pytest.mark.parametrize("s", [2, 4])
+def test_box_model_bn_matches_pallas_interpret(s):
+    """K3 and K4 in the box model against the TPU kernels themselves,
+    ``_fwd_bn_kernel`` and ``_wgrad_bn_kernel`` in Pallas interpret mode."""
+    x, w, g, scale, bias = _bn_data(8, 8, s, 128, 128)
+    xj, wj, gj, sj, bj = _j(x, w, g, scale, bias)
+    got = _conv_model(tfc.plan_sm90("fprop", 8, s, 128, 128), x, w,
+                      (scale, bias))
+    np.testing.assert_allclose(
+        got, np.asarray(jfc._conv_bn_fwd_impl(xj, wj, sj, bj)), **TOL)
+    got = _wgrad_model(tfc.plan_sm90("wgrad", 8, s, 128, 128), x, g,
+                       (scale, bias))
+    np.testing.assert_allclose(
+        got, np.asarray(jfc._wgrad_bn_impl(xj, gj, sj, bj)), **TOL)
+
+
+@pytest.mark.parametrize("kind", ["fprop", "wgrad"])
+def test_box_model_without_the_mask_differs(kind):
+    """Negative control: the affine on every row of the zero-filled boxes
+    (relu(bias) > 0 on the padding ring) gives another answer, so the
+    tests above see the ring."""
+    x, w, g, scale, bias = _bn_data(9, 3, 4, 128, 128)
+    assert (bias > 0).mean() > 0.5
+    plan = tfc.plan_sm90(kind, 3, 4, 128, 128)
+    xt, wt, gt, st, bt = _t(x, w, g, scale, bias)
+    if kind == "wgrad":
+        got = _wgrad_model(plan, x, g, (scale, bias), mask=False)
+        want = tfc._plain_wgrad_bn_relu(xt, gt, st, bt).numpy()
+    else:
+        got = _conv_model(plan, x, w, (scale, bias), mask=False)
+        want = tfc._plain_conv3x3(tfc._affine_relu(xt, st, bt), wt).numpy()
+    assert np.abs(got - want).max() > 0.1
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(got, want, **TOL)

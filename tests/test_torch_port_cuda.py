@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
-(the 3x3 conv forward K1/K3, its backward K1-as-dgrad/K2/K4 — K1 and K2 in
-csrc/conv3x3_sm90.cu, the TMA/wgmma design — the conv with
+(the 3x3 conv forward K1/K3, its backward K1-as-dgrad/K2/K4 — all in
+csrc/conv3x3_sm90.cu, the TMA/wgmma design, K3 and K4 with the BN-ReLU
+prologue on the landed input tile — the conv with
 the affine-ReLU epilogue T1, the u8 normalisation T2) against their plain
 PyTorch versions, the modules that launch them, forward and backward, and
 the augmentation presets on the card against the CPU.
@@ -103,7 +104,6 @@ def test_wgrad_is_deterministic(card):
     x, _, scale, bias = _inputs(7, 1024, 8, 128, 128, card)
     g = _inputs(8, 1024, 8, 128, 128, card)[0]
     assert fc.plan_sm90("wgrad", 1024, 8, 128, 128).parts > 1
-    assert fc.wgrad_splits(1024, 8, 128, 128) > 1
     assert torch.equal(fc.conv3x3_wgrad(x, g), fc.conv3x3_wgrad(x, g))
     assert torch.equal(fc.conv3x3_wgrad_bn_relu(x, g, scale, bias),
                        fc.conv3x3_wgrad_bn_relu(x, g, scale, bias))
@@ -130,6 +130,106 @@ def test_sm90_kernels_match_plain(card, b, s, cin, cout):
                         fc._plain_wgrad(x.float(), g.float()))
     assert fc.LAUNCHES == _launched(conv3x3_small=1, conv3x3_dgrad=1,
                                     conv3x3_wgrad=1)
+
+
+@pytest.mark.parametrize("b", [1, 3, 37, 1001, 1024])
+@pytest.mark.parametrize("s,cin,cout", [
+    (4, 256, 256), (2, 512, 512), (4, 128, 256)])
+def test_prologue_kernels_match_plain(card, b, s, cin, cout):
+    """K3 and K4 (csrc/conv3x3_sm90.cu with the BN-ReLU prologue) against
+    their plain versions at the fused training shapes and at Cin != Cout,
+    at batches that fill no tile; the biases are mostly positive, so a
+    padding ring or a ragged row rewritten by the affine would show. K4's
+    dW is the same bit for bit from launch to launch."""
+    x, w, scale, bias = _inputs(25, b, s, cin, cout, card)
+    assert (bias > 0).float().mean() > 0.5
+    g = _inputs(26, b, s, cout, cout, card)[0]
+    z = fc._affine_relu(x, scale, bias).float()
+    torch.testing.assert_close(
+        fc.conv3x3_small_bn_relu(x, w, scale, bias).float(),
+        fc._plain_conv3x3(z, w.float()), **BF16_TOL)
+    got = fc.conv3x3_wgrad_bn_relu(x, g, scale, bias)
+    _assert_wgrad_close(got, fc._plain_wgrad(z, g.float()))
+    assert torch.equal(got, fc.conv3x3_wgrad_bn_relu(x, g, scale, bias))
+    assert fc.LAUNCHES == _launched(conv3x3_small_bn_relu=1,
+                                    conv3x3_wgrad_bn_relu=2)
+
+
+@pytest.mark.parametrize("b", [3, 32, 256])
+def test_prologue_forward_at_the_serving_batches(card, b):
+    """K3 at the serving batches, stage 3's and stage 4's shapes."""
+    for s, c in ((4, 256), (2, 512)):
+        x, w, scale, bias = _inputs(27, b, s, c, c, card)
+        torch.testing.assert_close(
+            fc.conv3x3_small_bn_relu(x, w, scale, bias).float(),
+            fc._plain_conv3x3(fc._affine_relu(x, scale, bias).float(),
+                              w.float()), **BF16_TOL)
+    assert fc.LAUNCHES == _launched(conv3x3_small_bn_relu=2)
+
+
+def _device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` runs (after a first,
+    untraced call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_prologue_never_writes_z(card):
+    """One K3 call is one kernel; one K4 call is its kernel and at most the
+    part sum: no elementwise kernel, so z = relu(x*scale + bias) is never
+    written to device memory."""
+    x, w, scale, bias = _inputs(28, 1024, 4, 256, 256, card)
+    g = _inputs(29, 1024, 4, 256, 256, card)[0]
+    names = _device_kernels(lambda: fc.conv3x3_small_bn_relu(x, w, scale,
+                                                             bias))
+    assert len(names) == 1 and "conv3x3_sm90_kernel" in names[0], names
+    names = _device_kernels(lambda: fc.conv3x3_wgrad_bn_relu(x, g, scale,
+                                                             bias))
+    assert len(names) <= 2 and "conv3x3_wgrad_sm90_kernel" in names[0] \
+        and all("conv3x3_sum_parts_kernel" in n for n in names[1:]), names
+
+
+def test_prologue_wrappers_refuse_what_the_kernels_cannot_take(card):
+    """A misaligned, non-contiguous or wrongly typed input, or a scale or
+    bias of the wrong shape or type, raises before any launch."""
+    x, w, scale, bias = _inputs(30, 8, 4, 128, 128, card)
+    n = x.numel()
+    shifted = torch.empty(n + 8, dtype=x.dtype, device=card)[1:n + 1]
+    shifted = shifted.view(x.shape).copy_(x)        # 2 bytes off 16
+    k3 = lambda *a: fc.conv3x3_small_bn_relu(*a)  # noqa: E731
+    k4 = lambda x_, s_, b_: fc.conv3x3_wgrad_bn_relu(  # noqa: E731
+        x_, x, s_, b_)
+    for bad in (shifted, x.transpose(1, 2)):
+        with pytest.raises(ValueError, match="contiguous and 16-byte"):
+            k3(bad, w, scale, bias)
+        with pytest.raises(ValueError, match="contiguous and 16-byte"):
+            k4(bad, scale, bias)
+    misaligned = torch.empty(129, device=card)[1:].copy_(scale)
+    with pytest.raises(ValueError, match="contiguous and 16-byte"):
+        k3(x, w, misaligned, bias)
+    with pytest.raises(ValueError, match="contiguous and 16-byte"):
+        k4(x, scale, misaligned)
+    for bad_x in (x.float(), x.half()):
+        with pytest.raises(ValueError, match="kernel takes bf16"):
+            k3(bad_x, w, scale, bias)
+        with pytest.raises(ValueError, match="kernel takes bf16"):
+            fc.conv3x3_wgrad_bn_relu(bad_x, bad_x, scale, bias)
+    with pytest.raises(ValueError, match="w must be bf16"):
+        k3(x, w.float(), scale, bias)
+    for s_, b_ in ((scale[:64], bias), (scale, bias[:64]),
+                   (scale.half(), bias), (scale, bias.double()),
+                   (scale[None], bias)):
+        with pytest.raises(ValueError, match="scale and bias"):
+            k3(x, w, s_, b_)
+        with pytest.raises(ValueError, match="scale and bias"):
+            k4(x, s_, b_)
+    assert fc.LAUNCHES == _launched()
 
 
 def test_dgrad_launches_one_kernel_and_copies_no_weight(card):

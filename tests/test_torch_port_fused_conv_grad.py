@@ -155,16 +155,3 @@ def test_plain_wgrad_is_the_conv_weight_gradient():
     np.testing.assert_allclose(got.numpy(), want.permute(2, 3, 1, 0).numpy(),
                                **TOL)
     assert got.dtype == torch.float32
-
-
-def test_wgrad_splits_fill_the_card():
-    """The reduction split gives every training shape at B=1024 enough
-    blocks, each part at least 16 chunks of 64 rows, and none at a tiny
-    batch."""
-    for s, c in ((8, 128), (4, 256), (2, 512)):
-        splits = tfc.wgrad_splits(1024, s, c, c)
-        tiles = (9 * c // 64) * (c // 64)
-        chunks = 1024 * s * s // 64
-        assert tiles * splits >= 4 * 132 or chunks // splits < 32
-        assert chunks // splits >= 16
-    assert tfc.wgrad_splits(8, 8, 128, 128) == 1

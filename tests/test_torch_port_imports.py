@@ -145,7 +145,7 @@ def test_port_files_never_import_the_jax_package():
     files += [root / "chip_smoke.py"] + [
         root / "tools" / f"{name}.py" for name in (
             "serve_torch", "fused_conv_epilogue_torch",
-            "augment_probe_torch")]
+            "augment_probe_torch", "conv3x3_kernels_ab_torch")]
     assert len(files) > 20
     offenders = [str(f.relative_to(root)) for f in files
                  if _JAX_PACKAGE_IMPORT.search(f.read_text())]
