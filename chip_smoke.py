@@ -10,22 +10,28 @@ each through the hand-written kernels.
 2. Builds the kernels: every ``embeddingnet_tpu_torch/csrc/*.cu`` with
    ``nvcc`` (one process per source, in parallel), and the Triton kernel T2
    at its first launch; prints ptxas's registers and spills for each
-   kernel instance.
+   kernel instance, and fails if any instance spills.
 3. Kernel phase: each kernel against its plain PyTorch version on the same
    inputs, in f32 with TF32 off, at the shapes ResNet-50 at 64x64 gives it
    (the forward K3/K1 at B = 3, 32, 256 and 1024, K1 at 8x8 too; the
    backward K1-as-dgrad, K2, K4 and the normalisation T2 at B = 1024 and
    the conv kernels at B = 8 and the ragged B = 37, K2 at all three
-   training shapes; T1, the conv with the affine-ReLU epilogue, at B = 3,
-   128 and 1024 at S=2, C=512 and S=4, C=256, against the f32 and the bf16 plain
-   version), each check printed with its tolerance and its worst ratio to
-   it. Times with CUDA events, against the plain version in bf16 and, where
-   one PyTorch call computes the same function, against that call; where
-   none does, against the eager sequence of library calls (``sequence_ms``:
-   K3 ``_affine_relu`` then ``F.conv2d``, K4 ``_affine_relu`` then the
-   weight-only ``convolution_backward``; T1 ``F.conv2d`` alone and the
-   eager conv -> affine -> ReLU sequence). T2 and ``torch.mul`` into bf16
-   also by ``torch.profiler`` device time.
+   training shapes; T1, K1's forward with the affine-ReLU epilogue, at B =
+   3, 128 and 1024 at S=2, C=512 and S=4, C=256, against the f32 and the
+   bf16 plain version, and at B = 1024 bit for bit on exact integer inputs
+   where an FMA would round otherwise), each check printed with its
+   tolerance and its worst ratio to it. Times with CUDA events, against
+   the plain version in bf16 and, where one PyTorch call computes the same
+   function, against that call; where none does, against the eager
+   sequence of library calls (``sequence_ms``: K3 ``_affine_relu`` then
+   ``F.conv2d``, K4 ``_affine_relu`` then the weight-only
+   ``convolution_backward``; T1 ``F.conv2d`` alone, ``conv2d_ms``, and the
+   eager conv -> affine -> ReLU sequence, ``eager_sequence_ms``). At B =
+   1024 the kernels, the library calls and the sequences are also timed by
+   ``torch.profiler`` device time (``kernel_device_ms``,
+   ``library_device_ms``, ``sequence_device_ms``, ``conv2d_device_ms``,
+   ``eager_sequence_device_ms``), which a Python launch's host time does
+   not inflate; so are T2 and ``torch.mul`` into bf16.
 4. Serving phase: the flagship model (ResNet-50 v1.5, 64x64x3, 256-d
    L2-normalised embedding, kNN k=5, bf16, fused BN-ReLU conv on), with
    seeded random weights, encodes a DB of 10,240 synthetic images
@@ -34,8 +40,10 @@ each through the hand-written kernels.
    engine. The answers are checked against a direct encode + kNN, against
    the true classes, and the embeddings against the cuDNN path.
 5. Epilogue A/B phase: ``tools/fused_conv_epilogue_torch.py`` (the port
-   of ``tools/pallas_fused_conv.py``) at B = 1024: its numerics check and
-   three interleaved timings of the library sequence and T1.
+   of ``tools/pallas_fused_conv.py``) at B = 1024 under ``torch.profiler``:
+   its numerics check and three interleaved timings of the library
+   sequence and T1; the profiler must see one T1 kernel instance per
+   launch and no K3.
 6. Augmentation check: each op of the four presets on the card against the
    same op on the CPU from the same draws, to 1e-3 gray levels, and the
    ``default`` preset chained, where CLAHE pixels whose bin flips between
@@ -58,22 +66,25 @@ each through the hand-written kernels.
    ``record_function("augment")`` range).
 
 The last line of standard output is the result,
-``{"ok": true, "device": {...}}``. The line before it lists each kernel:
-its launches during the run of its path (the augmented training run for the
-conv kernels, K3 also during the serving run; the aug-off training run for
-T2; the A/B tool's run for T1), its worst error, and ``ms`` / ``plain_ms``
-/ ``bound_ms`` / ``library_ms``, the device time of the kernel, its plain
+``{"ok": true, "device": {...}}``; the line before it is the card's name
+and power limit. The line before that lists each kernel: its launches
+during the run of its path (the augmented training run for the conv
+kernels, K3 also during the serving run; the aug-off training run for T2;
+the A/B tool's run for T1), its worst error, and ``ms`` / ``plain_ms`` /
+``bound_ms`` / ``library_ms``, the event time of the kernel, its plain
 version, the card's bound and the library call, summed over the calls one
-training step makes at B = 1024 (T1: one call at B = 1024, S = 2, C = 512);
-K3's serving numbers (per B=32 forward) are under ``serve``; K1 as the
-dgrad and K2 add ``library_ratio``, their ``ms`` over ``library_ms``; K3 and
-K4 add ``sequence_ms``; the conv kernels add ``device_ms``, their
+training step makes at B = 1024 (T1: one call at B = 1024, S = 2, C = 512),
+with the device-time keys of phase 3 summed alike; K3's serving numbers
+(per B=32 forward) are under ``serve``; K1 as the dgrad and K2 add
+``library_ratio``, their ``ms`` over ``library_ms``, and
+``library_ratio_device``, ``kernel_device_ms`` over ``library_device_ms``;
+K3 and K4 add ``sequence_ms``; the conv kernels add ``device_ms``, their
 ``torch.profiler`` device time per augmented step (the part sums apart, in
-``training_step_part_sums_ms``). The line before that is the card's name
-and power limit. Any failure raises, and
-the script exits non-zero without the last line.
+``training_step_part_sums_ms``; T1: per launch in the A/B tool's run).
+Any failure raises, and the script exits non-zero without the last line.
 """
 
+import functools
 import json
 import os
 import re
@@ -103,7 +114,6 @@ from embeddingnet_tpu_torch.train.steps import make_triplet_train_step
 
 SEED = 0
 DEVICE = "cuda"
-EPILOGUE_SRC = "embeddingnet_tpu_torch/csrc/fused_conv3x3.cu"
 SM90_SRC = "embeddingnet_tpu_torch/csrc/conv3x3_sm90.cu"
 JAX_CONV = "embeddingnet_tpu/ops/fused_conv.py"
 # name -> (route, source, the TPU kernel it replaces)
@@ -114,7 +124,7 @@ KERNELS = {
     "conv3x3_wgrad_bn_relu": ("cuda", SM90_SRC, f"{JAX_CONV}:575"),
     "normalize_u8": ("triton", "embeddingnet_tpu_torch/ops/preprocess.py",
                      "tools/perf_probe3.py:63"),
-    "conv3x3_small_affine_relu": ("cuda", EPILOGUE_SRC,
+    "conv3x3_small_affine_relu": ("cuda", SM90_SRC,
                                   "tools/pallas_fused_conv.py:39"),
     # K1's forward: built and checked, but ResNet-50 does not reach it (its
     # stride-1 3x3 convs all follow a BatchNorm, so all are fused)
@@ -123,13 +133,16 @@ KERNELS = {
 # the kernels whose per-step time is held to one library call's
 # (kernel ms / library ms in the kernels line)
 LIBRARY_RATIO = ("conv3x3_dgrad", "conv3x3_wgrad")
-# each conv kernel's instances in torch.profiler's kernel names; K2's and
-# K4's part sums share one kernel
+# each conv kernel's instances in torch.profiler's kernel names
+# (conv3x3_sm90_kernel<dgrad, rows, prologue, epilogue>); K2's and K4's part
+# sums share one kernel
 PROFILED_NAMES = {
-    "conv3x3_small_bn_relu": ("conv3x3_sm90_kernel<false,", ", true>"),
+    "conv3x3_small_bn_relu": ("conv3x3_sm90_kernel<false,", ", true, false>"),
     "conv3x3_dgrad": ("conv3x3_sm90_kernel<true,",),
     "conv3x3_wgrad": ("conv3x3_wgrad_sm90_kernel<false>",),
     "conv3x3_wgrad_bn_relu": ("conv3x3_wgrad_sm90_kernel<true>",),
+    "conv3x3_small_affine_relu": ("conv3x3_sm90_kernel<false,",
+                                  ", false, true>"),
 }
 PART_SUM_NAME = "conv3x3_sum_parts_kernel"
 # T1's path: the A/B tool at its own batch, stage 4's shape
@@ -212,6 +225,17 @@ AUG_CHECK_BATCH, AUG_ATOL, AUG_FLIP_SHARE = 128, 1e-3, 1e-3
 LOSS_RTOL, GRAD_FACTOR, GRAD_SLACK = 2e-2, 1.5, 0.05
 
 
+@functools.lru_cache(maxsize=None)
+def _ab_tool():
+    return runpy.run_path(AB_TOOL)
+
+
+def device_ms(fn):
+    """Device time of one call of ``fn``: torch.profiler's kernel time, as
+    the conv kernels' A/B tool measures it."""
+    return _ab_tool()["device_ms"](fn)
+
+
 def cuda_ms(fn, iters=50, warmup=5):
     for _ in range(warmup):
         fn()
@@ -273,6 +297,7 @@ def build():
         _cuda.library(source.stem)
     print(f"build: {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.1f} s")
+    spills = []
     for path in paths:
         log = path.with_suffix(".log")
         if not log.exists():
@@ -285,6 +310,12 @@ def build():
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas {kernel}: "
                       f"{line.replace('ptxas info    :', '').strip()}")
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if m and (int(m.group(1)) or int(m.group(2))):
+                    spills.append(kernel)
+    if spills:
+        raise AssertionError(f"ptxas reports spills in {spills}")
 
 
 def _kernel_label(mangled):
@@ -358,9 +389,9 @@ def forward_kernel_phase(records):
                         fc._affine_relu(x, scale, bias), w)
                     library = None
                     # the eager two-call sequence the fusion replaces
-                    extra["sequence_ms"] = cuda_ms(lambda: F.conv2d(
+                    extra["sequence"] = lambda: F.conv2d(  # noqa: E731
                         fc._affine_relu(x, scale, bias).permute(0, 3, 1, 2),
-                        w_lib, padding=1))
+                        w_lib, padding=1)
                 else:
                     run = lambda: fc.conv3x3_small(x, w)  # noqa: E731
                     z = x
@@ -377,21 +408,37 @@ def forward_kernel_phase(records):
 
 def _time_row(records, name, b, s, c, run, plain, library, max_err, worst,
               **extra):
+    """Times a kernel against its plain version and the library call by
+    CUDA events; each ``extra`` that is a function (a yardstick: the eager
+    sequence a fusion replaces) is timed as ``<key>_ms``, and a number is
+    kept as it is. At the training batch the kernel, the library call and
+    the yardsticks are also timed by profiler device time
+    (``kernel_device_ms``, ``library_device_ms``, ``<key>_device_ms``),
+    which no Python launch overhead inflates."""
     plain_ms1 = cuda_ms(plain)
     ms = cuda_ms(run)
     plain_ms2 = cuda_ms(plain)
     library_ms = cuda_ms(library) if library is not None else None
     bound_ms, bound_by = bound(*conv_cost(name, b, s, c))
+    yardsticks = {k: v for k, v in extra.items() if callable(v)}
+    times = {k: v for k, v in extra.items() if not callable(v)}
+    times.update({f"{k}_ms": cuda_ms(fn) for k, fn in yardsticks.items()})
+    if b == TRAIN_BATCH:
+        times["kernel_device_ms"] = device_ms(run)
+        if library is not None:
+            times["library_device_ms"] = device_ms(library)
+        times.update({f"{k}_device_ms": device_ms(fn)
+                      for k, fn in yardsticks.items()})
     row = {"B": b, "S": s, "C": c, "max_abs_err": max_err,
            "err_over_bound": worst, "ms": ms,
            "plain_ms": (plain_ms1 + plain_ms2) / 2, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": library_ms, **extra}
+           "bound_by": bound_by, "library_ms": library_ms, **times}
     _record(records, name, row)
     lib = f"{library_ms * 1e3:.1f} us" if library_ms is not None else "-"
     print(f"time {name:22s} B={b:4d} S={s} C={c}: kernel {ms * 1e3:.1f} us, "
           f"plain bf16 {plain_ms1 * 1e3:.1f}/{plain_ms2 * 1e3:.1f} us, "
           f"library {lib}, bound {bound_ms * 1e3:.2f} us ({bound_by})"
-          + "".join(f", {k} {v * 1e3:.1f} us" for k, v in extra.items()))
+          + "".join(f", {k} {v * 1e3:.1f} us" for k, v in times.items()))
 
 
 def _wgrad_library(g_nchw, x_nchw, w_oihw):
@@ -445,9 +492,9 @@ def backward_kernel_phase(records):
                         x, g, scale, bias)
                     library = None
                     # the eager two-call sequence the fusion replaces
-                    extra = {"sequence_ms": cuda_ms(lambda: _wgrad_library(
+                    extra = {"sequence": lambda: _wgrad_library(  # noqa
                         g_lib, fc._affine_relu(x, scale, bias).permute(
-                            0, 3, 1, 2), w_lib))}
+                            0, 3, 1, 2), w_lib)}
                 want = fc._plain_wgrad(z.float(), g.float())
                 got = run()
                 if not torch.equal(got, run()):
@@ -474,30 +521,69 @@ def backward_kernel_phase(records):
     ms = cuda_ms(lambda: pre.normalize_u8(x))
     plain_ms2 = cuda_ms(lambda: pre._plain_normalize_u8(x))
     library_ms = cuda_ms(lambda: torch.mul(x, 1.0 / 255.0, out=out))
-    profiled_ms = runpy.run_path(AB_TOOL)["device_ms"]
-    device_ms = profiled_ms(lambda: pre.normalize_u8(x))
-    library_device_ms = profiled_ms(
+    t2_device_ms = device_ms(lambda: pre.normalize_u8(x))
+    library_device_ms = device_ms(
         lambda: torch.mul(x, 1.0 / 255.0, out=out))
     bound_ms, bound_by = bound(0, x.numel() * 3)
     _record(records, "normalize_u8", {
         "B": TRAIN_BATCH, "shape": [64, 64, 3], "max_abs_err": 0.0,
         "err_over_bound": 0.0, "ms": ms, "plain_ms": (plain_ms1 + plain_ms2)
         / 2, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms, "device_ms": device_ms,
+        "library_ms": library_ms, "device_ms": t2_device_ms,
         "library_device_ms": library_device_ms})
     print(f"time normalize_u8 B={TRAIN_BATCH}: kernel {ms * 1e3:.1f} us, "
           f"plain bf16 {plain_ms1 * 1e3:.1f}/{plain_ms2 * 1e3:.1f} us, "
           f"library (torch.mul into bf16) {library_ms * 1e3:.1f} us, bound "
           f"{bound_ms * 1e3:.2f} us ({bound_by}); device time (profiler) "
-          f"kernel {device_ms * 1e3:.2f} us, torch.mul "
+          f"kernel {t2_device_ms * 1e3:.2f} us, torch.mul "
           f"{library_device_ms * 1e3:.2f} us")
+
+
+def _exact_epilogue_inputs(rng, b, s, c):
+    """T1's inputs on which every rounding is known (as in the card test
+    ``test_epilogue_kernel_is_bit_exact``): x and w small integers in bf16,
+    so the conv's f32 sums are exact in any order; scales with full f32
+    mantissas; for each output channel n the bias -fl(y_n*scale_n), y_n the
+    channel's most frequent conv value, where mul-then-add gives exactly 0
+    and an FMA the product's rounding error. (x, w, scale, bias, exact y)."""
+    x = torch.from_numpy(rng.integers(-2, 3, (b, s, s, c)).astype(
+        np.float32)).cuda()
+    w = torch.from_numpy(rng.integers(-1, 2, (3, 3, c, c)).astype(
+        np.float32)).cuda()
+    y = fc._plain_conv3x3(x.double(), w.double())
+    if not torch.equal(fc._plain_conv3x3(x, w).double(), y):
+        raise AssertionError("the integer conv is not exact in f32")
+    y = y.float()
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)
+                             ).cuda()
+    bias = -(y.reshape(-1, c).mode(0).values * scale)
+    return x.bfloat16(), w.bfloat16(), scale, bias, y
+
+
+def epilogue_exact_check(rng, b, s, c):
+    """T1 equal to its plain version bit for bit on the exact inputs, where
+    an FMA's results differ on some entries."""
+    x, w, scale, bias, y = _exact_epilogue_inputs(rng, b, s, c)
+    got = fc.conv3x3_small_affine_relu(x, w, scale, bias)
+    want = fc._plain_conv3x3_affine_relu(x, w, scale, bias)
+    fma = (y.double() * scale.double() + bias.double()).float().clamp_min(
+        0.0).bfloat16()
+    n_fma = int((fma != want).sum())
+    equal = torch.equal(got, want)
+    print(f"check conv3x3_small_affine_relu B={b} S={s} C={c} on exact "
+          f"integer inputs: tolerance exact (0), equal {equal}; an FMA "
+          f"would differ on {n_fma} of {want.numel()} entries")
+    if not equal or n_fma == 0:
+        raise AssertionError("T1 differs from its plain version on the "
+                             "exact inputs (or they do not test an FMA)")
 
 
 def epilogue_kernel_phase(records):
     """T1 against its plain version, in f32 (TF32 off) and in bf16, at the
     A/B tool's batch and a ragged and a mid batch, at stage 4's and stage
-    3's shapes. Timed against the plain version, ``F.conv2d`` alone and the
-    tool's eager conv -> affine -> ReLU sequence."""
+    3's shapes, and bit for bit on exact inputs at the tool's batch. Timed
+    against the plain version, ``F.conv2d`` alone and the tool's eager conv
+    -> affine -> ReLU sequence."""
     tool = runpy.run_path(TOOL)
     rng = np.random.default_rng(SEED + 2)
     name = "conv3x3_small_affine_relu"
@@ -520,33 +606,56 @@ def epilogue_kernel_phase(records):
                             x.float(), w.float(), scale, bias)),
                         ("bf16 plain", plain()))]
             xl = x.permute(0, 3, 1, 2)
-            conv_ms = cuda_ms(lambda: F.conv2d(xl, w_lib, padding=1))
-            seq_ms = cuda_ms(tool["library_path"](x, w, scale, bias))
             _time_row(records, name, b, s, c, run, plain, None,
                       max(e[0] for e in errs), max(e[1] for e in errs),
-                      conv2d_ms=conv_ms, eager_sequence_ms=seq_ms)
+                      conv2d=lambda: F.conv2d(xl, w_lib, padding=1),
+                      eager_sequence=tool["library_path"](x, w, scale,
+                                                          bias))
+        epilogue_exact_check(rng, TOOL_BATCH, s, c)
+
+
+def _profiled(events, name):
+    """The device kernels among profiler ``events`` that are instances of
+    the port's kernel ``name`` (PROFILED_NAMES)."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and all(p in e.name for p in PROFILED_NAMES[name])]
 
 
 def epilogue_tool_phase():
-    """T1's path: the A/B tool's ``main`` on the card at B = 1024; returns
-    (T1's launches in it, the tool's result)."""
+    """T1's path: the A/B tool's ``main`` on the card at B = 1024, under
+    torch.profiler; returns (T1's launches in it, its device ms per launch
+    there). The profiler must see exactly that many instances of T1's
+    kernel (csrc/conv3x3_sm90.cu with the epilogue) and none of K3's."""
+    from torch.profiler import ProfilerActivity, profile
     tool = runpy.run_path(TOOL)
     os.environ["FC_BATCH"] = str(TOOL_BATCH)
-    # ---- the main path: every launch count from here to the reading ----
-    fc.reset_launch_counts()
-    result = tool["main"](["--device", DEVICE])
-    launches = dict(fc.LAUNCHES)
-    # ---- end of the main path ----
     name = "conv3x3_small_affine_relu"
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # ---- the main path: every launch count from here to the reading --
+        fc.reset_launch_counts()
+        result = tool["main"](["--device", DEVICE])
+        launches = dict(fc.LAUNCHES)
+        # ---- end of the main path ----
+        torch.cuda.synchronize()
     others = {k: v for k, v in launches.items() if k != name and v}
     if not launches[name] or others:
         raise AssertionError(f"the A/B tool launched {launches}")
     if result["batch"] != TOOL_BATCH:
         raise AssertionError(f"the tool ran at B={result['batch']}")
-    print(f"epilogue A/B: T1 launched {launches[name]} times; best of 3: "
+    events = prof.events()
+    t1, k3 = _profiled(events, name), _profiled(events,
+                                                "conv3x3_small_bn_relu")
+    if len(t1) != launches[name] or k3:
+        raise AssertionError(f"the profiler saw {len(t1)} T1 and {len(k3)} "
+                             f"K3 kernels for {launches[name]} T1 launches")
+    per_launch = sum(e.device_time_total for e in t1) * 1e-3 / len(t1)
+    print(f"epilogue A/B (under torch.profiler): T1 launched "
+          f"{launches[name]} times, {len(t1)} kernels of {t1[0].name[:70]}, "
+          f"{per_launch * 1e3:.2f} us of device time each; best of 3: "
           f"library sequence {result['library_s'] * 1e3:.4f} ms, T1 "
           f"{result['t1_s'] * 1e3:.4f} ms")
-    return launches[name], result
+    return launches[name], per_launch
 
 
 def _to(draws, device):
@@ -599,8 +708,9 @@ def _sum(rec, b, per):
     rows = {(r["S"], r["C"]): r for r in rec["shapes"] if r["B"] == b}
     out = {}
     keys = ["ms", "plain_ms", "bound_ms", "library_ms"]
-    if all("sequence_ms" in rows[(s, c)] for s, c, _ in per):
-        keys.append("sequence_ms")
+    keys += [k for k in ("sequence_ms", "kernel_device_ms",
+                         "library_device_ms", "sequence_device_ms")
+             if all(k in rows[(s, c)] for s, c, _ in per)]
     for key in keys:
         vals = [rows[(s, c)][key] for s, c, _ in per]
         out[key] = (None if any(v is None for v in vals)
@@ -1068,7 +1178,7 @@ def augmented_training_phase(db_classes):
               for name, parts in PROFILED_NAMES.items()}
     device[PART_SUM_NAME] = sum(us for n, us in ours.items()
                                 if PART_SUM_NAME in n) * 1e-3 / PROFILED_STEPS
-    missing = [n for n in PROFILED_NAMES if not device[n]]
+    missing = [n for n in PER_STEP if not device[n]]
     if missing:
         raise AssertionError(f"the profiler saw no device time of {missing}")
     return launches, device
@@ -1084,13 +1194,14 @@ def main():
     forward_kernel_phase(records)
     backward_kernel_phase(records)
     epilogue_kernel_phase(records)
-    tool_launches, _ = epilogue_tool_phase()
+    tool_launches, t1_device_ms = epilogue_tool_phase()
     fc.reset_launch_counts()
     pre.reset_launch_counts()
     serve_launches, db_images, db_classes = serving_phase()
     augmentation_check_phase(db_images)
     plain_launches = training_phase(db_images, db_classes)
     train_launches, device = augmented_training_phase(db_classes)
+    device["conv3x3_small_affine_relu"] = t1_device_ms
 
     lines, step_sum = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     for name, (route, source, replaces) in KERNELS.items():
@@ -1107,9 +1218,10 @@ def main():
         elif name == "conv3x3_small_affine_relu":
             row, = [r for r in rec["shapes"] if (r["B"], r["S"], r["C"])
                     == (TOOL_BATCH, TOOL_S, TOOL_C)]
-            sums = {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "library_ms", "bound_by", "conv2d_ms",
-                                        "eager_sequence_ms")}
+            sums = {k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "bound_by",
+                "kernel_device_ms", "conv2d_ms", "eager_sequence_ms",
+                "conv2d_device_ms", "eager_sequence_device_ms")}
             launches = tool_launches
             per = (f"one call of the A/B tool's path, B={TOOL_BATCH}, "
                    f"S={TOOL_S}, C={TOOL_C}")
@@ -1122,6 +1234,8 @@ def main():
                  "max_abs_err": rec["max_abs_err"], **sums, "per": per}
         if name in LIBRARY_RATIO:
             entry["library_ratio"] = sums["ms"] / sums["library_ms"]
+            entry["library_ratio_device"] = (sums["kernel_device_ms"]
+                                             / sums["library_device_ms"])
         if name in PROFILED_NAMES:
             entry["device_ms"] = device[name]
         if name == "conv3x3_small_bn_relu":

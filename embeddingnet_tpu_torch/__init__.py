@@ -6,9 +6,9 @@ It covers serving (uint8 images -> ResNet encoder -> L2-normalised
 embedding -> kNN vote over the encodings DB, behind the micro-batching
 :class:`embeddingnet_tpu_torch.serving.InferenceEngine`) and the triplet
 training step with its augmentation. The small-map 3x3 convs of the
-ResNet's late stages, forward and backward, are CUDA kernels written for
-Hopper (``csrc/``: ``conv3x3_sm90.cu``, and ``fused_conv3x3.cu`` for the
-conv with a BN-ReLU epilogue).
+ResNet's late stages, forward and backward, and the conv with a BN-ReLU
+epilogue are CUDA kernels written for Hopper, all in
+``csrc/conv3x3_sm90.cu``.
 
 Importing the package loads nothing heavy; import the submodules.
 """

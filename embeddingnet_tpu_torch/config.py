@@ -25,6 +25,7 @@ Deliberate fixes over the reference (documented, not reproduced):
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Optional, Sequence
 
@@ -404,6 +405,12 @@ def _build_section(cls, raw: Mapping[str, Any], section: str):
     return cls(**kwargs)
 
 
+# PERFORMANCE keys that steer only the JAX package on a TPU (buffer
+# donation, the cut Pallas miner, the flat state packing): parsed so that one
+# config file serves both packages, warned about and ignored here.
+TPU_ONLY_PERFORMANCE_KEYS = ("donate_state", "use_pallas_mining",
+                             "param_packing")
+
 # Keys normalized before dataclass construction: reference-era aliases.
 _DATALOADER_ALIASES = {"csv_file": "train_csv_file"}
 _GENERATOR_ALIASES = {"augmentation_type": "augmentations",
@@ -438,7 +445,9 @@ def parse_params(filename: str) -> Params:
 
 
 def params_from_dict(cfg: Mapping[str, Any]) -> Params:
-    """Build :class:`Params` from an already-loaded config mapping."""
+    """Build :class:`Params` from an already-loaded config mapping. Warns
+    once (``UserWarning``) when ``PERFORMANCE`` names any of
+    :data:`TPU_ONLY_PERFORMANCE_KEYS`, which the port ignores."""
     model = _build_section(ModelConfig, cfg.get("MODEL"), "MODEL")
     dataloader = _build_section(
         DataLoaderConfig,
@@ -454,6 +463,13 @@ def params_from_dict(cfg: Mapping[str, Any]) -> Params:
     mesh = _build_section(MeshConfig, cfg.get("MESH"), "MESH")
     performance = _build_section(
         PerformanceConfig, cfg.get("PERFORMANCE"), "PERFORMANCE")
+    ignored = [k for k in TPU_ONLY_PERFORMANCE_KEYS
+               if k in (cfg.get("PERFORMANCE") or {})]
+    if ignored:
+        warnings.warn(
+            f"PERFORMANCE keys {ignored} apply only to the JAX package on "
+            f"a TPU; the PyTorch port ignores them", UserWarning,
+            stacklevel=2)
 
     generator.input_shape = model.input_shape
 

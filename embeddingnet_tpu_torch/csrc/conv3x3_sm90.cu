@@ -1,18 +1,23 @@
 // Stride-1 SAME 3x3 convolution on a small square NHWC map, its input
 // gradient and its weight gradient, each optionally after a per-channel
-// affine + ReLU of its input, as TMA-fed wgmma implicit GEMMs for Hopper
-// (sm_90a).
+// affine + ReLU of its input, and the forward with that affine + ReLU on
+// its output instead, as TMA-fed wgmma implicit GEMMs for Hopper (sm_90a).
 //
-// Replaces four Pallas TPU kernels of embeddingnet_tpu/ops/fused_conv.py:
-//   conv3x3_sm90_kernel<false, *, false> -> _fwd_kernel (K1, via
+// Replaces five Pallas TPU kernels, four of embeddingnet_tpu/ops/fused_conv.py
+// and one of tools/pallas_fused_conv.py:
+//   conv3x3_sm90_kernel<false, *, false, false> -> _fwd_kernel (K1, via
 //                                 _conv_fwd_impl): out = conv3x3(x, w)
-//   conv3x3_sm90_kernel<true, *, false>  -> _fwd_kernel as the input
+//   conv3x3_sm90_kernel<true, *, false, false>  -> _fwd_kernel as the input
 //                                 gradient (_conv_vjp_bwd):
 //                                 dx = conv3x3(g, flip(w)), reading w as
 //                                 it stands
-//   conv3x3_sm90_kernel<false, *, true>  -> _fwd_bn_kernel (K3, via
+//   conv3x3_sm90_kernel<false, *, true, false>  -> _fwd_bn_kernel (K3, via
 //                                 _conv_bn_fwd_impl):
 //                                 out = conv3x3(relu(x*scale + bias), w)
+//   conv3x3_sm90_kernel<false, *, false, true>  -> fused_kernel of
+//                                 tools/pallas_fused_conv.py (T1, via
+//                                 fused_conv_bn_relu):
+//                                 out = relu(conv3x3(x, w)*scale + bias)
 //   conv3x3_wgrad_sm90_kernel<false>     -> _wgrad_kernel (K2, via
 //                                 _wgrad_impl):
 //                                 dW[t] = sum_m x_pad[shift t]^T g
@@ -21,7 +26,8 @@
 //                                 z = relu(x*scale + bias) for x, recomputed
 //                                 from the raw x and never stored
 // x [B, S, S, Cin] bf16 NHWC, w [3, 3, Cin, Cout] bf16 (HWIO), g
-// [B, S, S, Cout] bf16, scale and bias [Cin] f32; out and dx bf16, dW
+// [B, S, S, Cout] bf16, scale and bias f32, one per input channel [Cin]
+// (K3, K4) or per output channel [Cout] (T1); out and dx bf16, dW
 // [3, 3, Cin, Cout] f32. S in {2, 4, 8}, Cin and Cout multiples of 128 (the
 // wrapper's gate), any B >= 1. Accumulation is f32 in registers; each
 // output is summed in one fixed order, with no atomics, so every result is
@@ -52,7 +58,13 @@
 // layout, with the tap reversed in the producer's coordinates, so the
 // flipped, transposed weight is never made. The epilogue rounds the
 // accumulators to bf16 and stores them from registers, rows past the batch
-// masked.
+// masked; T1's epilogue first maps each accumulator to relu(acc*scale +
+// bias) of its output channel, the product and the sum rounded apart (no
+// FMA) as the plain version rounds, with one rounding to bf16
+// (cvt.rn.relu.bf16x2.f32). A thread's 32 columns of a tile take their
+// scales and biases two at a time from a copy of all Cout in shared memory,
+// so that none is held across the store loop: the 256-row tiles keep 128
+// f32 accumulators a thread live under the launch bound's register cap.
 //
 // The weight gradient is dW [9*Cin, Cout] = A^T G reduced over the M
 // positions. A block owns a 128x128 dW tile within one tap and reduces its
@@ -105,6 +117,8 @@
 // per product, so the wrapper takes them where they still give a block to
 // 90% of the SMs (S = 4 and 8 at B = 1024); at S = 2 there are only 128
 // tiles of 128 rows. Deeper rings (5, 6 stages) gained nothing measurable.
+// T1 runs K1's forward GEMM (the same tiles) with its epilogue, which
+// overlaps the producer's loads for the block's next tile.
 // K3 and K4 run the same GEMMs at 51-56 and 55-80 us a launch at B = 1024
 // against K1's 34-38 and K2's 43-58 (tools/conv3x3_kernels_ab_torch.py,
 // same card; PERF.md): the rewrite, about 30 instructions per 16-byte
@@ -475,15 +489,16 @@ __device__ __forceinline__ void load8(float (&dst)[8], const float* p) {
 
 // ---------------------------------------------------------------------------
 // The conv: forward (kDgrad = false) and input gradient (kDgrad = true);
-// kPrologue (forward only) applies relu(x*scale + bias) to the input first.
+// kPrologue (forward only) applies relu(x*scale + bias) to the input first,
+// kEpilogue (forward only) relu(out*scale + bias) to the output.
 // act_map: 4-D over the input activation [B, S, S, Ck]; w_map: 2-D over
 // w [9*Cin_w, Cout_w] in 64x64 boxes. Ck = Cin_w for the forward and
 // Cout_w for the dgrad; the output has N = Cout_w (forward) or Cin_w
-// (dgrad) channels. With kPrologue, the Ck scales and then the Ck biases
-// follow the ring in dynamic shared memory.
+// (dgrad) channels. With kPrologue (kEpilogue), the Ck (N) scales and then
+// the Ck (N) biases follow the ring in dynamic shared memory.
 // ---------------------------------------------------------------------------
 
-template <bool kDgrad, int kRows, bool kPrologue>
+template <bool kDgrad, int kRows, bool kPrologue, bool kEpilogue>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap act_map,
                     const __grid_constant__ CUtensorMap w_map,
@@ -492,20 +507,23 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap act_map,
                     __nv_bfloat16* __restrict__ out, int batch, int s,
                     int ck, int n_total, int cin_w, int m_tiles) {
   static_assert(!(kDgrad && kPrologue), "the prologue is the forward's");
+  static_assert(!(kEpilogue && (kDgrad || kPrologue)),
+                "the epilogue is the plain forward's");
   constexpr int kSub = kRows / 128;    // m64 products per warpgroup
   constexpr int kVecs = 4 * kSub;      // prologue vectors a thread, a chunk
   constexpr int kDepth = ring_depth(kRows, kPrologue);
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kDepth], empty[kDepth];
   float* affine = nullptr;
-  if (kPrologue) {
+  const int n_affine = kPrologue ? ck : n_total;
+  if (kPrologue || kEpilogue) {
     // after the ring, which starts at the first 1024-byte boundary
     affine = reinterpret_cast<float*>(
         smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u) +
         kDepth * stage_bytes(kRows));
-    for (int i = threadIdx.x; i < ck; i += kThreads) {
+    for (int i = threadIdx.x; i < n_affine; i += kThreads) {
       affine[i] = scale[i];
-      affine[ck + i] = bias[i];
+      affine[n_affine + i] = bias[i];
     }
   }
   const auto ring = make_ring<kRows, kDepth>(smem_raw, full, empty);
@@ -603,23 +621,36 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap act_map,
         });
 
     // Epilogue: acc[u][4j + 2h + e] is row 16*warp + lane/4 + 8h, column
-    // 8j + 2*(lane%4) + e of the warpgroup's u-th 64x128 block.
-    const int m0 = (tile % m_tiles) * kRows;
-    const int n0 = (tile / m_tiles) * kTile;
+    // 8j + 2*(lane%4) + e of the warpgroup's u-th 64x128 block. T1 reads
+    // the two columns' scales and biases once per j, for all u and h.
+    const int m = (tile % m_tiles) * kRows + 64 * wg * kSub + 16 * warp +
+                  lane / 4;          // the row of u = h = 0
+    const int n = (tile / m_tiles) * kTile + 2 * (lane % 4);
+    __nv_bfloat16* const row = out + static_cast<size_t>(m) * n_total + n;
 #pragma unroll
-    for (int u = 0; u < kSub; ++u) {
+    for (int j = 0; j < 16; ++j) {
+      float2 sc = {}, bi = {};
+      if (kEpilogue) {
+        sc = *reinterpret_cast<const float2*>(affine + n + 8 * j);
+        bi = *reinterpret_cast<const float2*>(affine + n_total + n + 8 * j);
+      }
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m =
-            m0 + 64 * (wg * kSub + u) + 16 * warp + lane / 4 + 8 * h;
-        if (m >= m_total) continue;
-        __nv_bfloat16* row = out + static_cast<size_t>(m) * n_total + n0 +
-                             2 * (lane % 4);
+      for (int u = 0; u < kSub; ++u) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
-              __floats2bfloat162_rn(acc[u][4 * j + 2 * h],
-                                    acc[u][4 * j + 2 * h + 1]);
+        for (int h = 0; h < 2; ++h) {
+          const int r = 64 * u + 8 * h;
+          if (m + r >= m_total) continue;
+          __nv_bfloat16* dst = row + static_cast<size_t>(r) * n_total + 8 * j;
+          const float lo = acc[u][4 * j + 2 * h];
+          const float hi = acc[u][4 * j + 2 * h + 1];
+          if (kEpilogue) {
+            *reinterpret_cast<uint32_t*>(dst) =
+                relu_bf16x2(__fadd_rn(__fmul_rn(lo, sc.x), bi.x),
+                            __fadd_rn(__fmul_rn(hi, sc.y), bi.y));
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(dst) =
+                __floats2bfloat162_rn(lo, hi);
+          }
         }
       }
     }
@@ -830,7 +861,7 @@ cudaError_t launch(void (*kernel)(Params...), int (&limit)[kMaxDevices],
   return cudaGetLastError();
 }
 
-template <bool kDgrad, int kRows, bool kPrologue>
+template <bool kDgrad, int kRows, bool kPrologue, bool kEpilogue>
 cudaError_t launch_conv(const CUtensorMap& act_map, const CUtensorMap& w_map,
                         const float* scale, const float* bias,
                         __nv_bfloat16* out, int batch, int s, int ck,
@@ -838,8 +869,9 @@ cudaError_t launch_conv(const CUtensorMap& act_map, const CUtensorMap& w_map,
                         cudaStream_t stream) {
   static int limit[kMaxDevices];
   const int bytes = smem_bytes(kRows, ring_depth(kRows, kPrologue)) +
-                    (kPrologue ? 8 * ck : 0);
-  return launch(conv3x3_sm90_kernel<kDgrad, kRows, kPrologue>, limit, bytes,
+                    (kPrologue ? 8 * ck : kEpilogue ? 8 * n_total : 0);
+  return launch(conv3x3_sm90_kernel<kDgrad, kRows, kPrologue, kEpilogue>,
+                limit, bytes,
                 dim3(ctas), stream, act_map, w_map, scale, bias, out, batch,
                 s, ck, n_total, cin_w, m_tiles);
 }
@@ -861,30 +893,31 @@ cudaError_t launch_wgrad(const CUtensorMap& x_map, const CUtensorMap& g_map,
 
 // Plain C entry points, loaded with ctypes. Each launches on `stream`, does
 // not synchronise, and returns cudaGetLastError() of its launches (0 =
-// launched; -1 = arguments no kernel takes: a tile height other than 128 or
-// 256, one of scale and bias without the other, or a prologue on the dgrad;
-// -2 = a tensor map could not be encoded). The caller has checked shapes,
-// dtypes, contiguity and 16-byte alignment. `scale` and `bias` (f32, one per
-// input channel) are both null, or both given for the affine + ReLU
-// prologue.
+// launched; -1 = arguments no kernel takes: an unknown mode, a tile height
+// other than 128 or 256, or scale and bias not given exactly where the
+// mode applies them; -2 = a tensor map could not be encoded). The caller
+// has checked shapes, dtypes, contiguity and 16-byte alignment. `scale` and
+// `bias` (f32) are both null, or both given for an affine + ReLU.
 
-// The conv with the weight w [3, 3, cin_w, cout_w]: dgrad = 0: out [batch,
-// s, s, cout_w] = conv3x3(x [batch, s, s, cin_w], w), or with the prologue
-// conv3x3(relu(x*scale + bias), w); dgrad = 1: out [batch, s, s, cin_w] =
-// conv3x3(x [batch, s, s, cout_w], flip(w)), the input gradient for the
-// output gradient x. The output is cut into tiles of `rows` (128 or 256) by
-// 128, which `ctas` persistent blocks share (at most one block per SM: more
-// are idle).
+// The conv with the weight w [3, 3, cin_w, cout_w], by `mode`:
+//   0 (K1): out [batch, s, s, cout_w] = conv3x3(x [batch, s, s, cin_w], w);
+//   1 (K1 as the dgrad): out [batch, s, s, cin_w] = conv3x3(x [batch, s, s,
+//     cout_w], flip(w)), the input gradient for the output gradient x;
+//   2 (K3): conv3x3(relu(x*scale + bias), w), scale and bias [cin_w];
+//   3 (T1): relu(conv3x3(x, w)*scale + bias), scale and bias [cout_w].
+// The output is cut into tiles of `rows` (128 or 256) by 128, which `ctas`
+// persistent blocks share (at most one block per SM: more are idle).
 extern "C" int embn_conv3x3_sm90(const void* x, const void* w,
                                  const void* scale, const void* bias,
                                  void* out, int batch, int s, int cin_w,
-                                 int cout_w, int dgrad, int rows, int ctas,
+                                 int cout_w, int mode, int rows, int ctas,
                                  void* stream) {
-  const bool prologue = scale != nullptr;
-  if ((rows != 128 && rows != 256) || prologue != (bias != nullptr) ||
-      (prologue && dgrad)) {
+  const bool affine = scale != nullptr;
+  if (mode < 0 || mode > 3 || (rows != 128 && rows != 256) ||
+      affine != (bias != nullptr) || affine != (mode >= 2)) {
     return -1;
   }
+  const bool dgrad = mode == 1;
   const int ck = dgrad ? cout_w : cin_w;
   const int n_total = dgrad ? cin_w : cout_w;
   const int images = rows / (s * s);
@@ -894,13 +927,17 @@ extern "C" int embn_conv3x3_sm90(const void* x, const void* w,
       !encode_matrix(&w_map, w, 9 * cin_w, cout_w)) {
     return -2;
   }
-  const auto conv =
-      prologue ? (rows == 256 ? launch_conv<false, 256, true>
-                              : launch_conv<false, 128, true>)
-      : dgrad  ? (rows == 256 ? launch_conv<true, 256, false>
-                              : launch_conv<true, 128, false>)
-               : (rows == 256 ? launch_conv<false, 256, false>
-                              : launch_conv<false, 128, false>);
+  using Launch = decltype(&launch_conv<false, 128, false, false>);
+  static const Launch by_mode[4][2] = {
+      {launch_conv<false, 128, false, false>,
+       launch_conv<false, 256, false, false>},
+      {launch_conv<true, 128, false, false>,
+       launch_conv<true, 256, false, false>},
+      {launch_conv<false, 128, true, false>,
+       launch_conv<false, 256, true, false>},
+      {launch_conv<false, 128, false, true>,
+       launch_conv<false, 256, false, true>}};
+  const Launch conv = by_mode[mode][rows == 256];
   return static_cast<int>(
       conv(act_map, w_map, static_cast<const float*>(scale),
            static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out),

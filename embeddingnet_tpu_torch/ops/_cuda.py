@@ -30,16 +30,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Entry points of each source: name -> (argtypes); all return int (the
 # launch's cudaGetLastError(), or a negative code the source documents).
-# embn_conv3x3_small (T1): x, w, scale, bias, out, batch, s, cin, cout, mode
-# (2, the epilogue), stream. embn_conv3x3_sm90 (K1 forward and dgrad, K3):
-# x, w, scale, bias (both null but for K3), out, batch, s, cin, cout, dgrad,
-# rows, ctas, stream. embn_conv3x3_wgrad_sm90 (K2, K4): x, g, scale, bias
-# (both null but for K4), ws, out, batch, s, cin, cout, parts, per_part,
-# stream. conv3x3_sm90.cu resolves cuTensorMapEncodeTiled through the
-# runtime (cudaGetDriverEntryPoint), so no library beyond the runtime is
-# linked.
+# embn_conv3x3_sm90 (K1 forward and dgrad, K3, T1): x, w, scale, bias (both
+# null but for K3 and T1), out, batch, s, cin, cout, mode (0 K1, 1 K1 as the
+# dgrad, 2 K3, 3 T1), rows, ctas, stream. embn_conv3x3_wgrad_sm90 (K2, K4):
+# x, g, scale, bias (both null but for K4), ws, out, batch, s, cin, cout,
+# parts, per_part, stream. conv3x3_sm90.cu resolves cuTensorMapEncodeTiled
+# through the runtime (cudaGetDriverEntryPoint), so no library beyond the
+# runtime is linked.
 ENTRY_POINTS = {
-    "fused_conv3x3": {"embn_conv3x3_small": [_P] * 5 + [_I] * 5 + [_P]},
     "conv3x3_sm90": {"embn_conv3x3_sm90": [_P] * 5 + [_I] * 7 + [_P],
                      "embn_conv3x3_wgrad_sm90": [_P] * 6 + [_I] * 6 + [_P]},
 }

@@ -23,8 +23,10 @@ on the CPU their plain twins.
   raw ``x`` so that it is never stored.
 * :func:`conv3x3_small_affine_relu` — ``relu(conv3x3(x, w)*scale + bias)``,
   forward only: T1 (the TPU's ``fused_kernel`` of
-  ``tools/pallas_fused_conv.py``, which has no VJP either), the BN-ReLU
-  epilogue experiment that ``tools/fused_conv_epilogue_torch.py`` times.
+  ``tools/pallas_fused_conv.py``, which has no VJP either), K1's forward
+  with the affine and ReLU applied to its f32 accumulators before the bf16
+  store; the BN-ReLU epilogue experiment that
+  ``tools/fused_conv_epilogue_torch.py`` times.
 * :class:`FastConv3x3`, :class:`BNScaleBias`, :class:`FusedBNReluConv3x3` —
   the modules the ResNet blocks use. Their ``state_dict``s equal those of
   ``nn.Conv2d(bias=False)`` and ``nn.BatchNorm2d``, so the fast path never
@@ -33,10 +35,11 @@ on the CPU their plain twins.
 The public functions keep the JAX layout: NHWC activations, ``[3, 3, Cin,
 Cout]`` weights. The modules take the ResNet's NCHW tensors in
 ``torch.channels_last`` memory, whose NHWC view is contiguous and goes to the
-kernels without a copy. The kernels are in ``csrc/conv3x3_sm90.cu`` (K1,
-forward and dgrad, K2, and K3 and K4, which apply the affine and ReLU to
-each landed input tile in shared memory: TMA-fed wgmma implicit GEMMs, laid
-out by :func:`plan_sm90`) and ``csrc/fused_conv3x3.cu`` (T1).
+kernels without a copy. The kernels are in ``csrc/conv3x3_sm90.cu``:
+TMA-fed wgmma implicit GEMMs, laid out by :func:`plan_sm90` — K1, forward
+and dgrad, K2, K3 and K4, which apply the affine and ReLU to each landed
+input tile in shared memory, and T1, which applies it to the output tile in
+registers.
 """
 
 from __future__ import annotations
@@ -59,10 +62,9 @@ LAUNCHES = {"conv3x3_small": 0, "conv3x3_small_bn_relu": 0,
             "conv3x3_dgrad": 0, "conv3x3_wgrad": 0,
             "conv3x3_wgrad_bn_relu": 0, "conv3x3_small_affine_relu": 0}
 
-# T1's ``mode`` in csrc/fused_conv3x3.cu's entry point (the affine + ReLU
-# after the conv); the plain conv (0) and the prologue (1) are
-# csrc/conv3x3_sm90.cu's.
-_EPILOGUE = 2
+# ``mode`` of csrc/conv3x3_sm90.cu's conv entry point: K1's forward, K1 as
+# the dgrad, K3 (the affine + ReLU on the input) and T1 (on the output).
+_FPROP, _DGRAD, _PROLOGUE, _EPILOGUE = range(4)
 
 # Map sizes the kernels take: the forward kernel is generic in S, and the
 # backward runs at 8x8 too (the mixed path).
@@ -157,14 +159,14 @@ class Sm90Plan:
     """How ``csrc/conv3x3_sm90.cu`` lays one call out; the C entry points
     compute the same grid and box coordinates.
 
-    ``kind`` is ``"fprop"`` (K1's forward, and K3's), ``"dgrad"`` (K1 as the
-    input gradient) or ``"wgrad"`` (K2, and K4). The A operand is a box of
-    the 4-D tensor
-    map over the activation ``[batch, s, s, k_channels]`` (innermost first:
-    channels, W, H, batch): ``box`` = (64, s, s, ``images``). The conv's
-    output is ``[batch*s*s, n_channels]`` in ``tiles`` of ``rows`` x 128
-    (rows 128 or 256), reduced over 9 taps x ``k_channels``; its ``grid`` is
-    persistent, one block per SM, block ``i`` taking the tiles of
+    ``kind`` is ``"fprop"`` (K1's forward, K3's and T1's), ``"dgrad"`` (K1
+    as the input gradient) or ``"wgrad"`` (K2, and K4). The A operand is a
+    box of the 4-D tensor map over the activation ``[batch, s, s,
+    k_channels]`` (innermost first: channels, W, H, batch): ``box`` = (64,
+    s, s, ``images``). The conv's output is ``[batch*s*s, n_channels]`` in
+    ``tiles`` of ``rows`` x 128 (rows 128 or 256), reduced over 9 taps x
+    ``k_channels``; its ``grid`` is persistent, one block per SM, block
+    ``i`` taking the tiles of
     :meth:`block_tiles`. K2's output is dW ``[9*k_channels, n_channels]`` in
     128x128 ``tiles``, one block each (grid x, y), its ``batch*s*s``
     positions reduced in ``parts`` parts (grid z) of ``per_part`` chunks of
@@ -172,7 +174,8 @@ class Sm90Plan:
     conv's box, or K2's two boxes (channels c0 and c0 + 64) one after the
     other; K3's and K4's prologue rewrites it in place
     (:meth:`prologue_vectors`, :meth:`real_rows`,
-    :func:`sm90_swizzle_group`)."""
+    :func:`sm90_swizzle_group`). T1's epilogue maps the accumulators in
+    registers (:meth:`accumulator_entry`)."""
 
     kind: str
     batch: int
@@ -274,6 +277,20 @@ class Sm90Plan:
         half = self.rows // 2
         return tuple((wg * half + tid // 8 + 16 * i, tid % 8)
                      for i in range(half // 16))
+
+
+    def accumulator_entry(self, thread, u, h, j, e):
+        """(row, column) within the conv's ``rows`` x 128 output tile of
+        consumer thread ``thread``'s (0-255) accumulator ``acc[u][4j + 2h +
+        e]``: wgmma's m64n128 f32 fragment, warpgroup ``thread // 128``
+        holding the tile's 64-row blocks ``wg * rows/128 + u``. The
+        epilogue (T1's affine and ReLU, then the bf16 store) runs in this
+        layout. Takes ints or integer arrays."""
+        wg, tid = thread // 128, thread % 128
+        warp, lane = tid // 32, tid % 32
+        row = (64 * (wg * (self.rows // 128) + u) + 16 * warp + lane // 4
+               + 8 * h)
+        return row, 8 * j + 2 * (lane % 4) + e
 
 
 def wgrad_sm90_parts(batch: int, s: int, cin: int, cout: int,
@@ -448,45 +465,25 @@ def _on_device(device: torch.device):
     return torch.cuda.device(device)
 
 
-def _launch_epilogue(name: str, x: torch.Tensor, w: torch.Tensor,
-                     scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """T1 of ``csrc/fused_conv3x3.cu``: ``relu(conv3x3(x, w)*scale +
-    bias)``, bf16 [B, S, S, Cout]; counted under ``name``."""
-    _check(name, x, tuple(w.shape), [x, w, scale, bias], scale, w.shape[3])
-    if w.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: w must be bf16, got {w.dtype}")
-    b, s, _, cin = x.shape
-    cout = w.shape[3]
-    out = torch.empty((b, s, s, cout), dtype=x.dtype, device=x.device)
-    if b == 0:
-        return out
-    fn = _cuda.library("fused_conv3x3").embn_conv3x3_small
-    with _on_device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(bias),
-                 out.data_ptr(), b, s, cin, cout, _EPILOGUE,
-                 _stream(x.device))
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
-    LAUNCHES[name] += 1
-    return out
-
-
 def _launch_sm90(name: str, x: torch.Tensor, w: torch.Tensor,
-                 dgrad: bool = False, scale: Optional[torch.Tensor] = None,
+                 mode: int = _FPROP, scale: Optional[torch.Tensor] = None,
                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``csrc/conv3x3_sm90.cu``'s conv: K1's ``conv3x3(x, w)``; with
-    ``dgrad``, ``conv3x3(x, _flip(w))`` read from ``w`` as it stands (``x``
-    is then the output gradient, with w's Cout channels); with ``scale``
-    and ``bias``, K3's ``conv3x3(relu(x*scale + bias), w)``. bf16 [B, S, S,
-    N]; counted under ``name``."""
+    """``csrc/conv3x3_sm90.cu``'s conv, by ``mode``: K1's ``conv3x3(x,
+    w)``; ``_DGRAD``, ``conv3x3(x, _flip(w))`` read from ``w`` as it stands
+    (``x`` is then the output gradient, with w's Cout channels);
+    ``_PROLOGUE``, K3's ``conv3x3(relu(x*scale + bias), w)`` (scale and
+    bias [Cin]); ``_EPILOGUE``, T1's ``relu(conv3x3(x, w)*scale + bias)``
+    (scale and bias [Cout]). bf16 [B, S, S, N]; counted under ``name``."""
     if w.dtype != torch.bfloat16 or w.dim() != 4:
         raise ValueError(f"{name}: w must be bf16 [3, 3, Cin, Cout], got "
                          f"{w.dtype} {tuple(w.shape)}")
     kh, kw, cin, cout = w.shape
+    dgrad = mode == _DGRAD
     # the dgrad's conv reads w as the flipped [3, 3, Cout, Cin] weight
     w_shape = (kh, kw, cout, cin) if dgrad else (kh, kw, cin, cout)
     affine = [scale, bias] if scale is not None else []
-    _check(name, x, w_shape, [x, w] + affine, scale)
+    _check(name, x, w_shape, [x, w] + affine, scale,
+           cout if mode == _EPILOGUE else 0)
     b, s = x.shape[0], x.shape[1]
     out = torch.empty((b, s, s, w_shape[3]), dtype=x.dtype, device=x.device)
     if b == 0:
@@ -496,7 +493,7 @@ def _launch_sm90(name: str, x: torch.Tensor, w: torch.Tensor,
     fn = _cuda.library("conv3x3_sm90").embn_conv3x3_sm90
     with _on_device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(bias),
-                 out.data_ptr(), b, s, cin, cout, int(dgrad), plan.rows,
+                 out.data_ptr(), b, s, cin, cout, mode, plan.rows,
                  plan.grid[0], _stream(x.device))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
@@ -547,8 +544,8 @@ def _conv_fwd(x, w):
 def _conv_bn_fwd(x, w, scale, bias):
     if _on_cpu(x):
         return _plain_conv3x3(_affine_relu(x, scale, bias), w)
-    return _launch_sm90("conv3x3_small_bn_relu", x, w, scale=scale,
-                        bias=bias)
+    return _launch_sm90("conv3x3_small_bn_relu", x, w, _PROLOGUE, scale,
+                        bias)
 
 
 def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -558,7 +555,7 @@ def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     dgrad, which reads ``w`` as it stands: no flipped copy is made."""
     if _on_cpu(g):
         return _plain_conv3x3(g, _flip(w))
-    return _launch_sm90("conv3x3_dgrad", g, w, dgrad=True)
+    return _launch_sm90("conv3x3_dgrad", g, w, _DGRAD)
 
 
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -656,9 +653,10 @@ def conv3x3_small_affine_relu(x: torch.Tensor, w: torch.Tensor,
     rounded once to x's dtype. Forward only, as the TPU kernel it ports.
 
     ``x`` [B, S, S, Cin], ``w`` [3, 3, Cin, Cout], ``scale``/``bias`` f32
-    [Cout] (the TPU tool's [1, C] reshaped). A CUDA tensor launches T1 (bf16,
-    the shapes of :func:`eligible`, any B) and raises if an input requires
-    grad: the op has no backward. A CPU tensor runs the plain version."""
+    [Cout] (the TPU tool's [1, C] reshaped). A CUDA tensor launches T1, K1's
+    forward kernel with the epilogue (bf16, S in {2, 4, 8}, channels
+    multiples of 128, any B), and raises if an input requires grad: the op
+    has no backward. A CPU tensor runs the plain version."""
     if _on_cpu(x):
         return _plain_conv3x3_affine_relu(x, w, scale, bias)
     if any(t.requires_grad for t in (x, w, scale, bias)) and \
@@ -667,7 +665,8 @@ def conv3x3_small_affine_relu(x: torch.Tensor, w: torch.Tensor,
             "conv3x3_small_affine_relu is forward only (T1 has no VJP); "
             "call it on tensors that do not require grad, or under "
             "torch.no_grad()")
-    return _launch_epilogue("conv3x3_small_affine_relu", x, w, scale, bias)
+    return _launch_sm90("conv3x3_small_affine_relu", x, w, _EPILOGUE, scale,
+                        bias)
 
 
 def conv3x3_small_mixed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

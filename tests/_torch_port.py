@@ -1,9 +1,18 @@
 """Helpers shared by the ``test_torch_port_*`` files: JAX variables with
 non-trivial BatchNorm statistics, as numpy trees the port's converter
-takes."""
+takes; the JAX augmentation draws; and the JAX tool that T1 ports, its
+inputs and the one-bf16-ulp comparison of its outputs."""
+
+import contextlib
+import importlib.util
+import os
 
 import jax
 import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the JAX T1 kernel's batch tile: its B is a multiple of it
+JAX_T1_BATCH = 128
 
 
 def numpy_tree(tree):
@@ -116,3 +125,66 @@ def jax_preset_draws(augment, key, shape):
     split from ``key``, in order."""
     keys = jax.random.split(key, len(augment.ops))
     return [jax_aug_draws(op, k, shape) for op, k in zip(augment.ops, keys)]
+
+
+def load_file(name, relpath):
+    """The module in the repo's file ``relpath``, imported as ``name``."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, relpath))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@contextlib.contextmanager
+def jax_t1_tool():
+    """``tools/pallas_fused_conv.py`` imported with FC_INTERPRET=1 and
+    FC_BATCH=128, which stay set while the context is open: the tool reads
+    FC_BATCH when it is imported and FC_INTERPRET when its kernel is
+    traced."""
+    saved = {k: os.environ.get(k) for k in ("FC_INTERPRET", "FC_BATCH")}
+    os.environ.update(FC_INTERPRET="1", FC_BATCH=str(JAX_T1_BATCH))
+    try:
+        yield load_file("pallas_fused_conv", "tools/pallas_fused_conv.py")
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def t1_inputs(b, s, c, seed=0):
+    """The JAX tool's inputs (``main``): x [B, S, S, C] and w [3, 3, C, C]
+    as bf16 values, scale and bias [C] f32; numpy float32 arrays."""
+    import torch
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, s, s, c))
+    w = rng.normal(size=(3, 3, c, c)) * 0.02
+    scale = rng.uniform(0.5, 1.5, (c,))
+    bias = rng.normal(size=(c,)) * 0.1
+
+    def bf16_values(a):
+        return torch.from_numpy(a.astype(np.float32)).bfloat16().float() \
+            .numpy()
+
+    return (bf16_values(x), bf16_values(w), scale.astype(np.float32),
+            bias.astype(np.float32))
+
+
+# Next to the ReLU's 0 a bf16 ulp is tiny: there the f32 sums' own error
+# (4,608 products at C=512, summed in two orders; measured 2.4e-7) decides
+ZERO_ATOL = 1e-5
+
+
+def assert_within_one_bf16_ulp(got, want):
+    """Each bf16 value equal to, or one bf16 ulp from, the other's (or
+    within ZERO_ATOL of it next to 0); returns how many differ. Both sides
+    accumulate in f32 in different orders, so a value next to a rounding
+    boundary of bf16 may round the other way."""
+    big = np.maximum(np.abs(got), np.abs(want))
+    ulp = np.where(big > 0, 2.0 ** (np.floor(np.log2(np.where(
+        big > 0, big, 1.0))) - 7), 0.0)
+    diff = np.abs(got - want)
+    assert (diff <= np.maximum(ulp, ZERO_ATOL)).all(), (diff - ulp).max()
+    return int((diff > 0).sum())

@@ -21,6 +21,14 @@ the plan that its wrapper uses
   plain ``_affine_relu`` bit for bit; in f32 the products equal the plain
   versions, the JAX package's XLA references and its Pallas kernels in
   interpret mode. A negative control (the affine on every row) fails.
+* T1's epilogue in that model: the accumulator fragment of
+  ``Sm90Plan.accumulator_entry`` covers each entry of a tile once, and the
+  affine and ReLU applied in that layout (f32, the product and the sum
+  rounded apart) to the forward's tile sums equal the port's plain
+  ``_plain_conv3x3_affine_relu`` (to 1e-4) and, rounded to bf16, the JAX
+  tool that T1 ports (``tools/pallas_fused_conv.py``: its Pallas kernel in
+  interpret mode at S=2, C=512, the one shape it takes, and its XLA
+  function at S=4, C=256) to one bf16 ulp.
 """
 
 import functools
@@ -36,6 +44,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from embeddingnet_tpu.ops import fused_conv as jfc  # noqa: E402
 from embeddingnet_tpu_torch.ops import fused_conv as tfc  # noqa: E402
+
+from _torch_port import (JAX_T1_BATCH, assert_within_one_bf16_ulp,  # noqa
+                         jax_t1_tool, t1_inputs)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 SMS = 132
@@ -115,13 +126,39 @@ def _prologue(plan, stage, channel0, real, scale, bias):
     return _tma_unswizzle(phys)
 
 
-def _conv_model(plan, act, w, affine=None, mask=True):
+def _fragment_indices(plan):
+    """thread, u, h, j and e of every accumulator of the 256 consumer
+    threads, flat."""
+    grid = np.meshgrid(np.arange(256), np.arange(plan.rows // 128),
+                       np.arange(2), np.arange(16), np.arange(2),
+                       indexing="ij")
+    return [a.ravel() for a in grid]
+
+
+def _epilogue(plan, acc, n0, scale, bias):
+    """T1's epilogue on a tile's accumulators [rows, 128] (output channels
+    n0 ..) as the kernel runs it: thread t's ``acc[u][4j + 2h + e]`` (its
+    place in the tile from ``plan.accumulator_entry``) becomes
+    relu(acc*scale + bias) with the scale and bias the kernel reads for it,
+    channel n0 + 2*(lane%4) + 8j + e, the product and the sum rounded apart
+    in f32; an entry no thread holds stays NaN."""
+    thread, u, h, j, e = _fragment_indices(plan)
+    rows, cols = plan.accumulator_entry(thread, u, h, j, e)
+    channel = n0 + 2 * (thread % 32 % 4) + 8 * j + e
+    out = np.full_like(acc, np.nan)
+    out[rows, cols] = np.maximum(
+        acc[rows, cols] * scale[channel] + bias[channel], np.float32(0))
+    return out
+
+
+def _conv_model(plan, act, w, affine=None, mask=True, epilogue=None):
     """The conv as its kernel computes it: per persistent block, per tile
     of the block, per tap and 64-wide K chunk, the A box times the two B
     boxes; rows past the batch dropped. ``act`` [B, S, S, K], ``w`` [3, 3,
     Cin, Cout]. With ``affine`` = (scale, bias), K3: the prologue on each A
     box, on the rows ``plan.real_rows`` calls real (all rows when ``mask``
-    is off: the negative control)."""
+    is off: the negative control). With ``epilogue`` = (scale, bias), T1:
+    :func:`_epilogue` on each tile's sums."""
     m = plan.batch * plan.s * plan.s
     r = plan.rows
     w2d = w.reshape(-1, w.shape[3])
@@ -144,6 +181,8 @@ def _conv_model(plan, act, w, affine=None, mask=True):
             else:
                 b = np.concatenate(halves, 1)          # [64 k, 128 n]
             acc += a @ b
+        if epilogue is not None:
+            acc = _epilogue(plan, acc, by * 128, *epilogue)
         assert np.isnan(out[bx * r:(bx + 1) * r,
                             by * 128:(by + 1) * 128]).all()
         out[bx * r:(bx + 1) * r, by * 128:(by + 1) * 128] = acc
@@ -532,3 +571,68 @@ def test_box_model_without_the_mask_differs(kind):
     assert np.abs(got - want).max() > 0.1
     with pytest.raises(AssertionError):
         np.testing.assert_allclose(got, want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# T1: the affine-ReLU epilogue on the forward's accumulators.
+# ---------------------------------------------------------------------------
+
+T1_SHAPES = [(2, 512), (4, 256)]
+
+
+@pytest.mark.parametrize("sms", [SMS, 1])
+def test_accumulator_fragment_covers_each_tile_entry_once(sms):
+    """The 256 consumer threads' accumulators cover a 128- and a 256-row
+    tile exactly once; a thread holds 2 adjacent columns of each 8, in the
+    rows of its warpgroup's half."""
+    plan = tfc.plan_sm90("fprop", 1024, 2, 512, 512, sms)
+    assert plan.rows == (256 if sms == 1 else 128)
+    rows, cols = plan.accumulator_entry(*_fragment_indices(plan))
+    seen = np.zeros((plan.rows, 128), int)
+    np.add.at(seen, (rows, cols), 1)
+    assert (seen == 1).all()
+    per_thread = 64 * plan.rows // 128
+    rows = rows.reshape(256, per_thread)
+    cols = cols.reshape(256, per_thread)
+    for thread in (0, 37, 128, 255):
+        half = thread // 128 * plan.rows // 2
+        assert ((half <= rows[thread]) & (rows[thread] < half + plan.rows
+                                          // 2)).all()
+        assert sorted(set(cols[thread] % 8)) == [2 * (thread % 4),
+                                                 2 * (thread % 4) + 1]
+
+
+@pytest.fixture(scope="module")
+def jtool():
+    """``tools/pallas_fused_conv.py`` with FC_INTERPRET=1, FC_BATCH=128."""
+    with jax_t1_tool() as tool:
+        yield tool
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_t1(jtool, s, c):
+    """(inputs, the JAX tool's bf16 output) at B=128: its Pallas kernel in
+    interpret mode where it takes the shape (S=2, C=512), else its XLA
+    function."""
+    x, w, scale, bias = t1_inputs(JAX_T1_BATCH, s, c, seed=s)
+    fn = (jtool.fused_conv_bn_relu if (s, c) == (jtool.S, jtool.C)
+          else jtool.xla_conv_bn_relu)
+    want = fn(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
+              jnp.asarray(scale[None]), jnp.asarray(bias[None]))
+    return (x, w, scale, bias), np.asarray(want, np.float32)
+
+
+@pytest.mark.parametrize("sms", [SMS, 1])
+@pytest.mark.parametrize("s,c", T1_SHAPES)
+def test_box_model_epilogue_matches_plain_and_jax(jtool, s, c, sms):
+    """T1 in the box model (128-row tiles, and 256-row ones with sms=1)
+    against the port's plain version in f32 and the JAX tool in bf16."""
+    (x, w, scale, bias), want = _jax_t1(jtool, s, c)
+    plan = tfc.plan_sm90("fprop", JAX_T1_BATCH, s, c, c, sms)
+    assert plan.rows == (256 if sms == 1 else 128)
+    got = _conv_model(plan, x, w, epilogue=(scale, bias))
+    plain = tfc._plain_conv3x3_affine_relu(*_t(x, w, scale, bias))
+    np.testing.assert_allclose(got, plain.numpy(), **TOL)
+    assert (got > 0).mean() > 0.3          # the ReLU leaves work to compare
+    bf16 = torch.from_numpy(got).bfloat16().float().numpy()
+    assert_within_one_bf16_ulp(bf16, want)

@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
-(the 3x3 conv forward K1/K3, its backward K1-as-dgrad/K2/K4 — all in
-csrc/conv3x3_sm90.cu, the TMA/wgmma design, K3 and K4 with the BN-ReLU
-prologue on the landed input tile — the conv with
-the affine-ReLU epilogue T1, the u8 normalisation T2) against their plain
+(the 3x3 conv forward K1/K3, its backward K1-as-dgrad/K2/K4 and the conv
+with the affine-ReLU epilogue T1 — all in csrc/conv3x3_sm90.cu, the
+TMA/wgmma design, K3 and K4 with the BN-ReLU prologue on the landed input
+tile, T1 with the epilogue on the accumulators — and the u8 normalisation
+T2) against their plain
 PyTorch versions, the modules that launch them, forward and backward, and
 the augmentation presets on the card against the CPU.
 They skip on a machine without a card. On the card, run them with
@@ -21,6 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from embeddingnet_tpu_torch.ops import _cuda  # noqa: E402
 from embeddingnet_tpu_torch.ops import augment as aug  # noqa: E402
 from embeddingnet_tpu_torch.ops import fused_conv as fc  # noqa: E402
 from embeddingnet_tpu_torch.ops import preprocess as pre  # noqa: E402
@@ -249,12 +251,17 @@ def test_dgrad_launches_one_kernel_and_copies_no_weight(card):
 
 
 def test_sm90_wrappers_refuse_what_the_kernels_cannot_take(card):
-    """A misaligned or non-contiguous input raises before any launch."""
-    x, w, _, _ = _inputs(24, 8, 4, 128, 128, card)
+    """A misaligned or non-contiguous input raises before any launch, and
+    the C entry point refuses (-1, nothing launched) a mode it does not
+    know, a tile height other than 128 or 256, and a scale or bias given
+    where the mode takes none or missing where it takes them."""
+    x, w, scale, bias = _inputs(24, 8, 4, 128, 128, card)
     n = x.numel()
     shifted = torch.empty(n + 8, dtype=x.dtype, device=card)[1:n + 1]
     shifted = shifted.view(x.shape).copy_(x)        # 2 bytes off 16
     for bad in (shifted, x.transpose(1, 2)):
+        with pytest.raises(ValueError, match="contiguous and 16-byte"):
+            fc.conv3x3_small_affine_relu(bad, w, scale, bias)
         with pytest.raises(ValueError, match="contiguous and 16-byte"):
             fc.conv3x3_small(bad, w)
         with pytest.raises(ValueError, match="contiguous and 16-byte"):
@@ -266,6 +273,20 @@ def test_sm90_wrappers_refuse_what_the_kernels_cannot_take(card):
     with pytest.raises(ValueError, match="contiguous and 16-byte"):
         fc.conv3x3_dgrad(x, w.transpose(2, 3))
     assert fc.LAUNCHES == _launched()
+
+    entry = _cuda.library("conv3x3_sm90").embn_conv3x3_sm90
+    out = torch.full_like(x, 7.0)
+    sc, bi = scale.data_ptr(), bias.data_ptr()
+    stream = torch.cuda.current_stream(card).cuda_stream
+    for mode, s_, b_, rows in ((4, None, None, 128), (-1, None, None, 128),
+                               (0, sc, bi, 128), (1, sc, bi, 128),
+                               (2, None, None, 128), (3, None, None, 128),
+                               (2, sc, None, 128), (3, None, bi, 128),
+                               (0, None, None, 64), (3, sc, bi, 192)):
+        assert entry(x.data_ptr(), w.data_ptr(), s_, b_, out.data_ptr(),
+                     8, 4, 128, 128, mode, rows, 1, stream) == -1, mode
+    torch.cuda.synchronize()
+    assert (out == 7.0).all()                       # nothing ran
 
 
 def test_normalize_u8_matches_plain(card):
@@ -451,3 +472,57 @@ def test_augmentation_does_not_synchronise(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(out).all()
+
+
+def _exact_epilogue_inputs(seed, b, s, c, device):
+    """T1's inputs on which every rounding is known: x and w small integers
+    in bf16, so the conv's f32 sums are exact in any order; scales with
+    full f32 mantissas; and for each output channel n the bias
+    -fl(y_n*scale_n), y_n the channel's most frequent conv value, so that
+    there mul-then-add gives exactly 0 where an FMA would give the
+    product's rounding error. Returns (x, w, scale, bias, y) with y the
+    exact conv in f32."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-2, 3, (b, s, s, c)).astype(
+        np.float32)).to(device)
+    w = torch.from_numpy(rng.integers(-1, 2, (3, 3, c, c)).astype(
+        np.float32)).to(device)
+    y = fc._plain_conv3x3(x.double(), w.double())
+    assert torch.equal(fc._plain_conv3x3(x, w).double(), y)   # exact in f32
+    y = y.float()
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)
+                             ).to(device)
+    bias = -(y.reshape(-1, c).mode(0).values * scale)
+    return x.bfloat16(), w.bfloat16(), scale, bias, y
+
+
+@pytest.mark.parametrize("b,s,c", [(1024, 2, 512), (1024, 4, 256),
+                                   (37, 4, 256)])
+def test_epilogue_kernel_is_bit_exact(card, b, s, c):
+    """On the exact-integer inputs T1 equals its plain version bit for bit
+    (128-row tiles at S=2, 256-row at S=4, a ragged batch); an FMA, whose
+    bf16 results differ on some of these entries (counted here from the
+    exact product in f64), would not."""
+    x, w, scale, bias, y = _exact_epilogue_inputs(14, b, s, c, card)
+    got = fc.conv3x3_small_affine_relu(x, w, scale, bias)
+    want = fc._plain_conv3x3_affine_relu(x, w, scale, bias)
+    fma = (y.double() * scale.double() + bias.double()).float().clamp_min(
+        0.0).bfloat16()
+    assert (fma != want).sum() > 0.1 * c
+    assert torch.equal(got, want)
+    assert fc.LAUNCHES == _launched(conv3x3_small_affine_relu=1)
+
+
+def test_epilogue_is_one_sm90_kernel(card):
+    """One T1 call is one launch of csrc/conv3x3_sm90.cu's kernel with the
+    epilogue flag (no other kernel beside it), counted under
+    conv3x3_small_affine_relu and not under K3."""
+    x, w, _, _ = _inputs(15, 1024, 2, 512, 512, card)
+    scale = torch.rand(512, device=card) + 0.5
+    bias = torch.randn(512, device=card) * 0.1
+    names = _device_kernels(lambda: fc.conv3x3_small_affine_relu(
+        x, w, scale, bias))
+    assert len(names) == 1, names
+    assert "conv3x3_sm90_kernel<false," in names[0], names
+    assert ", false, true>" in names[0], names
+    assert fc.LAUNCHES == _launched(conv3x3_small_affine_relu=2)

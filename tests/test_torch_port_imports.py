@@ -1,9 +1,10 @@
 """The port runs where neither JAX nor the JAX package's host dependencies
 are installed: in a fresh interpreter with ``jax``, ``flax``, ``optax``,
-``yaml``, ``cv2``, ``sklearn`` and ``triton`` blocked, every module of the
-port imports, and a small CPU encode plus kNN vote, the HTTP server's
-``/healthz``, a small CPU triplet train step with the ``default``
-augmentation and the T1 A/B tool run. No file of the port imports the JAX
+``yaml``, ``cv2``, ``sklearn``, ``pandas`` and ``triton`` blocked, every
+module of the port imports, and a small CPU encode plus kNN vote, the HTTP
+server's ``/healthz``, the dataset index of a folder and of a CSV, a small
+CPU triplet train step with the ``default`` augmentation and the T1 A/B
+tool run. No file of the port imports the JAX
 package, not even inside a function."""
 
 import os
@@ -22,6 +23,7 @@ MODULES = [
     "embeddingnet_tpu_torch",
     "embeddingnet_tpu_torch.config",
     "embeddingnet_tpu_torch.data",
+    "embeddingnet_tpu_torch.data.index",
     "embeddingnet_tpu_torch.data.images",
     "embeddingnet_tpu_torch.data.samplers",
     "embeddingnet_tpu_torch.ops.augment",
@@ -45,7 +47,8 @@ MODULES = [
 
 SCRIPT = f"""
 import importlib, sys
-for name in ("jax", "flax", "optax", "yaml", "cv2", "sklearn", "triton"):
+for name in ("jax", "flax", "optax", "yaml", "cv2", "sklearn", "pandas",
+             "triton"):
     sys.modules[name] = None          # import of it raises ImportError
 for name in {MODULES!r}:
     importlib.import_module(name)
@@ -68,7 +71,7 @@ pred, idx = knn_classify(torch.from_numpy(emb), torch.arange(6),
 assert pred.tolist() == list(range(6)), pred
 
 # the HTTP server, the port's own copy
-import json, threading, urllib.request
+import json, os, threading, urllib.request
 from embeddingnet_tpu_torch.serving import InferenceEngine, make_server
 net.encoded_training_data = {{
     "paths": [str(i) for i in range(6)],
@@ -86,6 +89,25 @@ finally:
     server.server_close()
     engine.close()
 assert health["ready"] and health["db_size"] == 6, health
+
+# the dataset index, without sklearn and pandas: a folder and a CSV
+import tempfile
+from embeddingnet_tpu_torch.data import ENDataLoader
+with tempfile.TemporaryDirectory() as tmp:
+    rows = []
+    for c in range(3):
+        os.makedirs(f"{{tmp}}/images/class_{{c}}")
+        for i in range(5):
+            open(f"{{tmp}}/images/class_{{c}}/{{i}}.png", "wb").close()
+            rows.append(f"class_{{c}}/{{i}}.png,{{c}}")
+    folder = ENDataLoader(f"{{tmp}}/images", val_ratio=0.2)
+    assert folder.n_samples == {{f"class_{{c}}": 5 for c in range(3)}}
+    assert [len(v) for v in folder.val_data.values()] == [1, 1, 1]
+    with open(f"{{tmp}}/train.csv", "w") as f:
+        f.write("image_id,label\\n" + "\\n".join(rows) + "\\n")
+    table = ENDataLoader(f"{{tmp}}/images", train_csv_file=f"{{tmp}}/train.csv",
+                         val_ratio=0.2, cache_dir=f"{{tmp}}/cache")
+    assert sorted(table.flat("val")[0]) == sorted(folder.flat("val")[0])
 
 # the config, without PyYAML
 from embeddingnet_tpu_torch.config import params_from_dict

@@ -22,13 +22,14 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from embeddingnet_tpu.config import params_from_dict  # noqa: E402
-from embeddingnet_tpu.data import ENDataLoader  # noqa: E402
+from embeddingnet_tpu.data import ENDataLoader as JENDataLoader  # noqa
 from embeddingnet_tpu.data.images import get_images  # noqa: E402
 from embeddingnet_tpu.models import EmbeddingNet as JEmbeddingNet  # noqa
 from embeddingnet_tpu.models.registry import \
     EmbeddingModule as JEmbeddingModule  # noqa: E402
 from embeddingnet_tpu.serving import InferenceEngine as JEngine  # noqa
 from embeddingnet_tpu.serving import make_server as j_make_server  # noqa
+from embeddingnet_tpu_torch.data import ENDataLoader  # noqa: E402
 from embeddingnet_tpu_torch.models.api import EmbeddingNet  # noqa: E402
 from embeddingnet_tpu_torch.models.convert import flax_to_torch  # noqa
 from embeddingnet_tpu_torch.serving import (InferenceEngine,  # noqa: E402
@@ -68,12 +69,15 @@ def _params(dataset, work_dir):
 
 @pytest.fixture(scope="module")
 def slice_pair(tmp_path_factory):
-    """(params, loader, JAX net, port net, JAX fast_conv embeddings of the
-    train images, those images). Both nets hold the same DB."""
+    """(params, the port's loader, JAX net, port net, JAX fast_conv
+    embeddings of the train images, those images, the JAX loader). Each net
+    is given its own package's loader; both hold the same DB."""
     tmp = tmp_path_factory.mktemp("serving")
     dataset = _make_dataset(tmp / "dataset")
     params = _params(dataset, str(tmp))
     loader = ENDataLoader(dataset, validate=True, val_ratio=0.2)
+    jloader = JENDataLoader(dataset, validate=True, val_ratio=0.2)
+    assert loader.flat("val") == jloader.flat("val")
 
     jnet = JEmbeddingNet(params)
     jnet.variables = randomize_bn(jnet.variables)
@@ -87,13 +91,13 @@ def slice_pair(tmp_path_factory):
     want = np.asarray(jax.jit(lambda v, x: fast.apply(v, x / 255.0))(
         jnet.variables, jnp.asarray(images, jnp.float32)))
 
-    jnet.generate_encodings(loader, max_n_samples=4)
+    jnet.generate_encodings(jloader, max_n_samples=4)
     tnet.generate_encodings(loader, max_n_samples=4)
-    return params, loader, jnet, tnet, want, images
+    return params, loader, jnet, tnet, want, images, jloader
 
 
 def test_encode_matches_jax_fast_conv(slice_pair):
-    _, _, _, tnet, want, images = slice_pair
+    _, _, _, tnet, want, images, _ = slice_pair
     got = tnet.encode(images)
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, want, **TOL)
@@ -101,21 +105,21 @@ def test_encode_matches_jax_fast_conv(slice_pair):
 
 
 def test_generate_encodings_matches_jax(slice_pair):
-    _, _, jnet, tnet, _, _ = slice_pair
+    _, _, jnet, tnet, _, _, _ = slice_pair
     j, t = jnet.encoded_training_data, tnet.encoded_training_data
     assert t["paths"] == j["paths"] and t["labels"] == j["labels"]
     np.testing.assert_allclose(t["encodings"], j["encodings"], **TOL)
 
 
 def test_predict_knn_matches_jax(slice_pair):
-    _, loader, jnet, tnet, _, _ = slice_pair
+    _, loader, jnet, tnet, _, _, jloader = slice_pair
     val_paths, _ = loader.flat("val")
     for path in val_paths:
         assert tnet.predict_knn(path, with_top5=True) == \
             jnet.predict_knn(path, with_top5=True)
         assert tnet.predict(path) == jnet.predict(path)
     assert (tnet.calculate_prediction_accuracy(loader)
-            == jnet.calculate_prediction_accuracy(loader))
+            == jnet.calculate_prediction_accuracy(jloader))
 
 
 def _serve(engine, make):
@@ -137,7 +141,7 @@ def _get(url):
 
 
 def test_http_server_matches_jax(slice_pair):
-    _, loader, jnet, tnet, _, _ = slice_pair
+    _, loader, jnet, tnet, _, _, _ = slice_pair
     val_paths, _ = loader.flat("val")
     bodies = []
     for path in val_paths:
@@ -174,7 +178,7 @@ def test_http_server_matches_jax(slice_pair):
 
 
 def test_engine_quantized_db_matches_jax(slice_pair):
-    _, _, jnet, tnet, _, images = slice_pair
+    _, _, jnet, tnet, _, images, _ = slice_pair
     jengine = JEngine(jnet, max_batch=4, quantize_db=True)
     tengine = InferenceEngine(tnet, max_batch=4, quantize_db=True)
     try:
@@ -206,7 +210,7 @@ def test_save_load_and_cli_build(slice_pair, tmp_path):
     import serve_torch
     import yaml
 
-    params, loader, _, tnet, _, images = slice_pair
+    params, loader, _, tnet, _, images, _ = slice_pair
     weights = tnet.save_base_model(str(tmp_path))
     tnet.save_encodings(tnet.encoded_training_data, str(tmp_path))
     with open(weights + ".json") as f:
@@ -241,7 +245,7 @@ def test_save_load_and_cli_build(slice_pair, tmp_path):
 
 
 def test_load_model_missing_keys(slice_pair, tmp_path):
-    params, _, _, tnet, _, _ = slice_pair
+    params, _, _, tnet, _, _, _ = slice_pair
     state = {k: v for k, v in tnet.module.state_dict().items()}
     other = EmbeddingNet(params, device="cpu")
     assert other.weights_fingerprint() != tnet.weights_fingerprint()
@@ -259,7 +263,7 @@ def test_load_model_missing_keys(slice_pair, tmp_path):
 
 
 def test_fingerprint_independent_of_compute_path(slice_pair):
-    params, _, _, tnet, _, _ = slice_pair
+    params, _, _, tnet, _, _, _ = slice_pair
     plain = EmbeddingNet(params, device="cpu")
     bf16 = EmbeddingNet(params, device="cpu", fast_conv=True,
                         dtype=torch.bfloat16)

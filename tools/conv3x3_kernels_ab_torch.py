@@ -6,13 +6,14 @@ A/B of two checkouts of the repo on the same card.
     python tools/conv3x3_kernels_ab_torch.py --against DIR   # A/B
 
 Times, by ``torch.profiler`` device time over ``ITERS`` calls after a
-warm-up, the kernels of ``embeddingnet_tpu_torch/csrc/conv3x3_sm90.cu`` on
-seeded bf16 inputs at ResNet-50's fused shapes at 64 px (S=4, C=256 and
-S=2, C=512): K3 (``conv3x3_small_bn_relu``) and K1's forward
-(``conv3x3_small``) at B = 1,024 and the serving batch 32, K4
-(``conv3x3_wgrad_bn_relu``, its part sum included) and K2
-(``conv3x3_wgrad``) at B = 1,024. Each run of a checkout prints the
-card's name and power limit, then one JSON object of times in ms.
+warm-up, the port's small-map conv kernels on seeded bf16 inputs at
+ResNet-50's fused shapes at 64 px (S=4, C=256 and S=2, C=512): K3
+(``conv3x3_small_bn_relu``) and K1's forward (``conv3x3_small``) at B =
+1,024 and the serving batch 32, K4 (``conv3x3_wgrad_bn_relu``, its part sum
+included), K2 (``conv3x3_wgrad``) and T1 (``conv3x3_small_affine_relu``,
+the conv with the affine-ReLU epilogue) at B = 1,024. Each run of a
+checkout prints the card's name and power limit, then one JSON object of
+times in ms.
 
 ``--against DIR`` names the root of another checkout (for example a
 ``git archive`` of the parent commit unpacked into a directory that
@@ -84,6 +85,8 @@ def measure(tag, root):
             out[f"{key}_K4"] = device_ms(
                 lambda: fc.conv3x3_wgrad_bn_relu(x, g, scale, bias))
             out[f"{key}_K2"] = device_ms(lambda: fc.conv3x3_wgrad(x, g))
+            out[f"{key}_T1"] = device_ms(
+                lambda: fc.conv3x3_small_affine_relu(x, w, scale, bias))
     return out
 
 
