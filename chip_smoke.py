@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch port on one CUDA card: the serving path, the
-T1 A/B tool and the triplet training step with and without augmentation,
-each through the hand-written kernels.
+T1 A/B tool, the triplet training step with and without augmentation and
+a short flagship fit through the Trainer and its CLI, each through the
+hand-written kernels.
 
     python3 chip_smoke.py
 
@@ -64,13 +65,30 @@ each through the hand-written kernels.
    in f32), finite and falling loss, the busy share, peak memory and the
    augmentation's device time per step (``torch.profiler``, the step's
    ``record_function("augment")`` range).
+9. Fit phase: the flagship config (``configs/resnet50_batchall_1024.yml``,
+   parsed by the port's ``parse_params``) fitted through the port's
+   ``Trainer`` on a folder dataset written with cv2 (1,024 classes x 10
+   PNGs of 8x8 colour cells), cut to 2 epochs of 4 steps and 2 val
+   batches, recall every epoch, ``pallas_conv`` on (each cut printed as a
+   ``reduced`` line): finite train and val losses, recall@1/@5 in [0, 1],
+   exact launch counts of K1-dgrad, K2, K3, K4 and T2 over the fit (the
+   train steps, the val epochs' forwards of 3 x 1,024 images and the
+   recall evals' 256-image chunks), the best epoch's checkpoint; a second
+   ``Trainer`` resumes epoch 0 and holds the saved module, optimizer,
+   generator, step and plateau scale bit for bit; the CLI
+   (``tools/train_torch.py --resume_from latest``) fits what is left and
+   exports, and its base model, reloaded by ``EmbeddingNet.load_model``,
+   encodes 256 images within bf16 2e-2 of its Trainer's encoder. Prints
+   each epoch's wall time and parts, the Trainer's ``images_per_sec``
+   beside phase 8's bare step, the checkpoint's size and save time.
 
 The last line of standard output is the result,
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
 and power limit. The line before that lists each kernel: its launches
 during the run of its path (the augmented training run for the conv
 kernels, K3 also during the serving run; the aug-off training run for T2;
-the A/B tool's run for T1), its worst error, and ``ms`` / ``plain_ms`` /
+the A/B tool's run for T1) and its launches over phase 9's fit
+(``fit_launches``), its worst error, and ``ms`` / ``plain_ms`` /
 ``bound_ms`` / ``library_ms``, the event time of the kernel, its plain
 version, the card's bound and the library call, summed over the calls one
 training step makes at B = 1024 (T1: one call at B = 1024, S = 2, C = 512),
@@ -223,6 +241,26 @@ AUG_CHECK_BATCH, AUG_ATOL, AUG_FLIP_SHARE = 128, 1e-3, 1e-3
 # GRAD_SLACK. Two bf16 implementations round at other places, and batch-all
 # mining turns a rounding at a hinge's edge into a triplet in or out.
 LOSS_RTOL, GRAD_FACTOR, GRAD_SLACK = 2e-2, 1.5, 0.05
+
+# the fit phase: the flagship config fitted through the Trainer, with these
+# cuts: (section, key, value, why); dataset_path and work_dir are set to
+# the phase's temp dir
+FIT_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs", "resnet50_batchall_1024.yml")
+TRAIN_CLI = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tools", "train_torch.py")
+FIT_CLASSES, FIT_PER_CLASS = 1024, 10
+FIT_CUTS = [
+    ("DATALOADER", "dataset_path", None, "no data on the machine"),
+    ("GENERATOR", "n_batches", 4, "run time"),
+    ("GENERATOR", "n_batches_val", 2, "run time"),
+    ("TRAIN", "n_epochs", 2, "run time"),
+    ("TRAIN", "eval_recall_every", 1, "so recall runs"),
+    ("PERFORMANCE", "pallas_conv", True, "so the kernels run"),
+    ("TRAIN", "plot_history", False, "the card's machine has no "
+                                     "matplotlib"),
+    ("GENERAL", "work_dir", None, "a temp dir"),
+]
 
 
 @functools.lru_cache(maxsize=None)
@@ -1181,7 +1219,255 @@ def augmented_training_phase(db_classes):
     missing = [n for n in PER_STEP if not device[n]]
     if missing:
         raise AssertionError(f"the profiler saw no device time of {missing}")
-    return launches, device
+    return launches, device, P_CLASSES * K_SAMPLES / med
+
+
+def _write_fit_dataset(root):
+    """The fit's folder dataset: FIT_CLASSES classes of FIT_PER_CLASS PNGs
+    of 8x8 colour cells (as phase 8's), written with cv2 on 8 threads."""
+    import cv2
+    from concurrent.futures import ThreadPoolExecutor
+    classes = np.repeat(np.arange(FIT_CLASSES), FIT_PER_CLASS)
+    images = cell_images(np.random.default_rng(SEED + 5), classes)
+
+    def write(i):
+        d = os.path.join(root, f"class_{classes[i]:04d}")
+        os.makedirs(d, exist_ok=True)
+        if not cv2.imwrite(os.path.join(d, f"{i % FIT_PER_CLASS}.png"),
+                           images[i]):
+            raise OSError(f"cv2 could not write image {i}")
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(len(classes))))
+    return images
+
+
+def _fit_config(tmp):
+    """The flagship config with this phase's cuts (FIT_CUTS), written as a
+    YAML file for the port's parse_params and the CLI."""
+    import yaml
+    with open(FIT_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    values = {"dataset_path": os.path.join(tmp, "dataset"),
+              "work_dir": os.path.join(tmp, "work")}
+    for section, key, value, why in FIT_CUTS:
+        value = values.get(key, value)
+        cfg[section] = dict(cfg.get(section) or {})
+        print(f"fit: reduced {section}.{key}: "
+              f"{cfg[section].get(key, 'unset')!r} -> {value!r} ({why})")
+        cfg[section][key] = value
+    path = os.path.join(tmp, "config.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def _same(a, b, path):
+    """Bit-for-bit equality of two nested state dicts, tensors compared on
+    the host."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"resume: {path} keys differ")
+        for k in a:
+            _same(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"resume: {path} lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{path}[{i}]")
+    elif torch.is_tensor(a):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"resume: {path} differs from the checkpoint")
+    elif a != b:
+        raise AssertionError(f"resume: {path} {a!r} != {b!r}")
+
+
+def _fit_pace(trainer):
+    """Who sets the train epoch's pace, with the decode cache warm: the
+    loader alone (sampling, cache reads, pinning, the copies) over one
+    epoch's batches; one more train epoch unprofiled, for its wall, its
+    images_per_sec and its wait for batches; then a third under
+    torch.profiler for its device time only, which is divided by the
+    unprofiled wall (as phase 8 does), since the profiler's own host cost
+    per launch stretches the wall it runs in."""
+    from torch.profiler import ProfilerActivity, profile
+    trainer._current_epoch = 0       # epoch 0's batches: all cached
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for images, _ in trainer._device_prefetch(trainer._train_loader()):
+        n += int(images.shape[0])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    metrics = trainer._run_train_epoch()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wait = trainer._data_wait_s
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._run_train_epoch()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    busy_us = sum(e.device_time_total for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+    print(f"fit pace: the loader alone, cache warm: {n} images in "
+          f"{load_s:.3f} s ({n / load_s:.0f} img/s, pinned copies included); "
+          f"a warm train epoch unprofiled: {wall:.3f} s, images_per_sec "
+          f"{metrics['images_per_sec']:.0f}, waiting {wait:.3f} s for "
+          f"batches; the next under torch.profiler ({prof_wall:.3f} s): "
+          f"device busy {busy_us * 1e-6:.3f} s, {busy_us * 1e-6 / wall:.3f} "
+          f"of the unprofiled wall")
+
+
+def fit_phase(smi, step_images_per_s):
+    """The flagship fit through the port's Trainer (phase 9): two epochs
+    with the val epoch, recall, plateau and the best checkpoint, exact
+    launch counts; then resume from epoch 0 in a second Trainer and the CLI
+    (resuming the latest checkpoint) with its export, whose base model
+    encodes like the CLI's Trainer. Returns the fit's launches."""
+    from embeddingnet_tpu_torch.config import parse_params
+    from embeddingnet_tpu_torch.data import ENDataLoader
+    from embeddingnet_tpu_torch.train import checkpoint as ckpt
+    from embeddingnet_tpu_torch.train.loop import Trainer
+    from embeddingnet_tpu_torch.train.steps import make_eval_step
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    try:
+        t0 = time.perf_counter()
+        images = _write_fit_dataset(os.path.join(tmp, "dataset"))
+        print(f"fit: wrote {len(images)} PNGs of {FIT_CLASSES} classes in "
+              f"{time.perf_counter() - t0:.1f} s")
+        path = _fit_config(tmp)
+        params = parse_params(path)
+        loader = ENDataLoader(**{k: params.dataloader[k]
+                                 for k in params.dataloader.keys()})
+        t0 = time.perf_counter()
+        trainer = Trainer(params, loader, device=DEVICE)
+        print(f"fit: Trainer built in {time.perf_counter() - t0:.1f} s")
+
+        g, t = params.generator, params.train
+        n_db = sum(min(len(v), t.eval_recall_max_per_class)
+                   for v in loader.train_data.values())
+        n_val = len(loader.flat("val")[0])
+        chunks = -(-n_db // 256) + -(-n_val // 256)
+        steps = t.n_epochs * g.n_batches
+        val_forwards = t.n_epochs * g.n_batches_val
+        evals = t.n_epochs // t.eval_recall_every
+        per_step = EXPECTED_AUG_PER_STEP
+        expected = {name: per_step[name] * steps for name in per_step}
+        k3 = "conv3x3_small_bn_relu"
+        expected[k3] += per_step[k3] * (val_forwards + evals * chunks)
+        expected["normalize_u8"] = val_forwards
+
+        # ---- the fit's path: every launch count from here to the reading
+        fc.reset_launch_counts()
+        pre.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        history = trainer.fit().history
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+        # ---- end of the fit's path ----
+        peak = torch.cuda.max_memory_allocated()
+        for timing, ips in zip(trainer.timings, history["images_per_sec"]):
+            print(f"fit: epoch {timing['epoch']}: {timing['epoch_s']:.2f} s "
+                  f"(train {timing['train_s']:.2f}, val epoch "
+                  f"{timing['val_s']:.2f}, recall {timing['recall_s']:.2f}, "
+                  f"checkpoint {timing['checkpoint_s']:.2f} s, "
+                  f"{timing['checkpoint_bytes'] / 2 ** 20:.1f} MiB; the "
+                  f"train epoch waited {timing['data_wait_s']:.2f} s for "
+                  f"batches); "
+                  f"Trainer images_per_sec {ips:.0f} against phase 8's "
+                  f"bare step {step_images_per_s:.0f} img/s [{smi}]")
+        print(f"fit: {t.n_epochs} epochs of {g.n_batches} steps at "
+              f"B={g.k_classes * g.k_samples} in {fit_s:.2f} s, peak memory "
+              f"{peak / 2 ** 30:.2f} GiB; " + "; ".join(
+                  f"{k} " + " ".join(f"{v:.4f}" for v in vals)
+                  for k, vals in history.items()))
+        print(f"fit: launches over the fit: {launches}; expected "
+              f"{expected} ({steps} train steps, {val_forwards} val "
+              f"forwards of {3 * g.batch_size}, {evals} recall evals of "
+              f"{chunks} chunks: {n_db} DB and {n_val} val images)")
+        for key in ("loss", "val_loss"):
+            if not np.all(np.isfinite(history[key])):
+                raise AssertionError(f"fit: {key} not finite: {history[key]}")
+        for key in ("val_recall1", "val_recall5"):
+            if not all(0.0 <= v <= 1.0 for v in history[key]):
+                raise AssertionError(f"fit: {key} outside [0, 1]")
+            if len(history[key]) != evals:
+                raise AssertionError(f"fit: {key} missing")
+        for name, n in expected.items():
+            if launches[name] != n:
+                raise AssertionError(f"fit: {name} launched {launches[name]} "
+                                     f"times, expected {n}")
+        for name in OFF_PATH + ("conv3x3_small_affine_relu",):
+            if launches[name]:
+                raise AssertionError(f"fit: {name} launched on the fit")
+
+        # the best epoch's checkpoint
+        vals = history[trainer.ckpt_mgr.monitor]
+        best = int(np.argmin(vals))
+        saved_path = os.path.join(trainer.paths["weights"], str(best),
+                                  ckpt.STATE_FILE)
+        if (trainer.ckpt_mgr.latest_epoch() != best
+                or not os.path.exists(saved_path)):
+            raise AssertionError(f"fit: no checkpoint of the best epoch "
+                                 f"{best} ({trainer.ckpt_mgr.epochs()})")
+        print(f"fit: best epoch {best} by {trainer.ckpt_mgr.monitor}, "
+              f"checkpoint {os.path.getsize(saved_path) / 2 ** 20:.1f} MiB")
+        _fit_pace(trainer)
+
+        # resume from epoch 0 in a second Trainer
+        t0 = time.perf_counter()
+        second = Trainer(params, loader, device=DEVICE)
+        second.resume(0)
+        resume_s = time.perf_counter() - t0
+        if second.start_epoch != 1:
+            raise AssertionError(f"resume: start_epoch {second.start_epoch}")
+        saved = torch.load(os.path.join(trainer.paths["weights"], "0",
+                                        ckpt.STATE_FILE),
+                           map_location=DEVICE, weights_only=True)
+        restored = second.state.state_dict()
+        for key in ("module", "optimizer", "generator", "step",
+                    "plateau_scale"):
+            _same(restored[key], saved[key], key)
+        if second.state.generator.device.type != torch.device(DEVICE).type:
+            raise AssertionError("resume: the generator is not on the card")
+        print(f"fit: a second Trainer resumed epoch 0 in {resume_s:.2f} s "
+              f"(built and loaded): module, optimizer, generator, step and "
+              f"plateau scale bit for bit, start_epoch 1")
+        del second, saved, restored, trainer
+
+        # the CLI: resume the latest checkpoint, fit what is left, export
+        t0 = time.perf_counter()
+        cli = runpy.run_path(TRAIN_CLI)["main"]
+        cli_trainer, net = cli([path, "--device", DEVICE, "--resume_from",
+                                "latest"])
+        cli_s = time.perf_counter() - t0
+        from embeddingnet_tpu_torch.models.api import EmbeddingNet as Net
+        work = cli_trainer.paths["work_dir"]
+        reloaded = Net(params, device=DEVICE, fast_conv=True,
+                       dtype=cli_trainer.compute_dtype).load_model(
+            os.path.join(work, "base_model.pt"))
+        batch = images[:256]
+        got = reloaded.encode(batch)
+        want = make_eval_step(cli_trainer.module, compute_dtype=(
+            cli_trainer.compute_dtype))(cli_trainer.state, torch.from_numpy(
+                batch)).cpu().numpy()
+        err = float(np.abs(got - want).max())
+        print(f"fit: the CLI resumed, fitted, exported in {cli_s:.1f} s; its "
+              f"base model reloaded encodes 256 images within {err:.2e} of "
+              f"its Trainer's encoder (tolerance bf16 {ATOL}); encodings "
+              f"{os.path.getsize(os.path.join(work, 'encodings', 'encodings.pkl')) / 2 ** 20:.1f} MiB")
+        _check("fit: CLI export", torch.from_numpy(got),
+               torch.from_numpy(want), ATOL, RTOL)
+        return launches
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main():
@@ -1200,7 +1486,9 @@ def main():
     serve_launches, db_images, db_classes = serving_phase()
     augmentation_check_phase(db_images)
     plain_launches = training_phase(db_images, db_classes)
-    train_launches, device = augmented_training_phase(db_classes)
+    train_launches, device, step_images_per_s = augmented_training_phase(
+        db_classes)
+    fit_launches = fit_phase(smi, step_images_per_s)
     device["conv3x3_small_affine_relu"] = t1_device_ms
 
     lines, step_sum = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
@@ -1231,6 +1519,7 @@ def main():
             sums = _sum(rec, TRAIN_BATCH, PER_STEP[name])
         entry = {"name": name, "route": route, "source": source,
                  "replaces": replaces, "launches": launches,
+                 "fit_launches": fit_launches[name],
                  "max_abs_err": rec["max_abs_err"], **sums, "per": per}
         if name in LIBRARY_RATIO:
             entry["library_ratio"] = sums["ms"] / sums["library_ms"]

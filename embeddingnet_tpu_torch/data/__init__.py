@@ -1,5 +1,5 @@
-"""Host-side data helpers of the port: the dataset index, image decode and
-P-K sampling."""
+"""Host-side data helpers of the port: the dataset index, image decode,
+the samplers and the threaded batch loader."""
 
 from embeddingnet_tpu_torch.data.index import ENDataLoader
 

@@ -1,11 +1,15 @@
-"""P-K batch sampler (the port's own copy of ``PKSampler`` in
-``embeddingnet_tpu/data/samplers.py``).
+"""Batch samplers (the port's own copy of ``PKSampler`` and
+``TripletSampler`` in ``embeddingnet_tpu/data/samplers.py``).
 
-``k_classes`` classes without replacement x ``k_samples`` images with
-replacement, drawn from a numpy generator seeded by the caller: the same
-seed gives the same batches as the JAX package's sampler. A batch is
-grouped (each class's ``k_samples`` images are adjacent), which is the
-layout the batch-all P-K fast path asserts.
+* :class:`PKSampler`: ``k_classes`` classes without replacement x
+  ``k_samples`` images with replacement. A batch is grouped (each class's
+  ``k_samples`` images are adjacent), which is the layout the batch-all P-K
+  fast path asserts.
+* :class:`TripletSampler`: offline random (anchor, positive, negative)
+  triplets, which the triplet val epoch draws.
+
+Each draws from a numpy generator seeded by the caller: the same seed gives
+the same batches as the JAX package's sampler.
 """
 
 from __future__ import annotations
@@ -17,7 +21,26 @@ import numpy as np
 ClassFiles = Dict[str, List[str]]
 
 
-class PKSampler:
+class _SamplerBase:
+    def __init__(self, class_files_paths: ClassFiles,
+                 class_names: Sequence[str], seed: int = 0):
+        # keep only classes that have samples
+        self.class_files_paths = {c: v for c, v in class_files_paths.items()
+                                  if len(v) > 0}
+        self.class_names = [c for c in class_names
+                            if c in self.class_files_paths]
+        self.n_classes = len(self.class_names)
+        self.n_samples = {c: len(self.class_files_paths[c])
+                          for c in self.class_names}
+        self.class_to_id = {c: i for i, c in enumerate(class_names)}
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self) -> Iterator:
+        while True:
+            yield self.sample()
+
+
+class PKSampler(_SamplerBase):
     """P-K batches: ``k_classes`` x ``k_samples``; yields ``(paths,
     int_labels)``, the labels being each class's index in
     ``class_names``."""
@@ -25,14 +48,7 @@ class PKSampler:
     def __init__(self, class_files_paths: ClassFiles,
                  class_names: Sequence[str], k_classes: int = 5,
                  k_samples: int = 5, seed: int = 0):
-        # keep only classes that have samples
-        self.class_files_paths = {c: v for c, v in class_files_paths.items()
-                                  if len(v) > 0}
-        self.class_names = [c for c in class_names
-                            if c in self.class_files_paths]
-        self.n_classes = len(self.class_names)
-        self.class_to_id = {c: i for i, c in enumerate(class_names)}
-        self.rng = np.random.default_rng(seed)
+        super().__init__(class_files_paths, class_names, seed)
         if self.n_classes < 2:
             raise ValueError("P-K sampling needs >= 2 non-empty classes")
         self.k_classes = min(k_classes, self.n_classes)
@@ -56,6 +72,33 @@ class PKSampler:
             labels.extend([self.class_to_id[cls]] * self.k_samples)
         return paths, np.asarray(labels, np.int32)
 
-    def __iter__(self) -> Iterator[Tuple[List[str], np.ndarray]]:
-        while True:
-            yield self.sample()
+
+class TripletSampler(_SamplerBase):
+    """Offline random triplets: a random class, two distinct images of it,
+    and an image of a random other class; yields ``((anchors, positives,
+    negatives), int_labels)`` with the anchors' labels."""
+
+    def __init__(self, class_files_paths: ClassFiles,
+                 class_names: Sequence[str], batch_size: int = 32,
+                 seed: int = 0):
+        super().__init__(class_files_paths, class_names, seed)
+        self.batch_size = batch_size
+
+    def sample(self):
+        a_paths, p_paths, n_paths = [], [], []
+        labels = []
+        for _ in range(self.batch_size):
+            ci = int(self.rng.integers(self.n_classes))
+            cls = self.class_names[ci]
+            n_el = self.n_samples[cls]
+            other_ci = (ci + int(self.rng.integers(1, self.n_classes))) \
+                % self.n_classes
+            other = self.class_names[other_ci]
+            idx1 = int(self.rng.integers(n_el))
+            idx2 = (idx1 + int(self.rng.integers(1, max(n_el, 2)))) % n_el
+            idx3 = int(self.rng.integers(self.n_samples[other]))
+            a_paths.append(self.class_files_paths[cls][idx1])
+            p_paths.append(self.class_files_paths[cls][idx2])
+            n_paths.append(self.class_files_paths[other][idx3])
+            labels.append(self.class_to_id[cls])
+        return (a_paths, p_paths, n_paths), np.asarray(labels, np.int32)

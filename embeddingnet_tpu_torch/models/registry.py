@@ -13,7 +13,7 @@ JAX registry raises ``NotImplementedError`` naming ``ROADMAP.md``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -44,7 +44,7 @@ def _build_backbone(name: str, dtype: Optional[torch.dtype],
                               fast_conv=fast_conv)
     raise NotImplementedError(
         f"backbone {name!r} is not ported to PyTorch yet (see ROADMAP.md, "
-        f"'Modules to port'); ported: {list_backbones()}")
+        f"item 12); ported: {list_backbones()}")
 
 
 class EmbeddingModule(nn.Module):
@@ -97,3 +97,34 @@ class EmbeddingModule(nn.Module):
     def classify(self, x: torch.Tensor) -> torch.Tensor:
         """Dense(1, sigmoid) on the embedding."""
         return self.classifier(self(x))
+
+
+def backbone_param_mask(module: nn.Module, freeze_backbone
+                        ) -> Dict[str, bool]:
+    """``{parameter name: trainable}`` for ``MODEL.freeze_backbone`` (the
+    JAX ``backbone_param_mask``):
+
+    * ``False`` / ``None``: everything trains;
+    * ``True`` / ``"all"``: every parameter under ``backbone`` is frozen,
+      the head and the classifier train;
+    * ``"except_last_2"``: the backbone's last two top-level submodules
+      stay trainable. "Last" is in the JAX parameter tree's order, whose
+      keys are sorted (``jax.jit`` hands back dicts with sorted keys), so
+      for the ResNets these are ``stem_bn`` and ``stem_conv``, as in the
+      JAX package.
+    """
+    names = [n for n, _ in module.named_parameters()]
+    if not freeze_backbone:
+        return {n: True for n in names}
+    mode = "all" if freeze_backbone is True else str(freeze_backbone)
+    if mode not in ("all", "except_last_2"):
+        raise ValueError(
+            f"freeze_backbone must be bool, 'all' or 'except_last_2'; "
+            f"got {freeze_backbone!r}")
+    tails = set()
+    if mode == "except_last_2":
+        children = sorted({n.split(".")[1] for n in names
+                           if n.startswith("backbone.")})
+        tails = set(children[-2:])
+    return {n: not n.startswith("backbone.")
+            or n.split(".")[1] in tails for n in names}

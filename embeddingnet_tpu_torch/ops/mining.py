@@ -144,7 +144,7 @@ def _batch_all_forward(embeddings: torch.Tensor, labels: torch.Tensor,
         raise NotImplementedError(
             "batch_all without a grouped P-K layout (max_positives = "
             "k_samples - 1, B a multiple of k_samples) takes the generic "
-            "rowblock path, which is not ported yet (see ROADMAP.md)")
+            "rowblock path, which is not ported yet (see ROADMAP.md, item 3)")
     k_samples = max_positives + 1
     sq = pairwise_sq_l2(embeddings)
     dist = sq.sqrt()
@@ -229,5 +229,5 @@ def mined_triplet_loss(embeddings: torch.Tensor, labels: torch.Tensor, *,
     if mode in ALL_MODES:
         raise NotImplementedError(
             f"mining mode {mode!r} is not ported to PyTorch yet (see "
-            f"ROADMAP.md, 'Remaining mining modes'); ported: batch_all")
+            f"ROADMAP.md, item 11); ported: batch_all")
     raise ValueError(f"unknown mining mode {mode!r}; valid: {ALL_MODES}")

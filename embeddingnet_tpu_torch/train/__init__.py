@@ -1,2 +1,2 @@
-"""Training of the port: the triplet train step, its state and its
-optimizer."""
+"""Training of the port: the triplet train and eval steps, their state and
+optimizer, the callbacks, checkpoints and the ``Trainer`` loop."""

@@ -1,0 +1,140 @@
+"""Checkpoint / resume: whole-train-state snapshots with ``torch.save`` (port
+of ``embeddingnet_tpu/train/checkpoint.py``, which uses Orbax).
+
+A checkpoint is the directory ``<weights>/<epoch>/`` holding ``state.pt``
+(:meth:`~embeddingnet_tpu_torch.train.state.TrainState.state_dict`: module,
+optimizer, generator, step count, plateau scale, EMA) and ``host.json``
+(``epoch``, ``best``, ``metrics`` and the callbacks' state). It is written
+into a temporary directory beside it and renamed into place with
+``os.replace``, so a crash mid-write leaves no torn checkpoint. Loads use
+``weights_only=True``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import warnings
+from typing import Optional
+
+import torch
+
+from embeddingnet_tpu_torch.train.state import TrainState
+
+STATE_FILE, HOST_FILE = "state.pt", "host.json"
+
+
+class CheckpointManager:
+    """Best-only checkpoints under ``<work_dir>/weights/``, at most
+    ``max_to_keep`` of them (the oldest go first). ``map_location`` is where
+    restored tensors land (the Trainer's device)."""
+
+    def __init__(self, directory: str, max_to_keep: int = 5,
+                 monitor: str = "val_loss", mode: str = "min",
+                 async_save: bool = False, map_location=None):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.max_to_keep = max_to_keep
+        self.monitor = monitor
+        self.mode = mode
+        self.map_location = map_location
+        if async_save:
+            warnings.warn(
+                "PERFORMANCE.async_checkpoint: the PyTorch port saves "
+                "checkpoints synchronously (see ROADMAP.md, item 16)",
+                UserWarning, stacklevel=2)
+        self.best: Optional[float] = None
+
+    def _improved(self, value: float) -> bool:
+        if self.best is None:
+            return True
+        return value < self.best if self.mode == "min" else value > self.best
+
+    def save(self, epoch: int, state: TrainState, metrics: dict,
+             host_state: Optional[dict] = None) -> bool:
+        """Save if the monitored metric improved. Returns True when a
+        checkpoint was written."""
+        raw = metrics.get(self.monitor)
+        if raw is None and self.mode == "min":
+            raw = metrics.get("loss")  # reference fallback
+        # an absent monitored metric (recall evaluated every N epochs) has
+        # nothing to compare with, so it never counts as improved
+        if raw is None or not self._improved(float(raw)):
+            return False
+        self.best = float(raw)
+        host = {"epoch": epoch, "best": self.best,
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                **(host_state or {})}
+        final = os.path.join(self.directory, str(epoch))
+        tmp = os.path.join(self.directory, f".tmp-{epoch}-{os.getpid()}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(state.state_dict(), os.path.join(tmp, STATE_FILE))
+        with open(os.path.join(tmp, HOST_FILE), "w") as f:
+            json.dump(host, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        for old in self.epochs()[:-self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.directory, str(old)))
+        return True
+
+    def epochs(self):
+        """The epochs with a complete checkpoint, oldest first."""
+        return sorted(int(d) for d in os.listdir(self.directory)
+                      if d.isdigit() and os.path.exists(
+                          os.path.join(self.directory, d, HOST_FILE)))
+
+    def latest_epoch(self) -> Optional[int]:
+        epochs = self.epochs()
+        return epochs[-1] if epochs else None
+
+    def restore(self, state: TrainState, epoch: Optional[int] = None):
+        """Load a checkpoint into ``state`` in place; ``(state,
+        host_state)``. ``epoch=None`` -> latest."""
+        epoch = epoch if epoch is not None else self.latest_epoch()
+        path = os.path.join(self.directory, str(epoch))
+        if epoch is None or not os.path.exists(
+                os.path.join(path, HOST_FILE)):
+            raise FileNotFoundError(
+                f"no checkpoint{'' if epoch is None else f' {epoch}'} "
+                f"under {self.directory}")
+        state.load_state_dict(torch.load(
+            os.path.join(path, STATE_FILE), map_location=self.map_location,
+            weights_only=True))
+        with open(os.path.join(path, HOST_FILE)) as f:
+            host = json.load(f)
+        self.best = host.get("best")
+        return state, host
+
+
+def save_encodings_pickle(encoded_training_data: dict, save_folder: str,
+                          save_file_name: str = "encodings.pkl") -> str:
+    """The encodings-pickle contract of the JAX package."""
+    import pickle
+    os.makedirs(save_folder, exist_ok=True)
+    path = os.path.join(save_folder, save_file_name)
+    with open(path, "wb") as f:
+        pickle.dump(encoded_training_data, f)
+    return path
+
+
+def create_save_folders(params_general) -> dict:
+    """The work-dir tree of the JAX package (and of the reference)."""
+    work_dir_path = os.path.join(params_general["work_dir"],
+                                 params_general["project_name"])
+    paths = {
+        "work_dir": work_dir_path,
+        "weights": os.path.join(work_dir_path, "weights/"),
+        "pretraining_weights": os.path.join(
+            work_dir_path, "pretraining_model/weights/"),
+        "encodings": os.path.join(work_dir_path, "encodings/"),
+        "plots": os.path.join(work_dir_path, "plots/"),
+        "tensorboard": os.path.join(work_dir_path, "tf_log/"),
+        "pretraining_tensorboard": os.path.join(
+            work_dir_path, "pretraining_model/tf_log/"),
+    }
+    for p in paths.values():
+        os.makedirs(p, exist_ok=True)
+    return paths

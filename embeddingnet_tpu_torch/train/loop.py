@@ -1,0 +1,540 @@
+"""The training loop: config + data -> trained embedding model (port of
+``embeddingnet_tpu/train/loop.py`` ``Trainer``, triplet mode).
+
+One :class:`Trainer` drives the epochs of a triplet run: P-K batches
+decoded on host threads (:class:`~embeddingnet_tpu_torch.data.pipeline.
+BatchLoader`, with the decode cache), copied to the device from pinned
+memory one batch ahead, the train step with its mining; then the val epoch
+on offline triplets, recall@1/@5 by kNN every ``TRAIN.eval_recall_every``
+epochs, the plateau scale, the best checkpoint and early stopping. It
+resumes a run from a checkpoint with the same parameters, optimizer state,
+random state and callbacks as an uninterrupted one.
+
+It runs on the device it is given (``cuda`` unless the caller asks for
+``cpu``) and never falls back: not to the CPU when there is no card, nor
+to cuDNN when a kernel of ``PERFORMANCE.pallas_conv`` fails. What the port
+lacks raises ``NotImplementedError`` at construction, naming its
+``ROADMAP.md`` item: the siamese and arcface modes and softmax pretraining
+(item 11), mining modes other than batch-all (item 11), pretrained
+backbone weights (item 12), more than one device (item 13) and bf16
+master weights (item 16).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+import warnings
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from embeddingnet_tpu_torch.data.pipeline import BatchLoader, DecodeCache
+from embeddingnet_tpu_torch.data.samplers import PKSampler, TripletSampler
+from embeddingnet_tpu_torch.models.registry import (EmbeddingModule,
+                                                    backbone_param_mask)
+from embeddingnet_tpu_torch.ops.augment import augment_from_params
+from embeddingnet_tpu_torch.train import callbacks as cb
+from embeddingnet_tpu_torch.train import checkpoint as ckpt
+from embeddingnet_tpu_torch.train import optim, steps
+from embeddingnet_tpu_torch.train.state import TrainState
+from embeddingnet_tpu_torch.utils.logging import MetricsLogger
+
+# the mining modes the port's train step runs
+PORTED_MINING = ("batch_all",)
+
+
+class Trainer:
+    def __init__(self, params, data_loader, *, device="cuda",
+                 log_fn: Callable = print):
+        self.params = params
+        self.data_loader = data_loader
+        self.log = log_fn
+        self.mode = params.model.mode
+        self.device = torch.device(device)
+        self._check_supported()
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"Trainer: device {device!r} asked for, "
+                                   f"but CUDA is not available")
+            # f32 matmuls stay f32: the mining's distances cancel badly in
+            # TF32 (as EmbeddingNet sets it)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.paths = ckpt.create_save_folders(params.general)
+        perf = params.performance
+        self.compute_dtype = (torch.bfloat16
+                              if perf.compute_dtype == "bfloat16"
+                              else torch.float32)
+        if perf.remat:
+            warnings.warn("PERFORMANCE.remat is not ported to PyTorch; the "
+                          "step keeps its activations", UserWarning,
+                          stacklevel=2)
+        cache_mb = perf.decode_cache_mb
+        self._decode_cache = DecodeCache(cache_mb) if cache_mb > 0 else None
+        self.augment_fn = augment_from_params(params)
+        self._build_module()
+        self._build_optimizer()
+        self._build_steps()
+
+        self.history = cb.History()
+        self.plateau = cb.ReduceLROnPlateau(
+            monitor=self._monitor(), factor=params.train.plateau_factor,
+            patience=params.train.plateau_patience)
+        self.early_stop = cb.EarlyStopping(
+            monitor=self._monitor(),
+            patience=params.train.early_stopping_patience)
+        self.ckpt_mgr = ckpt.CheckpointManager(
+            self.paths["weights"], monitor=self._monitor(), mode=cb.monitor_mode(self._monitor()),
+            async_save=perf.async_checkpoint, map_location=self.device)
+        self.start_epoch = 0
+        # per fitted epoch: wall seconds of the epoch and of its parts (the
+        # train epoch's wait for batches among them), and the checkpoint's
+        # bytes (0 when none was written)
+        self.timings = []
+        # the recall eval's decoded images, by tag: (paths, uint8 array)
+        self._recall_decoded = {}
+        self.metrics_logger = MetricsLogger(
+            self.paths["tensorboard"],
+            tensorboard=params.general.tensorboard_callback,
+            wandb_enabled=params.general.wandb_callback)
+
+    # -- construction ------------------------------------------------------
+
+    def _check_supported(self):
+        """Raise ``NotImplementedError`` for what the port cannot run yet,
+        before anything is built or written."""
+        p = self.params
+        if self.mode != "triplet":
+            raise NotImplementedError(
+                f"MODEL.mode {self.mode!r} is not ported to PyTorch yet (see "
+                f"ROADMAP.md, item 11); ported: triplet")
+        if p.softmax is not None:
+            raise NotImplementedError(
+                "SOFTMAX_PRETRAINING is not ported to PyTorch yet (see "
+                "ROADMAP.md, item 11)")
+        needed = {self._mining_mode_for_epoch(e)
+                  for e in range(max(p.train.n_epochs, 1))}
+        missing = sorted(needed - set(PORTED_MINING))
+        if missing:
+            raise NotImplementedError(
+                f"mining mode(s) {missing} (GENERATOR."
+                f"negatives_selection_mode, TRAIN.mining_warmup_mode) are "
+                f"not ported to PyTorch yet (see ROADMAP.md, item 11); "
+                f"ported: {list(PORTED_MINING)}")
+        if p.model.backbone_weights is not None:
+            raise NotImplementedError(
+                f"MODEL.backbone_weights {p.model.backbone_weights!r}: "
+                f"pretrained weights are not ported to PyTorch yet (see "
+                f"ROADMAP.md, item 12); set it to null")
+        n_cards = (torch.cuda.device_count()
+                   if self.device.type == "cuda" else 1)
+        data = n_cards // p.mesh.model if p.mesh.data == -1 else p.mesh.data
+        if p.mesh.model > 1 or data > 1:
+            raise NotImplementedError(
+                f"MESH data={p.mesh.data}, model={p.mesh.model} over "
+                f"{n_cards} device(s): the PyTorch port trains on one device "
+                f"(see ROADMAP.md, item 13); set MESH.data: 1 or expose one "
+                f"card (CUDA_VISIBLE_DEVICES)")
+        if p.performance.params_dtype == "bfloat16":
+            raise NotImplementedError(
+                "PERFORMANCE.params_dtype: bfloat16 (bf16 master weights) is "
+                "not ported to PyTorch yet (see ROADMAP.md, item 16)")
+
+    def _monitor(self) -> str:
+        # TRAIN.monitor overrides; else val_loss when validating, else loss
+        if self.params.train.monitor:
+            return self.params.train.monitor
+        return "val_loss" if self.data_loader.validate else "loss"
+
+    def _build_module(self):
+        m = self.params.model
+        self.module = EmbeddingModule(
+            backbone_name=m.backbone_name, encodings_len=m.encodings_len,
+            embeddings_normalization=m.embeddings_normalization,
+            bn_momentum=self.params.performance.bn_momentum,
+            fast_conv=self.params.performance.pallas_conv,
+            dtype=self.compute_dtype)
+        self.module.reset_parameters(
+            torch.Generator().manual_seed(self.params.general.seed))
+        self.module.to(self.device)
+        self._ema_module = None
+
+    def _build_optimizer(self):
+        t = self.params.train
+        schedule = optim.step_decay_schedule(
+            t.learning_rate, t.decay_factor, t.step_size,
+            self.params.generator.n_batches, warmup_epochs=t.warmup_epochs)
+        opt_kwargs = ({"weight_decay": t.weight_decay}
+                      if t.optimizer == "adamw" else {})
+        self.optimizer = optim.get_optimizer(t.optimizer, schedule,
+                                             **opt_kwargs)
+        freeze = self.params.model.freeze_backbone
+        trainable = backbone_param_mask(self.module, freeze) if freeze \
+            else None
+        generator = torch.Generator(device=self.device).manual_seed(
+            self.params.general.seed + 1)
+        self.state = TrainState.create(
+            self.module, self.optimizer, generator=generator,
+            trainable=trainable,
+            ema_decay=self.params.performance.ema_decay)
+
+    def _mining_mode_for_epoch(self, epoch: int) -> str:
+        """The negatives-selection mode of an epoch: the first
+        ``TRAIN.mining_warmup_epochs`` run ``TRAIN.mining_warmup_mode``; a
+        pure function of the epoch, so a resumed run lands in the right
+        stage."""
+        t = self.params.train
+        if epoch < t.mining_warmup_epochs:
+            return t.mining_warmup_mode
+        return self.params.generator.negatives_selection_mode
+
+    def _build_steps(self):
+        g = self.params.generator
+        # every epoch runs batch-all (_check_supported), so one step serves
+        # the whole fit
+        self.train_step = steps.make_triplet_train_step(
+            self.module, self.optimizer, margin=g.margin,
+            mode=g.negatives_selection_mode, augment_fn=self.augment_fn,
+            reg_rules=optim.reg_rules_for(self.params.model.backbone_name),
+            compute_dtype=self.compute_dtype,
+            # P-K batches bound the positives per anchor, which arms the
+            # grouped fast path; _check_pk_layout guards the layout
+            max_positives=g.k_samples - 1)
+        self.eval_step = steps.make_triplet_eval_step(
+            self.module, margin=g.margin, compute_dtype=self.compute_dtype)
+
+    # -- data --------------------------------------------------------------
+
+    def _train_loader(self):
+        g = self.params.generator
+        # a fresh sampler per epoch, seeded by the epoch: epochs differ, a
+        # run is reproducible, and a resumed run draws what an
+        # uninterrupted one would
+        seed = (self.params.general.seed
+                + 9973 * getattr(self, "_current_epoch", 0))
+        sampler = PKSampler(self.data_loader.train_data,
+                            self.data_loader.class_names,
+                            k_classes=g.k_classes, k_samples=g.k_samples,
+                            seed=seed)
+        return BatchLoader(sampler, self.params.model.input_shape,
+                           n_batches=g.n_batches,
+                           fast_decode=self.params.performance.fast_decode,
+                           cache=self._decode_cache)
+
+    def _val_loader(self):
+        if not self.data_loader.validate or not self.data_loader.val_data:
+            return None
+        g = self.params.generator
+        # offline random triplets, as the reference validates triplet mode
+        sampler = TripletSampler(self.data_loader.val_data,
+                                 self.data_loader.class_names,
+                                 batch_size=g.batch_size,
+                                 seed=self.params.general.seed + 1000)
+        return BatchLoader(sampler, self.params.model.input_shape,
+                           n_batches=g.n_batches_val,
+                           cache=self._decode_cache)
+
+    # -- resume ------------------------------------------------------------
+
+    def restore_best(self) -> bool:
+        """Load the best-monitored checkpoint into the live state (the
+        manager keeps best-only saves, so its latest epoch is the best).
+        Returns False when nothing was saved."""
+        if self.ckpt_mgr.latest_epoch() is None:
+            return False
+        _, host = self.ckpt_mgr.restore(self.state, None)
+        self.log(f"restored best checkpoint (epoch {host.get('epoch')}, "
+                 f"{self.ckpt_mgr.monitor}={host.get('best')})")
+        return True
+
+    def resume(self, epoch: Optional[int] = None):
+        """Restore the train state and the callbacks' state from a
+        checkpoint (``None``: the latest); the next :meth:`fit` starts at
+        the epoch after it. ``FileNotFoundError`` when there is none."""
+        _, host = self.ckpt_mgr.restore(self.state, epoch)
+        self.start_epoch = int(host.get("epoch", 0)) + 1
+        if "plateau" in host:
+            self.plateau.load_state_dict(host["plateau"])
+        if "early_stop" in host:
+            self.early_stop.load_state_dict(host["early_stop"])
+        self.log(f"resumed from epoch {self.start_epoch - 1}")
+        return self
+
+    # -- epochs ------------------------------------------------------------
+
+    def _to_device(self, x):
+        """A host batch (array or tuple of arrays) on the device, by a
+        non-blocking copy from pinned memory on a card; ``(device batch,
+        host tensors)``: the host tensors must outlive the copy."""
+        if isinstance(x, tuple):
+            pairs = [self._to_device(a) for a in x]
+            return (tuple(d for d, _ in pairs),
+                    tuple(h for _, h in pairs))
+        host = torch.from_numpy(np.asarray(x))
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(self.device, non_blocking=True), host
+
+    def _device_prefetch(self, loader):
+        """Double-buffered host-to-device copy: batch N+1's copy is enqueued
+        before step N is handed out, from a pinned buffer of its own that
+        is kept until its step is done. ``PERFORMANCE.device_prefetch:
+        false`` copies each batch when it is taken (a debug aid)."""
+        if not self.params.performance.device_prefetch:
+            for images, labels in loader:
+                yield self._to_device(images)[0], self._to_device(labels)[0]
+            return
+        prev = None
+        for images, labels in loader:
+            cur = (self._to_device(images), self._to_device(labels))
+            if prev is not None:
+                yield prev[0][0], prev[1][0]
+            prev = cur
+        if prev is not None:
+            yield prev[0][0], prev[1][0]
+
+    def _check_pk_layout(self, loader):
+        """Host-side guard of the grouped P-K layout that the armed miner
+        asserts, on every batch (O(B) on the host-side labels)."""
+        for batch in loader:
+            self._validate_pk_labels(batch[1])
+            yield batch
+
+    def _validate_pk_labels(self, labels):
+        k = self.params.generator.k_samples
+        labels = np.asarray(labels)
+        b = labels.shape[0]
+        if not (1 < k < b and b % k == 0):
+            return
+        blocks = labels.reshape(b // k, k)
+        grouped = bool(np.all(blocks == blocks[:, :1]))
+        heads = blocks[:, 0]
+        distinct = len(np.unique(heads)) == heads.shape[0]
+        if not (grouped and distinct):
+            raise ValueError(
+                "triplet train batch is not grouped P-K: with "
+                f"GENERATOR.k_samples={k} the miner asserts "
+                "contiguous groups of k_samples same-class "
+                "images with no class split across groups "
+                "(PKSampler produces this). A custom loader "
+                "must either honor that layout or unset "
+                "k_samples (slower dense mining).")
+
+    @staticmethod
+    def _accumulate(totals, metrics):
+        """Metrics summed on the device: no host round trip per step."""
+        if totals is None:
+            return dict(metrics)
+        return {k: totals[k] + v for k, v in metrics.items()}
+
+    def _run_train_epoch(self) -> dict:
+        totals, count, images_seen = None, 0, 0
+        t0 = time.perf_counter()
+        batches = self._device_prefetch(
+            self._check_pk_layout(self._train_loader()))
+        # host seconds spent waiting for the next batch (decode, pinning,
+        # the copy's launch): the loader's share of the epoch
+        self._data_wait_s = 0.0
+        while True:
+            t_wait = time.perf_counter()
+            batch = next(batches, None)
+            self._data_wait_s += time.perf_counter() - t_wait
+            if batch is None:
+                break
+            images, labels = batch
+            self.state, metrics = self.train_step(self.state, images, labels)
+            totals = self._accumulate(totals, metrics)
+            count += 1
+            images_seen += int(images.shape[0])
+            # a read every 32 steps keeps the queue of launches shallow
+            if count % 32 == 0 or self.params.performance.debug_nans:
+                self._check_finite(float(totals["loss"]))
+        out = {k: float(v) / max(count, 1) for k, v in (totals or {}).items()}
+        # the read above waited for the last step
+        elapsed = time.perf_counter() - t0
+        out["images_per_sec"] = images_seen / max(elapsed, 1e-9)
+        return out
+
+    def _check_finite(self, loss_sum: float):
+        if self.params.performance.debug_nans and not np.isfinite(loss_sum):
+            raise FloatingPointError(
+                f"PERFORMANCE.debug_nans: the train loss is {loss_sum}")
+
+    def _run_val_epoch(self) -> dict:
+        loader = self._val_loader()
+        if loader is None:
+            return {}
+        totals, count = None, 0
+        for (a, p, n), _ in self._device_prefetch(loader):
+            totals = self._accumulate(totals,
+                                      self.eval_step(self.state, a, p, n))
+            count += 1
+            if count % 32 == 0:
+                float(totals["loss"])
+        return {f"val_{k}": float(v) / max(count, 1)
+                for k, v in (totals or {}).items()}
+
+    def fit(self, n_epochs: Optional[int] = None) -> cb.History:
+        n_epochs = n_epochs or self.params.train.n_epochs
+        profile_dir = os.environ.get("EMBEDDINGNET_PROFILE")
+        for epoch in range(self.start_epoch, n_epochs):
+            t_epoch = time.perf_counter()
+            self._current_epoch = epoch   # epoch-distinct sampler seeds
+            if profile_dir and epoch == self.start_epoch:
+                # a torch.profiler trace of the first epoch (Perfetto or
+                # chrome://tracing)
+                with self._profiler() as prof:
+                    train_metrics = self._run_train_epoch()
+                os.makedirs(profile_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(
+                    profile_dir, f"epoch{epoch}_trace.json"))
+            else:
+                train_metrics = self._run_train_epoch()
+            t_val = time.perf_counter()
+            val_metrics = self._run_val_epoch()
+            t_recall = time.perf_counter()
+            every = self.params.train.eval_recall_every
+            if every and (epoch + 1) % every == 0:
+                rec = self.evaluate_recall()
+                if rec:
+                    # cold evals decode, warm ones only encode
+                    rec["recall_eval_s"] = time.perf_counter() - t_recall
+                val_metrics.update(rec)
+            t_ckpt = time.perf_counter()
+            metrics = {**train_metrics, **val_metrics}
+            self.history.append(metrics)
+            self.metrics_logger.log(epoch, metrics)
+
+            self.state.plateau_scale = self.plateau.update(metrics)
+            # the early stop's decision is made before the save, so that a
+            # resumed run carries this epoch's update of its state
+            stop = self.early_stop.update(metrics)
+            saved = self.ckpt_mgr.save(
+                epoch, self.state, metrics,
+                host_state={"plateau": self.plateau.state_dict(),
+                            "early_stop": self.early_stop.state_dict()})
+            t_end = time.perf_counter()
+            self.timings.append({
+                "epoch": epoch, "epoch_s": t_end - t_epoch,
+                "train_s": t_val - t_epoch,
+                "data_wait_s": self._data_wait_s, "val_s": t_recall - t_val,
+                "recall_s": t_ckpt - t_recall, "checkpoint_s": t_end - t_ckpt,
+                "checkpoint_bytes": self._checkpoint_bytes(epoch)
+                if saved else 0})
+            self.log(f"epoch {epoch}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in metrics.items()))
+            if stop:
+                break
+        return self.history
+
+    def _profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities)
+
+    def _checkpoint_bytes(self, epoch: int) -> int:
+        path = os.path.join(self.ckpt_mgr.directory, str(epoch))
+        return sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+
+    # -- recall ------------------------------------------------------------
+
+    def evaluate_recall(self) -> dict:
+        """recall@1/@5: encode a capped train DB and every val image with
+        the encoder (:meth:`encoder_variables`: EMA weights when
+        ``PERFORMANCE.ema_decay`` is on) in 256-image chunks, kNN on the
+        device. The decoded images are cached across evals
+        (``PERFORMANCE.eval_decode_cache_mb``): the path lists are fixed,
+        only the weights change."""
+        from embeddingnet_tpu_torch.data.images import get_images
+        from embeddingnet_tpu_torch.ops import knn as knn_ops
+
+        dl = self.data_loader
+        if not dl.val_data:
+            return {}
+        cap = self.params.train.eval_recall_max_per_class
+        encoder = self._recall_encoder()
+
+        def decoded(paths, tag):
+            """The decoded uint8 images of ``paths``, cached when complete
+            (no dropped files, which would misalign the labels) and under
+            the configured cap."""
+            cap_mb = self.params.performance.eval_decode_cache_mb
+            cache = self._recall_decoded
+            hit = cache.get(tag)
+            if hit is not None and hit[0] == paths:
+                return hit[1]
+            imgs = get_images(paths, self.params.model.input_shape)
+            if (cap_mb > 0 and imgs.shape[0] == len(paths)
+                    and imgs.nbytes <= cap_mb * 1e6):
+                cache[tag] = (list(paths), imgs)
+            return imgs
+
+        @torch.no_grad()
+        def encode_paths(paths, tag):
+            all_imgs = decoded(paths, tag)
+            out = []
+            for s in range(0, len(all_imgs), 256):
+                imgs = torch.from_numpy(all_imgs[s:s + 256])
+                # f32 /255, as the JAX package feeds its recall encoder
+                x = imgs.to(self.device).float() / 255.0
+                out.append(encoder(x).float())
+            return torch.cat(out) if out else None
+
+        db_paths, db_labels = [], []
+        for cls, ps in dl.train_data.items():
+            ps = list(ps)[:cap]
+            db_paths.extend(ps)
+            db_labels.extend([cls] * len(ps))
+        val_paths, val_labels = dl.flat("val")
+        classes = sorted({*db_labels, *val_labels})
+        cid = {c: i for i, c in enumerate(classes)}
+
+        db_emb = encode_paths(db_paths, "db")
+        q_emb = encode_paths(val_paths, "val")
+        if db_emb is None or q_emb is None:
+            return {}
+        k5 = min(5, len(db_labels))
+        db_ids = torch.as_tensor([cid[l] for l in db_labels],
+                                 device=self.device)
+        pred, _ = knn_ops.knn_classify(db_emb, db_ids, q_emb, k=1,
+                                       n_classes=len(classes))
+        _, idx5 = knn_ops.knn_neighbors(db_emb, q_emb, k=k5)
+        pred, idx5 = pred.tolist(), idx5.tolist()
+        top1 = np.mean([classes[pred[i]] == val_labels[i]
+                        for i in range(len(val_labels))])
+        top5 = np.mean([val_labels[i] in {db_labels[j] for j in idx5[i]}
+                        for i in range(len(val_labels))])
+        return {"val_recall1": float(top1), "val_recall5": float(top5)}
+
+    def _recall_encoder(self) -> torch.nn.Module:
+        """The encoder in eval mode with :meth:`encoder_variables`: the live
+        module, or with EMA a second module holding the EMA weights."""
+        if self.state.ema is None:
+            return self.module.eval()
+        if self._ema_module is None:
+            m = self.params.model
+            self._ema_module = EmbeddingModule(
+                backbone_name=m.backbone_name,
+                encodings_len=m.encodings_len,
+                embeddings_normalization=m.embeddings_normalization,
+                bn_momentum=self.params.performance.bn_momentum,
+                fast_conv=self.params.performance.pallas_conv,
+                dtype=self.compute_dtype).to(self.device)
+        self._ema_module.load_state_dict(self.encoder_variables())
+        return self._ema_module.eval()
+
+    # -- export ------------------------------------------------------------
+
+    def encoder_variables(self) -> dict:
+        """The encoder's ``state_dict`` for export and recall: the EMA
+        parameters when ``PERFORMANCE.ema_decay`` is on, with the live
+        BatchNorm statistics; else the live module's."""
+        out = dict(self.module.state_dict())
+        if self.state.ema is not None:
+            out.update(self.state.ema)
+        return out

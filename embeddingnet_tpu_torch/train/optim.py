@@ -7,6 +7,16 @@ number or a schedule of the step count. :class:`~embeddingnet_tpu_torch.
 train.state.TrainState` builds the optimizer from it, and the train step
 sets the learning rate from the schedule before every update, as optax
 reads its schedule at the update's count (0 for the first step).
+
+The JAX Trainer's optimizer chain maps onto torch as follows:
+
+* ``scaled_by_plateau`` (``optax.scale(s)`` after the whole optimizer): the
+  learning rate set before each update is ``schedule(step) * s``, with
+  ``s`` the state's ``plateau_scale``; for Adam, AdamW (its decoupled decay
+  included) and SGD the update is then ``s`` times optax's;
+* ``masked`` (``freeze_backbone``): the frozen parameters stay out of the
+  optimizer's groups, so they take no update, no moments and no decay;
+* ``track_param_ema``: :func:`init_param_ema` and :func:`update_param_ema`.
 """
 
 from __future__ import annotations
@@ -14,7 +24,8 @@ from __future__ import annotations
 import math
 import re
 from dataclasses import dataclass, field
-from typing import Callable, Iterable, Mapping, Sequence, Tuple, Union
+from typing import (Callable, Dict, Iterable, Mapping, Sequence, Tuple,
+                    Union)
 
 import torch
 
@@ -79,8 +90,7 @@ def get_optimizer(name: str, learning_rate, **kwargs) -> OptimizerSpec:
     if name in ("rms_prop", "radam"):
         raise NotImplementedError(
             f"optimizer {name!r} is not ported to PyTorch yet (see "
-            f"ROADMAP.md, 'Train step and optimizer'); ported: adam, "
-            f"adamw, sgd")
+            f"ROADMAP.md, item 5); ported: adam, adamw, sgd")
     return OptimizerSpec(torch.optim.SGD, learning_rate, dict(kwargs))
 
 
@@ -120,5 +130,32 @@ def reg_rules_for(backbone_name: str) -> Sequence[Tuple[str, float]]:
     if backbone_name in ("simple", "simple2"):
         raise NotImplementedError(
             f"backbone {backbone_name!r} is not ported to PyTorch yet (see "
-            f"ROADMAP.md, 'Model zoo')")
+            f"ROADMAP.md, item 12)")
     return ()
+
+
+# -- parameter EMA -----------------------------------------------------------
+#
+# The JAX ``track_param_ema`` chains after the optimizer and keeps
+# ``d * ema + (1 - d) * p`` of the post-update parameters (not the BatchNorm
+# statistics) in the optimizer state; here :class:`~embeddingnet_tpu_torch.
+# train.state.TrainState` holds the EMA tensors and the train step updates
+# them after ``optimizer.step()``.
+
+def init_param_ema(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A copy of every parameter of ``module``, by name (the EMA's start,
+    as optax initialises it from the parameters)."""
+    return {n: p.detach().clone() for n, p in module.named_parameters()}
+
+
+@torch.no_grad()
+def update_param_ema(ema: Dict[str, torch.Tensor], module: torch.nn.Module,
+                     decay: float) -> None:
+    """``ema = decay * ema + (1 - decay) * p`` in place, for every parameter
+    of ``module``."""
+    names = list(ema)
+    params = dict(module.named_parameters())
+    tensors = [ema[n] for n in names]
+    torch._foreach_mul_(tensors, decay)
+    torch._foreach_add_(tensors, [params[n].detach() for n in names],
+                        alpha=1.0 - decay)

@@ -1,11 +1,16 @@
-"""The triplet train step (port of ``make_triplet_train_step`` in
+"""The triplet train and eval steps (port of ``make_triplet_train_step``,
+``make_triplet_eval_step`` and ``make_eval_step`` in
 ``embeddingnet_tpu/train/steps.py``).
 
-One step: uint8 P-K batch -> [augmentation in 0..255 ->] ``/255`` in the
-compute dtype (:func:`_preprocess`) -> encoder in train mode (BatchNorm on
-batch statistics, running averages updated) -> f32 embeddings -> mined
+One train step: uint8 P-K batch -> [augmentation in 0..255 ->] ``/255`` in
+the compute dtype (:func:`_preprocess`) -> encoder in train mode (BatchNorm
+on batch statistics, running averages updated) -> f32 embeddings -> mined
 triplet loss + L2 penalty -> backward -> optimizer update with the learning
-rate of the schedule at this step.
+rate of the schedule at this step times the state's plateau scale -> the
+parameters' EMA, where the state keeps one.
+
+The eval steps run the encoder in eval mode (BatchNorm on its running
+statistics) on ``/255`` of the uint8 batch, without augmentation.
 """
 
 from __future__ import annotations
@@ -16,8 +21,10 @@ import torch
 
 from embeddingnet_tpu_torch.ops import mining
 from embeddingnet_tpu_torch.ops.augment import Augment, Draws
+from embeddingnet_tpu_torch.ops.losses import triplet_hinge
 from embeddingnet_tpu_torch.ops.preprocess import preprocess
-from embeddingnet_tpu_torch.train.optim import OptimizerSpec, l2_penalty
+from embeddingnet_tpu_torch.train.optim import (OptimizerSpec, l2_penalty,
+                                                update_param_ema)
 from embeddingnet_tpu_torch.train.state import TrainState
 
 
@@ -41,6 +48,20 @@ def _preprocess(images: torch.Tensor, dtype: torch.dtype,
     return (x / 255.0).to(dtype)
 
 
+def apply_update(state: TrainState, optimizer: OptimizerSpec) -> None:
+    """The update of a train step, from the gradients in ``.grad``: the
+    learning rate ``optimizer.lr_at(state.step) * state.plateau_scale``,
+    ``state.optimizer.step()``, the EMA of the parameters where the state
+    keeps one, and the step count."""
+    lr = optimizer.lr_at(state.step) * state.plateau_scale
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.optimizer.step()
+    if state.ema is not None:
+        update_param_ema(state.ema, state.module, state.ema_decay)
+    state.step += 1
+
+
 def make_triplet_train_step(module: torch.nn.Module,
                             optimizer: OptimizerSpec, *,
                             margin: float = 0.5, mode: str = "semihard",
@@ -56,7 +77,8 @@ def make_triplet_train_step(module: torch.nn.Module,
     scalars — ``loss`` (without the penalty), ``n_triplets``,
     ``frac_mined``, ``mean_pos_dist``, ``mean_neg_dist`` — read them with
     ``.item()`` where the host needs them. ``optimizer`` is the spec the
-    state was created from; its schedule sets the learning rate. Images and
+    state was created from; its schedule times ``state.plateau_scale``
+    sets the learning rate. Images and
     labels are moved to the module's device; the step differentiates
     ``loss + l2_penalty``, as the JAX step's ``loss_fn`` does.
 
@@ -92,11 +114,7 @@ def make_triplet_train_step(module: torch.nn.Module,
             # (the classifier head) takes a zero gradient, not none
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        lr = optimizer.lr_at(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
-        state.step += 1
+        apply_update(state, optimizer)
         metrics = {
             "loss": loss.detach(),
             "n_triplets": stats.n_triplets,
@@ -105,5 +123,45 @@ def make_triplet_train_step(module: torch.nn.Module,
             "mean_neg_dist": stats.mean_neg_dist,
         }
         return state, metrics
+
+    return step
+
+
+def _encode_eval(module: torch.nn.Module, images: torch.Tensor,
+                 compute_dtype: torch.dtype) -> torch.Tensor:
+    module.eval()
+    device = next(module.parameters()).device
+    images = torch.as_tensor(images).to(device, non_blocking=True)
+    return module(preprocess(images, compute_dtype)).float()
+
+
+def make_triplet_eval_step(module: torch.nn.Module, *, margin: float = 0.5,
+                           compute_dtype: torch.dtype = torch.float32):
+    """Val loss on offline (anchor, positive, negative) batches; returns
+    ``step(state, anchors, positives, negatives) -> {"loss": mean hinge}``
+    (a device scalar). The three uint8 batches go through one eval-mode
+    forward of three times the batch, as the JAX step concatenates them;
+    :func:`preprocess` runs T2 for uint8 to bf16."""
+
+    @torch.no_grad()
+    def step(state, anchors, positives, negatives) -> dict:
+        stacked = torch.cat([torch.as_tensor(anchors),
+                             torch.as_tensor(positives),
+                             torch.as_tensor(negatives)])
+        e_a, e_p, e_n = _encode_eval(module, stacked,
+                                     compute_dtype).chunk(3)
+        return {"loss": triplet_hinge(e_a, e_p, e_n, margin).mean()}
+
+    return step
+
+
+def make_eval_step(module: torch.nn.Module, *,
+                   compute_dtype: torch.dtype = torch.float32):
+    """Plain encode step, ``step(state, images) -> f32 embeddings`` on the
+    module's device (eval mode)."""
+
+    @torch.no_grad()
+    def step(state, images) -> torch.Tensor:
+        return _encode_eval(module, images, compute_dtype)
 
     return step

@@ -1,10 +1,11 @@
 """The port runs where neither JAX nor the JAX package's host dependencies
 are installed: in a fresh interpreter with ``jax``, ``flax``, ``optax``,
-``yaml``, ``cv2``, ``sklearn``, ``pandas`` and ``triton`` blocked, every
-module of the port imports, and a small CPU encode plus kNN vote, the HTTP
-server's ``/healthz``, the dataset index of a folder and of a CSV, a small
-CPU triplet train step with the ``default`` augmentation and the T1 A/B
-tool run. No file of the port imports the JAX
+``orbax``, ``yaml``, ``cv2``, ``sklearn``, ``pandas``, ``matplotlib`` and
+``triton`` blocked, every module of the port imports, and a small CPU
+encode plus kNN vote, the HTTP server's ``/healthz``, the dataset index of
+a folder and of a CSV, a small CPU triplet train step with the ``default``
+augmentation and the T1 A/B tool run; with cv2 allowed (it decodes), a
+``Trainer`` fits one epoch on the CPU. No file of the port imports the JAX
 package, not even inside a function."""
 
 import os
@@ -26,11 +27,13 @@ MODULES = [
     "embeddingnet_tpu_torch.data.index",
     "embeddingnet_tpu_torch.data.images",
     "embeddingnet_tpu_torch.data.samplers",
+    "embeddingnet_tpu_torch.data.pipeline",
     "embeddingnet_tpu_torch.ops.augment",
     "embeddingnet_tpu_torch.ops.distances",
     "embeddingnet_tpu_torch.ops.mining",
     "embeddingnet_tpu_torch.ops.preprocess",
     "embeddingnet_tpu_torch.ops.knn",
+    "embeddingnet_tpu_torch.ops.losses",
     "embeddingnet_tpu_torch.ops._cuda",
     "embeddingnet_tpu_torch.ops.fused_conv",
     "embeddingnet_tpu_torch.models.heads",
@@ -43,12 +46,19 @@ MODULES = [
     "embeddingnet_tpu_torch.train.optim",
     "embeddingnet_tpu_torch.train.state",
     "embeddingnet_tpu_torch.train.steps",
+    "embeddingnet_tpu_torch.train.callbacks",
+    "embeddingnet_tpu_torch.train.checkpoint",
+    "embeddingnet_tpu_torch.train.loop",
+    "embeddingnet_tpu_torch.utils",
+    "embeddingnet_tpu_torch.utils.logging",
+    "embeddingnet_tpu_torch.utils.tb_writer",
+    "embeddingnet_tpu_torch.utils.viz",
 ]
 
 SCRIPT = f"""
 import importlib, sys
-for name in ("jax", "flax", "optax", "yaml", "cv2", "sklearn", "pandas",
-             "triton"):
+for name in ("jax", "flax", "optax", "orbax", "yaml", "cv2", "sklearn",
+             "pandas", "matplotlib", "triton"):
     sys.modules[name] = None          # import of it raises ImportError
 for name in {MODULES!r}:
     importlib.import_module(name)
@@ -143,6 +153,54 @@ print("ok")
 """
 
 
+TRAINER_SCRIPT = """
+import sys
+for name in ("jax", "flax", "optax", "orbax", "sklearn", "pandas",
+             "matplotlib"):
+    sys.modules[name] = None          # import of it raises ImportError
+import os, tempfile
+import cv2, numpy as np, torch
+torch.set_num_threads(1)     # small ops; the suite runs files in parallel
+from embeddingnet_tpu_torch.config import params_from_dict
+from embeddingnet_tpu_torch.data import ENDataLoader
+from embeddingnet_tpu_torch.train.loop import Trainer
+with tempfile.TemporaryDirectory() as tmp:
+    rng = np.random.default_rng(0)
+    for c in range(4):
+        os.makedirs(f"{tmp}/data/class_{c}")
+        for i in range(6):
+            cv2.imwrite(f"{tmp}/data/class_{c}/{i}.png",
+                        rng.integers(0, 256, (16, 16, 3), np.uint8))
+    params = params_from_dict({
+        "MODEL": {"backbone_name": "resnet18", "input_shape": [32, 32, 3],
+                  "encodings_len": 16, "backbone_weights": None},
+        "DATALOADER": {"dataset_path": f"{tmp}/data", "val_ratio": 0.2},
+        "GENERATOR": {"negatives_selection_mode": "batch_all",
+                      "k_classes": 2, "k_samples": 3, "batch_size": 4,
+                      "n_batches": 2, "n_batches_val": 1},
+        "TRAIN": {"n_epochs": 1, "eval_recall_every": 1},
+        "GENERAL": {"work_dir": f"{tmp}/work", "tensorboard_callback": True},
+        "PERFORMANCE": {"compute_dtype": "float32", "pallas_conv": True}})
+    loader = ENDataLoader(**{k: params.dataloader[k]
+                             for k in params.dataloader.keys()})
+    history = Trainer(params, loader, device="cpu").fit().history
+    assert set(history) >= {"loss", "val_loss", "val_recall1"}, history
+    assert os.path.isdir(f"{tmp}/work/project/weights/0")
+assert not any(m == "embeddingnet_tpu" or m.startswith("embeddingnet_tpu.")
+               for m in sys.modules), "the JAX package was imported"
+print("ok")
+"""
+
+
+def test_trainer_fits_without_jax_and_host_deps():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", TRAINER_SCRIPT], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
 def test_slice_imports_without_jax_and_host_deps():
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
@@ -159,15 +217,15 @@ _JAX_PACKAGE_IMPORT = re.compile(
 
 def test_port_files_never_import_the_jax_package():
     """Static: no file of the port, nor ``chip_smoke.py`` or the port's
-    tools (``tools/*_torch.py``), imports ``embeddingnet_tpu`` (a lazy import inside a function would
+    tools (every ``tools/*_torch.py``), imports ``embeddingnet_tpu`` (a
+    lazy import inside a function would
     escape the run above), and the T1 tool does not import the JAX tool
     it ports."""
     root = Path(ROOT)
     files = sorted((root / "embeddingnet_tpu_torch").rglob("*.py"))
-    files += [root / "chip_smoke.py"] + [
-        root / "tools" / f"{name}.py" for name in (
-            "serve_torch", "fused_conv_epilogue_torch",
-            "augment_probe_torch", "conv3x3_kernels_ab_torch")]
+    tools = sorted((root / "tools").glob("*_torch.py"))
+    assert root / "tools" / "train_torch.py" in tools
+    files += [root / "chip_smoke.py"] + tools
     assert len(files) > 20
     offenders = [str(f.relative_to(root)) for f in files
                  if _JAX_PACKAGE_IMPORT.search(f.read_text())]

@@ -1,0 +1,105 @@
+#!/usr/bin/env python
+"""Train CLI of the PyTorch port: ``python tools/train_torch.py
+<config.yml> [--device cuda] [--resume_from EPOCH|latest]``.
+
+Fits the config's triplet model with :class:`embeddingnet_tpu_torch.train.
+loop.Trainer` on one device (``cuda`` unless ``--device cpu``), in the
+work-dir tree ``<work_dir>/<project_name>/{weights,encodings,plots,
+tf_log,...}``; ``--resume_from`` restores the whole train state of a
+checkpoint epoch. Then it loads the best epoch, plots the history
+(``TRAIN.plot_history``), saves the encoder as ``base_model.pt`` (the
+format ``tools/serve_torch.py`` loads), exports the encodings DB
+(``ENCODINGS.save_encodings``; one mean per class with ``centers_only``)
+and prints recall@1/@5 over the val split.
+"""
+
+import argparse
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Train a metric-learning embedding model with the "
+                    "PyTorch port")
+    parser.add_argument("config", help="model config file path")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to train on (default: cuda)")
+    parser.add_argument("--resume_from", default=None,
+                        help="checkpoint epoch to resume from, or 'latest'")
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    """Runs the CLI; returns ``(trainer, net)``: the Trainer after its fit
+    and best-epoch restore, and the exported :class:`EmbeddingNet`."""
+    args = parse_args(argv)
+    import torch
+    from embeddingnet_tpu_torch.config import parse_params
+    from embeddingnet_tpu_torch.data import ENDataLoader
+    from embeddingnet_tpu_torch.models.api import EmbeddingNet
+    from embeddingnet_tpu_torch.train.loop import Trainer
+
+    print("LOAD PARAMETERS")
+    params = parse_params(args.config)
+    if params.train.plot_history:
+        # plots come after the whole fit: fail now, not after it
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            raise ImportError(
+                "TRAIN.plot_history is set but matplotlib is not installed: "
+                "install it or set TRAIN.plot_history to False") from e
+    print("CREATE DATALOADER")
+    data_loader = ENDataLoader(**{
+        k: params.dataloader[k] for k in params.dataloader.keys()})
+    print(f"DATALOADER CREATED! classes={data_loader.n_classes}")
+
+    print("CREATE MODEL AND TRAINER")
+    trainer = Trainer(params, data_loader, device=args.device)
+    if args.resume_from is not None:
+        epoch = None if args.resume_from == "latest" else int(
+            args.resume_from)
+        trainer.resume(epoch)
+
+    history = trainer.fit()
+    # export the best-monitored epoch, not wherever early stopping halted
+    trainer.restore_best()
+    if params.train.plot_history:
+        from embeddingnet_tpu_torch.utils.viz import plot_grapths
+        plot_grapths(history, trainer.paths["plots"])
+
+    net = EmbeddingNet(params, device=args.device,
+                       fast_conv=params.performance.pallas_conv,
+                       dtype=trainer.compute_dtype)
+    net.module.load_state_dict(trainer.encoder_variables())
+    weights_path = net.save_base_model(trainer.paths["work_dir"])
+    print(f"base model saved to {weights_path}")
+
+    if params.encodings.save_encodings:
+        print("EXPORT ENCODINGS")
+        db = net.generate_encodings(
+            data_loader,
+            max_n_samples=params.encodings.max_num_samples_of_each_class)
+        if params.encodings.centers_only:
+            from embeddingnet_tpu_torch.ops.knn import class_centers
+            classes = sorted(set(db["labels"]))
+            ids = torch.as_tensor([classes.index(l) for l in db["labels"]])
+            centers = class_centers(torch.as_tensor(db["encodings"]), ids,
+                                    len(classes))
+            db = {"paths": [], "labels": classes,
+                  "encodings": centers.numpy(),
+                  "weights_fingerprint": db["weights_fingerprint"]}
+        net.save_encodings(db, trainer.paths["encodings"])
+        print(f"encodings saved to {trainer.paths['encodings']}")
+        if data_loader.validate and data_loader.val_data:
+            net.encoded_training_data = db
+            acc = net.calculate_prediction_accuracy(data_loader)
+            print(f"recall@1={acc['top1']:.4f} recall@5={acc['top5']:.4f}")
+    return trainer, net
+
+
+if __name__ == "__main__":
+    main()
