@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch port on one CUDA card: the serving path, the
-T1 A/B tool, the triplet training step with and without augmentation and
-a short flagship fit through the Trainer and its CLI, each through the
-hand-written kernels.
+T1 A/B tool, the triplet training step with and without augmentation, a
+short flagship fit through the Trainer and its CLI, the step under every
+mining mode, and a siamese fit, each through the hand-written kernels.
 
     python3 chip_smoke.py
 
@@ -81,25 +81,52 @@ hand-written kernels.
    encodes 256 images within bf16 2e-2 of its Trainer's encoder. Prints
    each epoch's wall time and parts, the Trainer's ``images_per_sec``
    beside phase 8's bare step, the checkpoint's size and save time.
+10. Mining phase: phase 8's step (ResNet-50, the ``default`` augmentation,
+    its images) under each mining mode on each of its paths: at B = 1024
+    on grouped P-K batches batch-all (the yardstick), semihard, hardest,
+    random_hard and batch_hard; at B = 256 the three reference modes on
+    the [B, B, B] enumeration; at B = 1024 with the rows shuffled out of
+    their groups the three on the dense rank-window path. Each: 2 warm-up
+    and 10 timed steps with exact launch counts (phase 8's per step), the
+    step median and spread, images/s, the miner's device time alone
+    (forward and backward on the step's embeddings, ``torch.profiler``),
+    ``n_triplets`` and ``frac_mined``. Then every mode on each path on the
+    card against the port's CPU run, on one fixed batch of embeddings
+    whose squared distances are exact in f32, with the same draws:
+    identical selections, loss, stats and gradient within 1e-5. Then the
+    flagship config fitted 2 epochs of 2 steps at phase 9's other cuts
+    with one semihard warm-up epoch before batch_hard: the Trainer must log
+    the switch at epoch 1.
+11. Siamese phase: ``configs/siamese_resnet18_pairs.yml`` (ResNet-18, l2
+    distance, contrastive loss, radam, pairs of ``PairSampler``) parsed by
+    ``parse_params`` and fitted through the ``Trainer`` on 1,280 PNGs of
+    128 classes, each cut printed as a ``reduced`` line (``n_epochs`` 2,
+    ``n_batches`` 16, ``compute_dtype`` bf16 and ``pallas_conv`` on so the
+    kernels run, no plots, a temp dir): loss and accuracy per epoch, exact
+    launches of K1's forward, the dgrad, K2, K3, K4 and T2 predicted from
+    the gate (``SIAMESE_PER_STEP``), a second Trainer's ``resume(0)`` bit
+    for bit, and the CLI's resume and export.
 
 The last line of standard output is the result,
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
 and power limit. The line before that lists each kernel: its launches
 during the run of its path (the augmented training run for the conv
 kernels, K3 also during the serving run; the aug-off training run for T2;
-the A/B tool's run for T1) and its launches over phase 9's fit
-(``fit_launches``), its worst error, and ``ms`` / ``plain_ms`` /
+the A/B tool's run for T1; phase 11's siamese fit for K1's forward) and
+its launches over phase 9's fit (``fit_launches``) and phase 11's
+(``siamese_fit_launches``), its worst error, and ``ms`` / ``plain_ms`` /
 ``bound_ms`` / ``library_ms``, the event time of the kernel, its plain
 version, the card's bound and the library call, summed over the calls one
-training step makes at B = 1024 (T1: one call at B = 1024, S = 2, C = 512),
+training step makes at B = 1024 (T1: one call at B = 1024, S = 2, C = 512;
+K1's forward: the calls of one siamese step, two streams of B = 8),
 with the device-time keys of phase 3 summed alike; K3's serving numbers
 (per B=32 forward) are under ``serve``; K1 as the dgrad and K2 add
 ``library_ratio``, their ``ms`` over ``library_ms``, and
 ``library_ratio_device``, ``kernel_device_ms`` over ``library_device_ms``;
 K3 and K4 add ``sequence_ms``; the conv kernels add ``device_ms``, their
 ``torch.profiler`` device time per augmented step (the part sums apart, in
-``training_step_part_sums_ms``; T1: per launch in the A/B tool's run).
-Any failure raises, and the script exits non-zero without the last line.
+``training_step_part_sums_ms``; T1: per launch in the A/B tool's run);
+``mining`` holds phase 10's rows. Any failure raises, and the script exits non-zero without the last line.
 """
 
 import functools
@@ -144,8 +171,9 @@ KERNELS = {
                      "tools/perf_probe3.py:63"),
     "conv3x3_small_affine_relu": ("cuda", SM90_SRC,
                                   "tools/pallas_fused_conv.py:39"),
-    # K1's forward: built and checked, but ResNet-50 does not reach it (its
-    # stride-1 3x3 convs all follow a BatchNorm, so all are fused)
+    # K1's forward: ResNet-50 does not reach it (its stride-1 3x3 convs all
+    # follow a BatchNorm, so all are fused); ResNet-18's second block of a
+    # stage does (conv1), so its path is phase 11's siamese fit
     "conv3x3_small": ("cuda", SM90_SRC, f"{JAX_CONV}:200"),
 }
 # the kernels whose per-step time is held to one library call's
@@ -171,13 +199,15 @@ TOOL_BATCH, TOOL_S, TOOL_C = 1024, 2, 512
 AB_TOOL = os.path.join(os.path.dirname(TOOL), "conv3x3_kernels_ab_torch.py")
 EPILOGUE_SHAPES = [(2, 512), (4, 256)]
 EPILOGUE_BATCHES = [3, 128, TOOL_BATCH]
-OFF_PATH = ("conv3x3_small",)
+# kernels that ResNet-50's training path never launches
+RESNET50_OFF_PATH = ("conv3x3_small", "conv3x3_small_affine_relu")
 # ResNet-50 at 64x64: (S, C, stride-1 3x3 convs per forward). Stage 2's
 # blocks 2-4 run the mixed op at 8x8 (cuDNN forward, K1-dgrad + K2), stages
 # 3 and 4 the fused op (K3, K1-dgrad + K4).
 MIXED_SHAPES = [(8, 128, 3)]
 FUSED_SHAPES = [(4, 256, 5), (2, 512, 2)]
 SERVE_BATCHES = [3, 32, 256]
+SIAMESE_BATCH = 8   # the siamese config's pairs per step: B of each stream
 TRAIN_BATCH = 1024
 SMALL_BATCH = 8     # JAX's 8x8 gate needs a multiple of 8
 RAGGED_BATCH = 37   # fills no 128-row tile and no 64-position chunk
@@ -261,6 +291,66 @@ FIT_CUTS = [
                                      "matplotlib"),
     ("GENERAL", "work_dir", None, "a temp dir"),
 ]
+
+# phase 10: the mining modes on the flagship step (phase 8's step, its
+# augmentation and images). (path, B, whether the batch keeps the grouped
+# P-K layout, modes): the grouped P-K paths at B=1024 (batch_all the
+# yardstick), the [B, B, B] enumeration at B=256, and at B=1024 the dense
+# rank-window path on rows shuffled out of their groups
+PARITY_MODES = ("semihard", "hardest", "random_hard")
+MINING_RUNS = [("pk", TRAIN_BATCH, True, ("batch_all",) + PARITY_MODES
+                + ("batch_hard",)),
+               ("enumeration", 256, True, PARITY_MODES),
+               ("dense", TRAIN_BATCH, False, PARITY_MODES)]
+MINING_WARMUP, MINING_TIMED = 2, 10
+# the miner on the card against its CPU run, on exact distances (the
+# embeddings on a grid where every product and partial sum of the squared
+# distances is exact in f32) and the same draws: identical selections; the
+# loss and the stats, sums in another order, to 1e-5 relative; the
+# gradient, products with 1/n_selected, to 1e-5 of its largest entry
+MINING_RTOL = 1e-5
+# the warm-up fit: phase 9's cuts at 2 steps an epoch, and the warm-up
+WARMUP_FIT_CUTS = [(s, k, 2 if k == "n_batches" else v, why)
+                   for s, k, v, why in FIT_CUTS]
+WARMUP_FIT_SETTINGS = [("TRAIN", "mining_warmup_epochs", 1),
+                       ("TRAIN", "mining_warmup_mode", "semihard"),
+                       ("GENERATOR", "negatives_selection_mode",
+                        "batch_hard")]
+WARMUP_SWITCH = ("epoch 1: mining mode semihard -> batch_hard "
+                 "(TRAIN.mining_warmup_epochs=1)")
+
+# phase 11: configs/siamese_resnet18_pairs.yml fitted through the Trainer
+SIAMESE_CONFIG = os.path.join(os.path.dirname(FIT_CONFIG),
+                              "siamese_resnet18_pairs.yml")
+SIAMESE_CLASSES, SIAMESE_STEPS = 128, 16
+SIAMESE_CUTS = [
+    ("DATALOADER", "dataset_path", None, "no data on the machine"),
+    ("TRAIN", "n_epochs", 2, "run time"),
+    ("GENERATOR", "n_batches", SIAMESE_STEPS, "run time"),
+    ("PERFORMANCE", "compute_dtype", "bfloat16", "the kernels take bf16; "
+     "the gate sends f32 to F.conv2d"),
+    ("PERFORMANCE", "pallas_conv", True, "so the kernels run"),
+    ("TRAIN", "plot_history", False, "the card's machine has no "
+                                     "matplotlib"),
+    ("GENERAL", "work_dir", None, "a temp dir"),
+]
+# ResNet-18 at 64x64 has its stride-1 3x3 convs at 8x8x128 (stage 2: block
+# 1's conv2, block 2's conv1 and conv2) and at 4x4x256 and 2x2x512 (stages
+# 3 and 4 alike). At 8x8 all three take the mixed op (the cuDNN forward;
+# backward K1-dgrad + K2: a stream of 8 passes the JAX batch-tile gate); at
+# 4x4 and 2x2 each stage's two conv2s are fused (K3; backward K1-dgrad +
+# K4) and block 2's conv1 is K1's forward (backward K1-dgrad + K2). So one
+# stream's forward launches K1 2 and K3 4 times, its backward the dgrad
+# 3 + 3 + 3, K2 3 + 1 + 1 and K4 2 + 2 times; a siamese train step runs two
+# streams and divides in f32 after its augmentation (no T2); a val step's
+# two eval forwards divide the uint8 batches by T2.
+SIAMESE_PER_STEP = {"conv3x3_small": 4, "conv3x3_small_bn_relu": 8,
+                    "conv3x3_dgrad": 18, "conv3x3_wgrad": 10,
+                    "conv3x3_wgrad_bn_relu": 8}
+SIAMESE_PER_VAL = {"conv3x3_small": 4, "conv3x3_small_bn_relu": 8,
+                   "normalize_u8": 2}
+# K1's forward calls per siamese train step: (S, C, calls)
+SIAMESE_K1_SHAPES = [(4, 256, 2), (2, 512, 2)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -413,7 +503,7 @@ def forward_kernel_phase(records):
         oihw = w32.permute(3, 2, 0, 1).contiguous()
         prep_ms = cuda_ms(lambda: fc._hwio(oihw, torch.bfloat16))
         w_lib = w.permute(3, 2, 0, 1).contiguous()
-        for b in SERVE_BATCHES + [TRAIN_BATCH]:
+        for b in SERVE_BATCHES + [SIAMESE_BATCH, TRAIN_BATCH]:
             x = _tensor(rng, (b, s, s, c)).bfloat16()
             names = ("conv3x3_small",) if s == 8 else (
                 "conv3x3_small_bn_relu", "conv3x3_small")
@@ -449,8 +539,9 @@ def _time_row(records, name, b, s, c, run, plain, library, max_err, worst,
     """Times a kernel against its plain version and the library call by
     CUDA events; each ``extra`` that is a function (a yardstick: the eager
     sequence a fusion replaces) is timed as ``<key>_ms``, and a number is
-    kept as it is. At the training batch the kernel, the library call and
-    the yardsticks are also timed by profiler device time
+    kept as it is. At the training batch and the siamese one the kernel,
+    the library call and the yardsticks are also timed by profiler device
+    time
     (``kernel_device_ms``, ``library_device_ms``, ``<key>_device_ms``),
     which no Python launch overhead inflates."""
     plain_ms1 = cuda_ms(plain)
@@ -461,7 +552,7 @@ def _time_row(records, name, b, s, c, run, plain, library, max_err, worst,
     yardsticks = {k: v for k, v in extra.items() if callable(v)}
     times = {k: v for k, v in extra.items() if not callable(v)}
     times.update({f"{k}_ms": cuda_ms(fn) for k, fn in yardsticks.items()})
-    if b == TRAIN_BATCH:
+    if b in (TRAIN_BATCH, SIAMESE_BATCH):
         times["kernel_device_ms"] = device_ms(run)
         if library is not None:
             times["library_device_ms"] = device_ms(library)
@@ -923,14 +1014,14 @@ def _train_module(fast_conv, dtype=torch.bfloat16):
         bn_momentum=BN_MOMENTUM, fast_conv=fast_conv, dtype=dtype)
 
 
-def _trainer(module, dtype=torch.bfloat16, augment_fn=None):
+def _trainer(module, dtype=torch.bfloat16, augment_fn=None,
+             mode="batch_all", max_positives=K_SAMPLES - 1):
     spec = get_optimizer("adam", step_decay_schedule(LR, LR_DECAY, 1,
                                                      STEPS_PER_EPOCH))
     state = TrainState.create(module, spec)
     step = make_triplet_train_step(
-        module, spec, margin=MARGIN, mode="batch_all",
-        augment_fn=augment_fn, compute_dtype=dtype,
-        max_positives=K_SAMPLES - 1)
+        module, spec, margin=MARGIN, mode=mode, augment_fn=augment_fn,
+        compute_dtype=dtype, max_positives=max_positives)
     return state, step
 
 
@@ -987,12 +1078,12 @@ def _device_busy(state, step, batches):
             ours, top, wall, augment)
 
 
-def _pk_batches(db_images, db_classes, n, seed=SEED):
+def _pk_batches(db_images, db_classes, n, seed=SEED, k_classes=P_CLASSES):
     class_files = {}
     for i, c in enumerate(db_classes):
         class_files.setdefault(f"class_{c:04d}", []).append(str(i))
     sampler = PKSampler(class_files, sorted(class_files),
-                        k_classes=P_CLASSES, k_samples=K_SAMPLES, seed=seed)
+                        k_classes=k_classes, k_samples=K_SAMPLES, seed=seed)
     return _batches(sampler, db_images, n)
 
 
@@ -1012,14 +1103,20 @@ def _check_training(label, metrics, launches, expected, steps):
           f"last 5 {last:.4f}")
     if not last < first:
         raise AssertionError("the loss did not fall")
+    _check_launches(label, launches, expected, steps)
+
+
+def _check_launches(label, launches, expected, steps):
+    """Exact launches per step on ResNet-50's training path."""
     for name, per_step in expected.items():
         if launches[name] != per_step * steps:
             raise AssertionError(
-                f"{name} launched {launches[name]} times over {steps} "
-                f"steps, expected {per_step} per step")
-    for name in OFF_PATH + ("conv3x3_small_affine_relu",):
+                f"{label}: {name} launched {launches[name]} times over "
+                f"{steps} steps, expected {per_step} per step")
+    for name in RESNET50_OFF_PATH:
         if launches[name]:
-            raise AssertionError(f"{name} launched on the training path")
+            raise AssertionError(f"{label}: {name} launched on the "
+                                 f"training path")
 
 
 def training_phase(db_images, db_classes):
@@ -1149,7 +1246,8 @@ def augmented_training_phase(db_classes):
     """The flagship step as its config sets it, with the ``default``
     augmentation, on images of coloured cells (CELLS): 20 timed steps with
     exact launch counts, a falling loss, the busy share, peak memory and
-    the augmentation's device time."""
+    the augmentation's device time. Returns the launches, the kernels'
+    device times, the step's images/s and the images."""
     images = cell_images(np.random.default_rng(SEED + 3), db_classes)
     batches = _pk_batches(images, db_classes, WARMUP_STEPS
                           + AUG_TIMED_STEPS + PROFILED_STEPS, seed=SEED + 1)
@@ -1219,15 +1317,15 @@ def augmented_training_phase(db_classes):
     missing = [n for n in PER_STEP if not device[n]]
     if missing:
         raise AssertionError(f"the profiler saw no device time of {missing}")
-    return launches, device, P_CLASSES * K_SAMPLES / med
+    return launches, device, P_CLASSES * K_SAMPLES / med, images
 
 
-def _write_fit_dataset(root):
-    """The fit's folder dataset: FIT_CLASSES classes of FIT_PER_CLASS PNGs
+def _write_fit_dataset(root, n_classes=FIT_CLASSES):
+    """A fit's folder dataset: ``n_classes`` classes of FIT_PER_CLASS PNGs
     of 8x8 colour cells (as phase 8's), written with cv2 on 8 threads."""
     import cv2
     from concurrent.futures import ThreadPoolExecutor
-    classes = np.repeat(np.arange(FIT_CLASSES), FIT_PER_CLASS)
+    classes = np.repeat(np.arange(n_classes), FIT_PER_CLASS)
     images = cell_images(np.random.default_rng(SEED + 5), classes)
 
     def write(i):
@@ -1241,21 +1339,27 @@ def _write_fit_dataset(root):
     return images
 
 
-def _fit_config(tmp):
-    """The flagship config with this phase's cuts (FIT_CUTS), written as a
-    YAML file for the port's parse_params and the CLI."""
+def _fit_config(tmp, source=FIT_CONFIG, cuts=FIT_CUTS, settings=(),
+                label="fit", work="work", name="config.yml"):
+    """A config with a phase's cuts (``cuts``: (section, key, value, why),
+    printed as ``reduced`` lines) and settings (``settings``: (section, key,
+    value), what the phase exercises, printed as ``set`` lines), written as
+    a YAML file for the port's parse_params and the CLI; the dataset is
+    ``tmp/dataset``, the work dir ``tmp/<work>``."""
     import yaml
-    with open(FIT_CONFIG) as f:
+    with open(source) as f:
         cfg = yaml.safe_load(f)
     values = {"dataset_path": os.path.join(tmp, "dataset"),
-              "work_dir": os.path.join(tmp, "work")}
-    for section, key, value, why in FIT_CUTS:
+              "work_dir": os.path.join(tmp, work)}
+    changes = [(s, k, v, "reduced", f" ({why})") for s, k, v, why in cuts]
+    changes += [(s, k, v, "set", "") for s, k, v in settings]
+    for section, key, value, verb, why in changes:
         value = values.get(key, value)
         cfg[section] = dict(cfg.get(section) or {})
-        print(f"fit: reduced {section}.{key}: "
-              f"{cfg[section].get(key, 'unset')!r} -> {value!r} ({why})")
+        print(f"{label}: {verb} {section}.{key}: "
+              f"{cfg[section].get(key, 'unset')!r} -> {value!r}{why}")
         cfg[section][key] = value
-    path = os.path.join(tmp, "config.yml")
+    path = os.path.join(tmp, name)
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     return path
@@ -1281,21 +1385,22 @@ def _same(a, b, path):
         raise AssertionError(f"resume: {path} {a!r} != {b!r}")
 
 
-def _fit_pace(trainer):
-    """Who sets the train epoch's pace, with the decode cache warm: the
-    loader alone (sampling, cache reads, pinning, the copies) over one
-    epoch's batches; one more train epoch unprofiled, for its wall, its
-    images_per_sec and its wait for batches; then a third under
-    torch.profiler for its device time only, which is divided by the
-    unprofiled wall (as phase 8 does), since the profiler's own host cost
-    per launch stretches the wall it runs in."""
+def _fit_pace(trainer, label="fit pace"):
+    """Who sets the train epoch's pace, with the decode cache warm where
+    the config has one: the loader alone (sampling, decode or cache reads,
+    pinning, the copies) over one epoch's batches; one more train epoch
+    unprofiled, for its wall, its images_per_sec and its wait for batches;
+    then a third under torch.profiler for its device time only, which is
+    divided by the unprofiled wall (as phase 8 does), since the profiler's
+    own host cost per launch stretches the wall it runs in."""
     from torch.profiler import ProfilerActivity, profile
     trainer._current_epoch = 0       # epoch 0's batches: all cached
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n = 0
     for images, _ in trainer._device_prefetch(trainer._train_loader()):
-        n += int(images.shape[0])
+        n += sum(int(x.shape[0]) for x in (
+            images if isinstance(images, tuple) else (images,)))
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1312,7 +1417,8 @@ def _fit_pace(trainer):
     busy_us = sum(e.device_time_total for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False))
-    print(f"fit pace: the loader alone, cache warm: {n} images in "
+    cache = "cache warm" if trainer._decode_cache is not None else "no cache"
+    print(f"{label}: the loader alone, {cache}: {n} images in "
           f"{load_s:.3f} s ({n / load_s:.0f} img/s, pinned copies included); "
           f"a warm train epoch unprofiled: {wall:.3f} s, images_per_sec "
           f"{metrics['images_per_sec']:.0f}, waiting {wait:.3f} s for "
@@ -1321,153 +1427,426 @@ def _fit_pace(trainer):
           f"of the unprofiled wall")
 
 
-def fit_phase(smi, step_images_per_s):
-    """The flagship fit through the port's Trainer (phase 9): two epochs
-    with the val epoch, recall, plateau and the best checkpoint, exact
-    launch counts; then resume from epoch 0 in a second Trainer and the CLI
-    (resuming the latest checkpoint) with its export, whose base model
-    encodes like the CLI's Trainer. Returns the fit's launches."""
+def fit_phase(smi, step_images_per_s, tmp):
+    """The flagship fit through the port's Trainer (phase 9), in the temp
+    dir ``tmp``: two epochs with the val epoch, recall, plateau and the
+    best checkpoint, exact launch counts; then resume from epoch 0 in a
+    second Trainer and the CLI (resuming the latest checkpoint) with its
+    export, whose base model encodes like the CLI's Trainer. Returns the
+    fit's launches."""
     from embeddingnet_tpu_torch.config import parse_params
     from embeddingnet_tpu_torch.data import ENDataLoader
     from embeddingnet_tpu_torch.train import checkpoint as ckpt
     from embeddingnet_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    images = _write_fit_dataset(os.path.join(tmp, "dataset"))
+    print(f"fit: wrote {len(images)} PNGs of {FIT_CLASSES} classes in "
+          f"{time.perf_counter() - t0:.1f} s")
+    path = _fit_config(tmp)
+    params = parse_params(path)
+    loader = ENDataLoader(**{k: params.dataloader[k]
+                             for k in params.dataloader.keys()})
+    t0 = time.perf_counter()
+    trainer = Trainer(params, loader, device=DEVICE)
+    print(f"fit: Trainer built in {time.perf_counter() - t0:.1f} s")
+
+    g, t = params.generator, params.train
+    n_db = sum(min(len(v), t.eval_recall_max_per_class)
+               for v in loader.train_data.values())
+    n_val = len(loader.flat("val")[0])
+    chunks = -(-n_db // 256) + -(-n_val // 256)
+    steps = t.n_epochs * g.n_batches
+    val_forwards = t.n_epochs * g.n_batches_val
+    evals = t.n_epochs // t.eval_recall_every
+    per_step = EXPECTED_AUG_PER_STEP
+    expected = {name: per_step[name] * steps for name in per_step}
+    k3 = "conv3x3_small_bn_relu"
+    expected[k3] += per_step[k3] * (val_forwards + evals * chunks)
+    expected["normalize_u8"] = val_forwards
+
+    # ---- the fit's path: every launch count from here to the reading
+    fc.reset_launch_counts()
+    pre.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history = trainer.fit().history
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    # ---- end of the fit's path ----
+    peak = torch.cuda.max_memory_allocated()
+    for timing, ips in zip(trainer.timings, history["images_per_sec"]):
+        print(f"fit: epoch {timing['epoch']}: {timing['epoch_s']:.2f} s "
+              f"(train {timing['train_s']:.2f}, val epoch "
+              f"{timing['val_s']:.2f}, recall {timing['recall_s']:.2f}, "
+              f"checkpoint {timing['checkpoint_s']:.2f} s, "
+              f"{timing['checkpoint_bytes'] / 2 ** 20:.1f} MiB; the "
+              f"train epoch waited {timing['data_wait_s']:.2f} s for "
+              f"batches); "
+              f"Trainer images_per_sec {ips:.0f} against phase 8's "
+              f"bare step {step_images_per_s:.0f} img/s [{smi}]")
+    print(f"fit: {t.n_epochs} epochs of {g.n_batches} steps at "
+          f"B={g.k_classes * g.k_samples} in {fit_s:.2f} s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; " + "; ".join(
+              f"{k} " + " ".join(f"{v:.4f}" for v in vals)
+              for k, vals in history.items()))
+    print(f"fit: launches over the fit: {launches}; expected "
+          f"{expected} ({steps} train steps, {val_forwards} val "
+          f"forwards of {3 * g.batch_size}, {evals} recall evals of "
+          f"{chunks} chunks: {n_db} DB and {n_val} val images)")
+    for key in ("loss", "val_loss"):
+        if not np.all(np.isfinite(history[key])):
+            raise AssertionError(f"fit: {key} not finite: {history[key]}")
+    for key in ("val_recall1", "val_recall5"):
+        if not all(0.0 <= v <= 1.0 for v in history[key]):
+            raise AssertionError(f"fit: {key} outside [0, 1]")
+        if len(history[key]) != evals:
+            raise AssertionError(f"fit: {key} missing")
+    for name, n in expected.items():
+        if launches[name] != n:
+            raise AssertionError(f"fit: {name} launched {launches[name]} "
+                                 f"times, expected {n}")
+    for name in RESNET50_OFF_PATH:
+        if launches[name]:
+            raise AssertionError(f"fit: {name} launched on the fit")
+
+    # the best epoch's checkpoint
+    vals = history[trainer.ckpt_mgr.monitor]
+    best = int(np.argmin(vals))
+    saved_path = os.path.join(trainer.paths["weights"], str(best),
+                              ckpt.STATE_FILE)
+    if (trainer.ckpt_mgr.latest_epoch() != best
+            or not os.path.exists(saved_path)):
+        raise AssertionError(f"fit: no checkpoint of the best epoch "
+                             f"{best} ({trainer.ckpt_mgr.epochs()})")
+    print(f"fit: best epoch {best} by {trainer.ckpt_mgr.monitor}, "
+          f"checkpoint {os.path.getsize(saved_path) / 2 ** 20:.1f} MiB")
+    _fit_pace(trainer)
+
+    _resume_check("fit", params, loader, trainer)
+    del trainer
+
+    _cli_export("fit", path, params, images[:256])
+    return launches
+
+
+def _resume_check(label, params, loader, trainer):
+    """A second Trainer resumes ``trainer``'s epoch 0 and must hold its
+    checkpoint bit for bit."""
+    from embeddingnet_tpu_torch.train import checkpoint as ckpt
+    from embeddingnet_tpu_torch.train.loop import Trainer
+    t0 = time.perf_counter()
+    second = Trainer(params, loader, device=DEVICE, log_fn=lambda *a: None)
+    second.resume(0)
+    resume_s = time.perf_counter() - t0
+    if second.start_epoch != 1:
+        raise AssertionError(f"{label}: resume: start_epoch "
+                             f"{second.start_epoch}")
+    saved = torch.load(os.path.join(trainer.paths["weights"], "0",
+                                    ckpt.STATE_FILE),
+                       map_location=DEVICE, weights_only=True)
+    restored = second.state.state_dict()
+    for key in ("module", "optimizer", "generator", "step",
+                "plateau_scale"):
+        _same(restored[key], saved[key], key)
+    if second.state.generator.device.type != torch.device(DEVICE).type:
+        raise AssertionError(f"{label}: resume: the generator is not on the "
+                             f"card")
+    print(f"{label}: a second Trainer resumed epoch 0 in {resume_s:.2f} s "
+          f"(built and loaded): module, optimizer, generator, step and "
+          f"plateau scale bit for bit, start_epoch 1")
+
+
+def _cli_export(label, path, params, batch):
+    """The CLI on the config at ``path``: resume the latest checkpoint, fit
+    what is left, export; the exported base model, reloaded, must encode
+    ``batch`` within bf16 rounding of the CLI's Trainer's encoder."""
+    from embeddingnet_tpu_torch.models.api import EmbeddingNet as Net
     from embeddingnet_tpu_torch.train.steps import make_eval_step
+    t0 = time.perf_counter()
+    cli = runpy.run_path(TRAIN_CLI)["main"]
+    cli_trainer, net = cli([path, "--device", DEVICE, "--resume_from",
+                            "latest"])
+    cli_s = time.perf_counter() - t0
+    work = cli_trainer.paths["work_dir"]
+    reloaded = Net(params, device=DEVICE, fast_conv=True,
+                   dtype=cli_trainer.compute_dtype).load_model(
+        os.path.join(work, "base_model.pt"))
+    got = reloaded.encode(batch)
+    want = make_eval_step(cli_trainer.encoder, compute_dtype=(
+        cli_trainer.compute_dtype))(cli_trainer.state, torch.from_numpy(
+            batch)).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    print(f"{label}: the CLI resumed, fitted, exported in {cli_s:.1f} s; "
+          f"its base model reloaded encodes {len(batch)} images within "
+          f"{err:.2e} of its Trainer's encoder (tolerance bf16 {ATOL}); "
+          f"encodings {os.path.getsize(os.path.join(work, 'encodings', 'encodings.pkl')) / 2 ** 20:.1f} MiB")
+    _check(f"{label}: CLI export", torch.from_numpy(got),
+           torch.from_numpy(want), ATOL, RTOL)
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
-    try:
-        t0 = time.perf_counter()
-        images = _write_fit_dataset(os.path.join(tmp, "dataset"))
-        print(f"fit: wrote {len(images)} PNGs of {FIT_CLASSES} classes in "
-              f"{time.perf_counter() - t0:.1f} s")
-        path = _fit_config(tmp)
-        params = parse_params(path)
-        loader = ENDataLoader(**{k: params.dataloader[k]
-                                 for k in params.dataloader.keys()})
-        t0 = time.perf_counter()
-        trainer = Trainer(params, loader, device=DEVICE)
-        print(f"fit: Trainer built in {time.perf_counter() - t0:.1f} s")
 
-        g, t = params.generator, params.train
-        n_db = sum(min(len(v), t.eval_recall_max_per_class)
-                   for v in loader.train_data.values())
-        n_val = len(loader.flat("val")[0])
-        chunks = -(-n_db // 256) + -(-n_val // 256)
-        steps = t.n_epochs * g.n_batches
-        val_forwards = t.n_epochs * g.n_batches_val
-        evals = t.n_epochs // t.eval_recall_every
-        per_step = EXPECTED_AUG_PER_STEP
-        expected = {name: per_step[name] * steps for name in per_step}
-        k3 = "conv3x3_small_bn_relu"
-        expected[k3] += per_step[k3] * (val_forwards + evals * chunks)
-        expected["normalize_u8"] = val_forwards
+def _shuffled(batches, seed):
+    """The batches with their rows in a random order: the labels leave
+    their P-K groups."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for images, labels in batches:
+        order = torch.from_numpy(rng.permutation(len(labels)))
+        out.append((images[order], labels[order]))
+    return out
 
-        # ---- the fit's path: every launch count from here to the reading
-        fc.reset_launch_counts()
-        pre.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        history = trainer.fit().history
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        launches = {**fc.LAUNCHES, **pre.LAUNCHES}
-        # ---- end of the fit's path ----
-        peak = torch.cuda.max_memory_allocated()
-        for timing, ips in zip(trainer.timings, history["images_per_sec"]):
-            print(f"fit: epoch {timing['epoch']}: {timing['epoch_s']:.2f} s "
-                  f"(train {timing['train_s']:.2f}, val epoch "
-                  f"{timing['val_s']:.2f}, recall {timing['recall_s']:.2f}, "
-                  f"checkpoint {timing['checkpoint_s']:.2f} s, "
-                  f"{timing['checkpoint_bytes'] / 2 ** 20:.1f} MiB; the "
-                  f"train epoch waited {timing['data_wait_s']:.2f} s for "
-                  f"batches); "
-                  f"Trainer images_per_sec {ips:.0f} against phase 8's "
-                  f"bare step {step_images_per_s:.0f} img/s [{smi}]")
-        print(f"fit: {t.n_epochs} epochs of {g.n_batches} steps at "
-              f"B={g.k_classes * g.k_samples} in {fit_s:.2f} s, peak memory "
-              f"{peak / 2 ** 30:.2f} GiB; " + "; ".join(
-                  f"{k} " + " ".join(f"{v:.4f}" for v in vals)
-                  for k, vals in history.items()))
-        print(f"fit: launches over the fit: {launches}; expected "
-              f"{expected} ({steps} train steps, {val_forwards} val "
-              f"forwards of {3 * g.batch_size}, {evals} recall evals of "
-              f"{chunks} chunks: {n_db} DB and {n_val} val images)")
-        for key in ("loss", "val_loss"):
-            if not np.all(np.isfinite(history[key])):
-                raise AssertionError(f"fit: {key} not finite: {history[key]}")
-        for key in ("val_recall1", "val_recall5"):
-            if not all(0.0 <= v <= 1.0 for v in history[key]):
-                raise AssertionError(f"fit: {key} outside [0, 1]")
-            if len(history[key]) != evals:
-                raise AssertionError(f"fit: {key} missing")
-        for name, n in expected.items():
-            if launches[name] != n:
-                raise AssertionError(f"fit: {name} launched {launches[name]} "
-                                     f"times, expected {n}")
-        for name in OFF_PATH + ("conv3x3_small_affine_relu",):
-            if launches[name]:
-                raise AssertionError(f"fit: {name} launched on the fit")
 
-        # the best epoch's checkpoint
-        vals = history[trainer.ckpt_mgr.monitor]
-        best = int(np.argmin(vals))
-        saved_path = os.path.join(trainer.paths["weights"], str(best),
-                                  ckpt.STATE_FILE)
-        if (trainer.ckpt_mgr.latest_epoch() != best
-                or not os.path.exists(saved_path)):
-            raise AssertionError(f"fit: no checkpoint of the best epoch "
-                                 f"{best} ({trainer.ckpt_mgr.epochs()})")
-        print(f"fit: best epoch {best} by {trainer.ckpt_mgr.monitor}, "
-              f"checkpoint {os.path.getsize(saved_path) / 2 ** 20:.1f} MiB")
-        _fit_pace(trainer)
+def _mining_device_ms(module, state, images, labels, mode, max_positives):
+    """Device time of the miner alone, forward and backward, on the
+    embeddings of ``images`` (an eval forward of the step's module), its
+    draws from a generator on the card; torch.profiler's kernel time."""
+    from embeddingnet_tpu_torch.ops import mining
+    from embeddingnet_tpu_torch.train.steps import make_eval_step
+    emb = make_eval_step(module, compute_dtype=torch.bfloat16)(state, images)
+    labels = labels.to(DEVICE)
+    generator = torch.Generator(device=DEVICE).manual_seed(SEED)
 
-        # resume from epoch 0 in a second Trainer
-        t0 = time.perf_counter()
-        second = Trainer(params, loader, device=DEVICE)
-        second.resume(0)
-        resume_s = time.perf_counter() - t0
-        if second.start_epoch != 1:
-            raise AssertionError(f"resume: start_epoch {second.start_epoch}")
-        saved = torch.load(os.path.join(trainer.paths["weights"], "0",
-                                        ckpt.STATE_FILE),
-                           map_location=DEVICE, weights_only=True)
-        restored = second.state.state_dict()
-        for key in ("module", "optimizer", "generator", "step",
-                    "plateau_scale"):
-            _same(restored[key], saved[key], key)
-        if second.state.generator.device.type != torch.device(DEVICE).type:
-            raise AssertionError("resume: the generator is not on the card")
-        print(f"fit: a second Trainer resumed epoch 0 in {resume_s:.2f} s "
-              f"(built and loaded): module, optimizer, generator, step and "
-              f"plateau scale bit for bit, start_epoch 1")
-        del second, saved, restored, trainer
+    def run():
+        e = emb.detach().requires_grad_()
+        loss, _ = mining.mined_triplet_loss(
+            e, labels, margin=MARGIN, mode=mode, rng=generator,
+            max_positives=max_positives)
+        loss.backward()
+    return device_ms(run)
 
-        # the CLI: resume the latest checkpoint, fit what is left, export
-        t0 = time.perf_counter()
-        cli = runpy.run_path(TRAIN_CLI)["main"]
-        cli_trainer, net = cli([path, "--device", DEVICE, "--resume_from",
-                                "latest"])
-        cli_s = time.perf_counter() - t0
-        from embeddingnet_tpu_torch.models.api import EmbeddingNet as Net
-        work = cli_trainer.paths["work_dir"]
-        reloaded = Net(params, device=DEVICE, fast_conv=True,
-                       dtype=cli_trainer.compute_dtype).load_model(
-            os.path.join(work, "base_model.pt"))
-        batch = images[:256]
-        got = reloaded.encode(batch)
-        want = make_eval_step(cli_trainer.module, compute_dtype=(
-            cli_trainer.compute_dtype))(cli_trainer.state, torch.from_numpy(
-                batch)).cpu().numpy()
-        err = float(np.abs(got - want).max())
-        print(f"fit: the CLI resumed, fitted, exported in {cli_s:.1f} s; its "
-              f"base model reloaded encodes 256 images within {err:.2e} of "
-              f"its Trainer's encoder (tolerance bf16 {ATOL}); encodings "
-              f"{os.path.getsize(os.path.join(work, 'encodings', 'encodings.pkl')) / 2 ** 20:.1f} MiB")
-        _check("fit: CLI export", torch.from_numpy(got),
-               torch.from_numpy(want), ATOL, RTOL)
-        return launches
-    finally:
-        import shutil
-        shutil.rmtree(tmp, ignore_errors=True)
+
+def _exact_embeddings(b, d=256, seed=SEED):
+    """[b, d] f32 embeddings on a grid of 1/256 within +-0.5: every product
+    and partial sum of the squared distances is exact in float32, so the
+    card and the CPU compute the same distances in any order."""
+    rng = np.random.default_rng(seed)
+    x = np.clip(rng.normal(size=(b, d)) * 0.12, -0.5, 0.5)
+    return (np.round(x * 256) / 256).astype(np.float32)
+
+
+def _mine_on(device, mode, emb, labels, draws, max_positives):
+    """(loss, stats, embedding gradient, selections) of ``mode`` on
+    ``device``, on the host: the rank-window miners' ``aux``, the
+    enumeration's selected pairs and their negatives."""
+    from embeddingnet_tpu_torch.ops import mining
+    e = torch.from_numpy(emb).to(device).requires_grad_()
+    lab = torch.from_numpy(labels).to(device)
+    d = None if draws is None else draws.to(device)
+    loss, stats = mining.mined_triplet_loss(
+        e, lab, margin=MARGIN, mode=mode, draws=d,
+        max_positives=max_positives)
+    loss.backward()
+    b = len(labels)
+    sel = {}
+    if mode in PARITY_MODES and b > 256:
+        k = None if max_positives is None else max_positives + 1
+        aux = mining._parity_forward_large(e.detach(), lab, MARGIN, mode, d,
+                                           k)[3]
+        sel = {n: v.cpu() for n, v in aux.items() if v is not None}
+    elif mode in PARITY_MODES:
+        dist = mining.pairwise_sq_l2(e.detach()).sqrt()
+        _, _, _, chosen, n_star = mining._parity_select(dist, lab, MARGIN,
+                                                        mode, d)
+        sel = {"selected": chosen.cpu(),
+               "n_star": torch.where(chosen, n_star, -1).cpu()}
+    return loss.item(), [float(v) for v in stats], e.grad.cpu(), sel
+
+
+def mining_card_check():
+    """Each mode on each of its paths on the card against the port's CPU
+    run of the same function, on one fixed exact-distance batch with the
+    same draws: selections identical, loss, stats and gradient within
+    MINING_RTOL."""
+    from embeddingnet_tpu_torch.ops import mining
+    for path, b, grouped, modes in MINING_RUNS:
+        emb = _exact_embeddings(b)
+        labels = np.repeat(np.arange(b // K_SAMPLES), K_SAMPLES)
+        max_positives = K_SAMPLES - 1
+        if not grouped:
+            order = np.random.default_rng(SEED + 9).permutation(b)
+            emb, labels, max_positives = emb[order], labels[order], None
+        for mode in modes:
+            draws = mining.sample_draws(mode, b, max_positives,
+                                        torch.Generator().manual_seed(SEED))
+            got = _mine_on(DEVICE, mode, emb, labels, draws, max_positives)
+            want = _mine_on("cpu", mode, emb, labels, draws, max_positives)
+            loss_rel = abs(got[0] - want[0]) / abs(want[0])
+            stat_rel = max(abs(g - w) / max(abs(w), 1e-30)
+                           for g, w in zip(got[1], want[1]))
+            grad_rel = ((got[2] - want[2]).abs().max()
+                        / want[2].abs().max()).item()
+            same = {n: torch.equal(got[3][n], want[3][n]) for n in want[3]}
+            print(f"mining check {path} B={b} {mode}: loss {got[0]:.6f} "
+                  f"(CPU {want[0]:.6f}, relative {loss_rel:.2e}), stats "
+                  f"relative {stat_rel:.2e}, gradient {grad_rel:.2e} of its "
+                  f"largest entry (tolerance {MINING_RTOL}); n_triplets "
+                  f"{int(got[1][0])}; selections identical: {same}")
+            if (loss_rel > MINING_RTOL or stat_rel > MINING_RTOL
+                    or grad_rel > MINING_RTOL or not all(same.values())
+                    or got[3].keys() != want[3].keys() or got[1][0] <= 0):
+                raise AssertionError(f"mining {path} {mode}: the card and "
+                                     f"the CPU disagree")
+
+
+def mining_phase(smi, images, db_classes):
+    """Phase 10: the flagship step (ResNet-50, the ``default``
+    augmentation) with each mining mode on each of its paths: step time,
+    images/s, the miner's device time, the mined counts, exact launches;
+    then the miner on the card against the CPU. Returns one row per run."""
+    augment_fn = aug.augment_from_params(FLAGSHIP)
+    module = _train_module(fast_conv=True)
+    module.reset_parameters(torch.Generator().manual_seed(SEED))
+    module.to(DEVICE)
+    rows = []
+    for path, b, grouped, modes in MINING_RUNS:
+        batches = _pk_batches(images, db_classes, MINING_WARMUP
+                              + MINING_TIMED, seed=SEED + 7,
+                              k_classes=b // K_SAMPLES)
+        max_positives = K_SAMPLES - 1 if grouped else None
+        if not grouped:
+            batches = _shuffled(batches, SEED + 8)
+        for mode in modes:
+            label = f"mining {path} B={b} {mode}"
+            state, step = _trainer(module, augment_fn=augment_fn, mode=mode,
+                                   max_positives=max_positives)
+            _timed_steps(state, step, batches[:MINING_WARMUP])
+            # ---- this run's path: every launch count from here to the
+            # reading
+            fc.reset_launch_counts()
+            pre.reset_launch_counts()
+            times, metrics = _timed_steps(state, step,
+                                          batches[MINING_WARMUP:])
+            launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+            # ---- end of this run's path ----
+            _check_launches(label, launches, EXPECTED_AUG_PER_STEP,
+                            MINING_TIMED)
+            losses = [m["loss"] for m in metrics]
+            if not all(np.isfinite(losses)) or not all(
+                    m["n_triplets"] > 0 for m in metrics):
+                raise AssertionError(f"{label}: a loss is not finite or a "
+                                     f"step mined nothing: {metrics}")
+            med = float(np.median(times))
+            row = {"path": path, "B": b, "mode": mode,
+                   "step_ms": med * 1e3, "step_min_ms": min(times) * 1e3,
+                   "step_max_ms": max(times) * 1e3,
+                   "images_per_s": b / med,
+                   "mining_device_ms": _mining_device_ms(
+                       module, state, *batches[-1], mode, max_positives),
+                   "n_triplets": float(np.mean([m["n_triplets"]
+                                                for m in metrics])),
+                   "frac_mined": float(np.mean([m["frac_mined"]
+                                                for m in metrics]))}
+            rows.append(row)
+            print(f"{label}: step median {row['step_ms']:.2f} ms (min "
+                  f"{row['step_min_ms']:.2f}, max {row['step_max_ms']:.2f})"
+                  f" over {MINING_TIMED} steps, {row['images_per_s']:.0f} "
+                  f"img/s; the miner forward and backward "
+                  f"{row['mining_device_ms']:.3f} ms of device time; "
+                  f"n_triplets {row['n_triplets']:.1f}, frac_mined "
+                  f"{row['frac_mined']:.4f}; losses "
+                  + " ".join(f"{l:.4f}" for l in losses) + f" [{smi}]")
+    mining_card_check()
+    return rows
+
+
+def warmup_fit_phase(tmp):
+    """Phase 10's fit: the flagship config at phase 9's cuts, 2 steps an
+    epoch, one semihard warm-up epoch before batch_hard, on phase 9's
+    dataset in ``tmp``. The Trainer must log the switch at epoch 1."""
+    from embeddingnet_tpu_torch.config import parse_params
+    from embeddingnet_tpu_torch.data import ENDataLoader
+    from embeddingnet_tpu_torch.train.loop import Trainer
+    path = _fit_config(tmp, cuts=WARMUP_FIT_CUTS,
+                       settings=WARMUP_FIT_SETTINGS, label="warm-up fit",
+                       work="work_warmup", name="warmup.yml")
+    params = parse_params(path)
+    loader = ENDataLoader(**{k: params.dataloader[k]
+                             for k in params.dataloader.keys()})
+    lines = []
+
+    def log(line):
+        lines.append(line)
+        print(f"warm-up fit: {line}")
+
+    trainer = Trainer(params, loader, device=DEVICE, log_fn=log)
+    t0 = time.perf_counter()
+    history = trainer.fit().history
+    torch.cuda.synchronize()
+    print(f"warm-up fit: {params.train.n_epochs} epochs in "
+          f"{time.perf_counter() - t0:.1f} s; n_triplets per epoch "
+          f"{history['n_triplets']}, frac_mined {history['frac_mined']}")
+    if [l for l in lines if "mining mode" in l] != [WARMUP_SWITCH]:
+        raise AssertionError("warm-up fit: the Trainer did not switch from "
+                             "semihard to batch_hard at epoch 1")
+    if trainer._mining_mode != "batch_hard" or not np.all(
+            np.isfinite(history["loss"])):
+        raise AssertionError(f"warm-up fit: mode {trainer._mining_mode}, "
+                             f"losses {history['loss']}")
+
+
+def siamese_phase(smi, tmp):
+    """Phase 11: configs/siamese_resnet18_pairs.yml fitted through the
+    port's Trainer (cut as SIAMESE_CUTS prints) on PNGs written to
+    ``tmp/siamese``: loss and accuracy per epoch, exact launches predicted
+    from the gate, the best checkpoint, a resumed second Trainer and the
+    CLI's export. Returns the fit's launches."""
+    from embeddingnet_tpu_torch.config import parse_params
+    from embeddingnet_tpu_torch.data import ENDataLoader
+    from embeddingnet_tpu_torch.train.loop import Trainer
+    root = os.path.join(tmp, "siamese")
+    t0 = time.perf_counter()
+    images = _write_fit_dataset(os.path.join(root, "dataset"),
+                                SIAMESE_CLASSES)
+    print(f"siamese: wrote {len(images)} PNGs of {SIAMESE_CLASSES} classes "
+          f"in {time.perf_counter() - t0:.1f} s")
+    path = _fit_config(root, source=SIAMESE_CONFIG, cuts=SIAMESE_CUTS,
+                       label="siamese")
+    params = parse_params(path)
+    loader = ENDataLoader(**{k: params.dataloader[k]
+                             for k in params.dataloader.keys()})
+    trainer = Trainer(params, loader, device=DEVICE)
+    g, t = params.generator, params.train
+    steps, vals = t.n_epochs * g.n_batches, t.n_epochs * g.n_batches_val
+    expected = {name: SIAMESE_PER_STEP.get(name, 0) * steps
+                + SIAMESE_PER_VAL.get(name, 0) * vals
+                for name in {**fc.LAUNCHES, **pre.LAUNCHES}}
+    print(f"siamese: predicted launches over the fit ({steps} train steps "
+          f"of {g.batch_size} pairs, {vals} val batches): {expected}")
+
+    # ---- the siamese fit's path: every launch count from here to the
+    # reading
+    fc.reset_launch_counts()
+    pre.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = trainer.fit().history
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    # ---- end of the siamese fit's path ----
+    for e in range(len(history["loss"])):
+        print(f"siamese: epoch {e}: " + ", ".join(
+            f"{k} {history[k][e]:.4f}" for k in (
+                "loss", "accuracy", "val_loss", "val_accuracy",
+                "images_per_sec")) + f" [{smi}]")
+    print(f"siamese: {t.n_epochs} epochs in {fit_s:.1f} s; launches "
+          f"{launches}")
+    for key in ("loss", "val_loss"):
+        if not np.all(np.isfinite(history[key])):
+            raise AssertionError(f"siamese: {key} not finite")
+    for key in ("accuracy", "val_accuracy"):
+        if not all(0.0 <= v <= 1.0 for v in history[key]):
+            raise AssertionError(f"siamese: {key} outside [0, 1]")
+    if launches != expected:
+        raise AssertionError(f"siamese: launches {launches}, predicted "
+                             f"{expected}")
+    if trainer.ckpt_mgr.latest_epoch() is None:
+        raise AssertionError("siamese: no checkpoint")
+    _fit_pace(trainer, "siamese pace")
+    _resume_check("siamese", params, loader, trainer)
+    del trainer
+    _cli_export("siamese", path, params, images[:64])
+    return launches
 
 
 def main():
@@ -1486,9 +1865,18 @@ def main():
     serve_launches, db_images, db_classes = serving_phase()
     augmentation_check_phase(db_images)
     plain_launches = training_phase(db_images, db_classes)
-    train_launches, device, step_images_per_s = augmented_training_phase(
-        db_classes)
-    fit_launches = fit_phase(smi, step_images_per_s)
+    train_launches, device, step_images_per_s, cell_db = (
+        augmented_training_phase(db_classes))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    try:
+        fit_launches = fit_phase(smi, step_images_per_s, tmp)
+        mining_rows = mining_phase(smi, cell_db, db_classes)
+        del cell_db
+        warmup_fit_phase(tmp)
+        siamese_launches = siamese_phase(smi, tmp)
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
     device["conv3x3_small_affine_relu"] = t1_device_ms
 
     lines, step_sum = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
@@ -1513,13 +1901,17 @@ def main():
             launches = tool_launches
             per = (f"one call of the A/B tool's path, B={TOOL_BATCH}, "
                    f"S={TOOL_S}, C={TOOL_C}")
-        elif name in OFF_PATH:
-            sums = _sum(rec, TRAIN_BATCH, FUSED_SHAPES)
+        elif name == "conv3x3_small":
+            sums = _sum(rec, SIAMESE_BATCH, SIAMESE_K1_SHAPES)
+            launches = siamese_launches[name]
+            per = (f"siamese train step (configs/siamese_resnet18_pairs.yml,"
+                   f" two streams of B={SIAMESE_BATCH})")
         else:
             sums = _sum(rec, TRAIN_BATCH, PER_STEP[name])
         entry = {"name": name, "route": route, "source": source,
                  "replaces": replaces, "launches": launches,
                  "fit_launches": fit_launches[name],
+                 "siamese_fit_launches": siamese_launches[name],
                  "max_abs_err": rec["max_abs_err"], **sums, "per": per}
         if name in LIBRARY_RATIO:
             entry["library_ratio"] = sums["ms"] / sums["library_ms"]
@@ -1531,16 +1923,14 @@ def main():
             entry["serve"] = {"launches": serve_launches[name],
                               "per": "serving forward, B=32",
                               **_sum(rec, 32, FUSED_SHAPES)}
-        if name not in OFF_PATH + ("conv3x3_small_affine_relu",):
+        if name not in RESNET50_OFF_PATH:
             for key in step_sum:
                 step_sum[key] += sums[key]
         lines.append(entry)
-    print(json.dumps({"kernels": [e for e in lines
-                                  if e["name"] not in OFF_PATH],
-                      "off_path_kernels": [e for e in lines
-                                           if e["name"] in OFF_PATH],
+    print(json.dumps({"kernels": lines,
                       "training_step_kernels_sum": step_sum,
-                      "training_step_part_sums_ms": device[PART_SUM_NAME]}))
+                      "training_step_part_sums_ms": device[PART_SUM_NAME],
+                      "mining": mining_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""Batch samplers (the port's own copy of ``PKSampler`` and
-``TripletSampler`` in ``embeddingnet_tpu/data/samplers.py``).
+"""Batch samplers (the port's own copy of ``PKSampler``,
+``TripletSampler`` and ``PairSampler`` in
+``embeddingnet_tpu/data/samplers.py``).
 
 * :class:`PKSampler`: ``k_classes`` classes without replacement x
   ``k_samples`` images with replacement. A batch is grouped (each class's
@@ -7,6 +8,8 @@
   fast path asserts.
 * :class:`TripletSampler`: offline random (anchor, positive, negative)
   triplets, which the triplet val epoch draws.
+* :class:`PairSampler`: siamese pairs, one anchor class per batch, the
+  first half same-class (target 1), the second half of another class (0).
 
 Each draws from a numpy generator seeded by the caller: the same seed gives
 the same batches as the JAX package's sampler.
@@ -102,3 +105,40 @@ class TripletSampler(_SamplerBase):
             n_paths.append(self.class_files_paths[other][idx3])
             labels.append(self.class_to_id[cls])
         return (a_paths, p_paths, n_paths), np.asarray(labels, np.int32)
+
+
+class PairSampler(_SamplerBase):
+    """Siamese pairs (the reference's ``datagenerators.py:337-375``): one
+    random anchor class per batch; the first ``batch_size // 2`` pairs are
+    two distinct images of it (target 1), the rest an image of it and one
+    of a random other class (target 0). Yields ``((left_paths,
+    right_paths), float32 targets)``."""
+
+    def __init__(self, class_files_paths: ClassFiles,
+                 class_names: Sequence[str], batch_size: int = 32,
+                 seed: int = 0):
+        super().__init__(class_files_paths, class_names, seed)
+        self.batch_size = batch_size
+
+    def sample(self):
+        left, right = [], []
+        targets = np.zeros(self.batch_size, np.float32)
+        ci = int(self.rng.integers(self.n_classes))
+        cls = self.class_names[ci]
+        n_el = self.n_samples[cls]
+        idxs = self.rng.integers(n_el, size=self.batch_size)
+        n_same = self.batch_size // 2
+        for i in range(n_same):
+            idx1 = int(idxs[i])
+            idx2 = (idx1 + int(self.rng.integers(1, max(n_el, 2)))) % n_el
+            left.append(self.class_files_paths[cls][idx1])
+            right.append(self.class_files_paths[cls][idx2])
+            targets[i] = 1.0
+        for i in range(n_same, self.batch_size):
+            other_ci = (ci + int(self.rng.integers(1, self.n_classes))) \
+                % self.n_classes
+            other = self.class_names[other_ci]
+            left.append(self.class_files_paths[cls][int(idxs[i])])
+            right.append(self.class_files_paths[other][
+                int(self.rng.integers(self.n_samples[other]))])
+        return (left, right), targets

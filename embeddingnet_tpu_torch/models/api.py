@@ -1,5 +1,5 @@
-"""High-level model API: :class:`EmbeddingNet` (port of ``EmbeddingNet`` in
-``embeddingnet_tpu/models/api.py``).
+"""High-level model API: :class:`EmbeddingNet`, :class:`TripletNet` and
+:class:`SiameseNet` (port of ``embeddingnet_tpu/models/api.py``).
 
 Holds the :class:`~embeddingnet_tpu_torch.models.registry.EmbeddingModule`
 on an explicit device and exposes the reference's methods:
@@ -274,24 +274,69 @@ class EmbeddingNet:
         return path
 
     def load_model(self, file_path: str):
-        """Restore weights saved by :meth:`save_base_model`.
-
-        Only the ``classifier`` head may be missing from the file (an
-        encoder-only export keeps a fresh head); any other missing key
-        raises, and keys the model lacks warn and are ignored.
-        """
+        """Restore weights saved by :meth:`save_base_model` (see
+        :meth:`load_encoder_state`)."""
         saved = torch.load(file_path, map_location="cpu", weights_only=True)
+        return self.load_encoder_state(saved, source=file_path)
+
+    def load_encoder_state(self, state, source: str = "the state dict"):
+        """Load an encoder ``state_dict``. Only the ``classifier`` head may
+        be missing (an encoder-only export, or a siamese encoder, keeps a
+        fresh head); any other missing key raises, and keys the model lacks
+        warn and are ignored."""
         template = self.module.state_dict()
-        missing = [k for k in template if k not in saved
+        missing = [k for k in template if k not in state
                    and k.split(".")[0] != "classifier"]
         if missing:
             raise KeyError(
                 f"checkpoint is missing required keys {missing[:8]} — wrong "
-                f"architecture or truncated file ({file_path})")
-        extra = sorted(set(saved) - set(template))
+                f"architecture or truncated file ({source})")
+        extra = sorted(set(state) - set(template))
         if extra:
             warnings.warn(f"checkpoint has keys not in the model: "
                           f"{extra[:8]} — ignored", stacklevel=2)
         self.module.load_state_dict(
-            {k: v for k, v in saved.items() if k in template}, strict=False)
+            {k: v for k, v in state.items() if k in template}, strict=False)
         return self
+
+
+class TripletNet(EmbeddingNet):
+    """Three shared-weight streams (the reference's ``models.py:164-189``):
+    the streams are the one encoder; :meth:`merged_forward` gives the
+    concatenated ``[enc_a ‖ enc_p ‖ enc_n]`` output."""
+
+    def merged_forward(self, anchors, positives, negatives) -> np.ndarray:
+        embs = [self.encode(x) for x in (anchors, positives, negatives)]
+        return np.concatenate(embs, axis=-1)
+
+
+class SiameseNet(EmbeddingNet):
+    """Two shared streams and a distance head (the reference's
+    ``models.py:192-236``): ``MODEL.distance_type`` ``l1`` scores a pair
+    with Dense(1, sigmoid) on ``|e1 - e2|`` (``l1_head``, Keras-initialised
+    from ``GENERAL.seed``, as the JAX ``SiameseNet`` initialises its own),
+    ``l2`` with the euclidean distance."""
+
+    def __init__(self, params, *, device, fast_conv: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(params, device=device, fast_conv=fast_conv,
+                         dtype=dtype)
+        from embeddingnet_tpu_torch.models.heads import (SiameseL1Head,
+                                                         init_keras_)
+        self.distance_type = self.params_model["distance_type"]
+        self.l1_head = None
+        if self.distance_type == "l1":
+            self.l1_head = SiameseL1Head(self.params_model["encodings_len"])
+            init_keras_(self.l1_head, torch.Generator().manual_seed(
+                int(self.params_general.get("seed", 42))))
+            self.l1_head.to(self.device)
+
+    def pair_forward(self, images_1, images_2) -> np.ndarray:
+        """The distance output for a batch of pairs, as numpy [B]."""
+        from embeddingnet_tpu_torch.models.heads import siamese_l2_distance
+        e1 = torch.as_tensor(self.encode(images_1), device=self.device)
+        e2 = torch.as_tensor(self.encode(images_2), device=self.device)
+        with torch.inference_mode():
+            d = (self.l1_head(e1, e2) if self.distance_type == "l1"
+                 else siamese_l2_distance(e1, e2))
+        return d.float().cpu().numpy()

@@ -32,3 +32,30 @@ def pairwise_sq_l2(a: torch.Tensor,
     if symmetric:
         d2.fill_diagonal_(0.0)
     return d2
+
+
+def pairwise_l2(a: torch.Tensor,
+                b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Euclidean distance matrix, the square root of :func:`pairwise_sq_l2`
+    (sklearn's default metric, which the reference mines with)."""
+    return pairwise_sq_l2(a, b).sqrt()
+
+
+def pairwise_l1(a: torch.Tensor,
+                b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Manhattan distance matrix ``[Na, Nb]`` in float32, elementwise
+    (``O(Na Nb D)``; no matmul form exists for L1)."""
+    a = a.float()
+    b = a if b is None else b.float()
+    return (a[:, None, :] - b[None, :, :]).abs().sum(-1)
+
+
+def pairwise_cosine(a: torch.Tensor, b: Optional[torch.Tensor] = None,
+                    eps: float = 1e-12) -> torch.Tensor:
+    """Cosine distance (1 - cosine similarity) matrix ``[Na, Nb]``, each
+    row normalised by ``max(|x|, eps)``."""
+    a = a.float()
+    b = a if b is None else b.float()
+    a_n = a / a.norm(dim=-1, keepdim=True).clamp_min(eps)
+    b_n = b / b.norm(dim=-1, keepdim=True).clamp_min(eps)
+    return 1.0 - a_n @ b_n.T

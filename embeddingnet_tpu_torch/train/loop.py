@@ -1,23 +1,25 @@
 """The training loop: config + data -> trained embedding model (port of
-``embeddingnet_tpu/train/loop.py`` ``Trainer``, triplet mode).
+``embeddingnet_tpu/train/loop.py`` ``Trainer``, triplet and siamese modes).
 
-One :class:`Trainer` drives the epochs of a triplet run: P-K batches
-decoded on host threads (:class:`~embeddingnet_tpu_torch.data.pipeline.
-BatchLoader`, with the decode cache), copied to the device from pinned
-memory one batch ahead, the train step with its mining; then the val epoch
-on offline triplets, recall@1/@5 by kNN every ``TRAIN.eval_recall_every``
-epochs, the plateau scale, the best checkpoint and early stopping. It
-resumes a run from a checkpoint with the same parameters, optimizer state,
-random state and callbacks as an uninterrupted one.
+One :class:`Trainer` drives the epochs of a run: batches decoded on host
+threads (:class:`~embeddingnet_tpu_torch.data.pipeline.BatchLoader`, with
+the decode cache) — P-K batches for triplet mode, pairs for siamese mode —
+copied to the device from pinned memory one batch ahead, the train step
+(with its mining, in triplet mode); then the val epoch on offline triplets
+or pairs, recall@1/@5 by kNN every ``TRAIN.eval_recall_every`` epochs,
+the plateau scale, the best checkpoint and early stopping. With
+``TRAIN.mining_warmup_epochs`` the first epochs mine with
+``TRAIN.mining_warmup_mode`` and the step is rebuilt at the stage
+boundary. It resumes a run from a checkpoint with the same parameters,
+optimizer state, random state and callbacks as an uninterrupted one.
 
 It runs on the device it is given (``cuda`` unless the caller asks for
 ``cpu``) and never falls back: not to the CPU when there is no card, nor
 to cuDNN when a kernel of ``PERFORMANCE.pallas_conv`` fails. What the port
 lacks raises ``NotImplementedError`` at construction, naming its
-``ROADMAP.md`` item: the siamese and arcface modes and softmax pretraining
-(item 11), mining modes other than batch-all (item 11), pretrained
-backbone weights (item 12), more than one device (item 13) and bf16
-master weights (item 16).
+``ROADMAP.md`` item: the arcface mode and softmax pretraining (item 11),
+pretrained backbone weights (item 12), more than one device (item 13) and
+bf16 master weights (item 16).
 """
 
 from __future__ import annotations
@@ -31,8 +33,10 @@ import numpy as np
 import torch
 
 from embeddingnet_tpu_torch.data.pipeline import BatchLoader, DecodeCache
-from embeddingnet_tpu_torch.data.samplers import PKSampler, TripletSampler
+from embeddingnet_tpu_torch.data.samplers import (PairSampler, PKSampler,
+                                                  TripletSampler)
 from embeddingnet_tpu_torch.models.registry import (EmbeddingModule,
+                                                    SiameseModule,
                                                     backbone_param_mask)
 from embeddingnet_tpu_torch.ops.augment import augment_from_params
 from embeddingnet_tpu_torch.train import callbacks as cb
@@ -41,8 +45,8 @@ from embeddingnet_tpu_torch.train import optim, steps
 from embeddingnet_tpu_torch.train.state import TrainState
 from embeddingnet_tpu_torch.utils.logging import MetricsLogger
 
-# the mining modes the port's train step runs
-PORTED_MINING = ("batch_all",)
+# the MODEL.mode values the port trains (every mining mode runs)
+PORTED_MODES = ("triplet", "siamese")
 
 
 class Trainer:
@@ -106,23 +110,14 @@ class Trainer:
         """Raise ``NotImplementedError`` for what the port cannot run yet,
         before anything is built or written."""
         p = self.params
-        if self.mode != "triplet":
+        if self.mode not in PORTED_MODES:
             raise NotImplementedError(
                 f"MODEL.mode {self.mode!r} is not ported to PyTorch yet (see "
-                f"ROADMAP.md, item 11); ported: triplet")
+                f"ROADMAP.md, item 11); ported: {list(PORTED_MODES)}")
         if p.softmax is not None:
             raise NotImplementedError(
                 "SOFTMAX_PRETRAINING is not ported to PyTorch yet (see "
                 "ROADMAP.md, item 11)")
-        needed = {self._mining_mode_for_epoch(e)
-                  for e in range(max(p.train.n_epochs, 1))}
-        missing = sorted(needed - set(PORTED_MINING))
-        if missing:
-            raise NotImplementedError(
-                f"mining mode(s) {missing} (GENERATOR."
-                f"negatives_selection_mode, TRAIN.mining_warmup_mode) are "
-                f"not ported to PyTorch yet (see ROADMAP.md, item 11); "
-                f"ported: {list(PORTED_MINING)}")
         if p.model.backbone_weights is not None:
             raise NotImplementedError(
                 f"MODEL.backbone_weights {p.model.backbone_weights!r}: "
@@ -150,16 +145,40 @@ class Trainer:
 
     def _build_module(self):
         m = self.params.model
-        self.module = EmbeddingModule(
-            backbone_name=m.backbone_name, encodings_len=m.encodings_len,
-            embeddings_normalization=m.embeddings_normalization,
-            bn_momentum=self.params.performance.bn_momentum,
-            fast_conv=self.params.performance.pallas_conv,
-            dtype=self.compute_dtype)
+        if self.mode == "siamese":
+            # the JAX SiameseModule hands its encoder no bn_momentum, so the
+            # siamese encoder keeps the default 0.99 whatever
+            # PERFORMANCE.bn_momentum says (as the JAX Trainer runs it)
+            self.module = SiameseModule(
+                backbone_name=m.backbone_name,
+                encodings_len=m.encodings_len,
+                embeddings_normalization=m.embeddings_normalization,
+                distance_type=m.distance_type,
+                fast_conv=self.params.performance.pallas_conv,
+                dtype=self.compute_dtype)
+        else:
+            self.module = self._new_encoder()
         self.module.reset_parameters(
             torch.Generator().manual_seed(self.params.general.seed))
         self.module.to(self.device)
         self._ema_module = None
+
+    def _new_encoder(self) -> EmbeddingModule:
+        """An encoder of the config's architecture (the triplet model, or
+        the eval/export view of the siamese one, without the classifier
+        the siamese tree lacks)."""
+        m = self.params.model
+        return EmbeddingModule(
+            backbone_name=m.backbone_name, encodings_len=m.encodings_len,
+            embeddings_normalization=m.embeddings_normalization,
+            bn_momentum=self.params.performance.bn_momentum,
+            fast_conv=self.params.performance.pallas_conv,
+            dtype=self.compute_dtype, classifier=self.mode != "siamese")
+
+    @property
+    def encoder(self) -> EmbeddingModule:
+        """The live encoder: the module, or the siamese module's."""
+        return self.module.encoder if self.mode == "siamese" else self.module
 
     def _build_optimizer(self):
         t = self.params.train
@@ -181,27 +200,35 @@ class Trainer:
             ema_decay=self.params.performance.ema_decay)
 
     def _mining_mode_for_epoch(self, epoch: int) -> str:
-        """The negatives-selection mode of an epoch: the first
-        ``TRAIN.mining_warmup_epochs`` run ``TRAIN.mining_warmup_mode``; a
-        pure function of the epoch, so a resumed run lands in the right
+        """The negatives-selection mode of an epoch: in triplet mode the
+        first ``TRAIN.mining_warmup_epochs`` run ``TRAIN.mining_warmup_mode``;
+        a pure function of the epoch, so a resumed run lands in the right
         stage."""
         t = self.params.train
-        if epoch < t.mining_warmup_epochs:
+        if self.mode == "triplet" and epoch < t.mining_warmup_epochs:
             return t.mining_warmup_mode
         return self.params.generator.negatives_selection_mode
 
-    def _build_steps(self):
+    def _build_steps(self, mining_mode: Optional[str] = None):
         g = self.params.generator
-        # every epoch runs batch-all (_check_supported), so one step serves
-        # the whole fit
+        reg_rules = optim.reg_rules_for(self.params.model.backbone_name)
+        self._mining_mode = mining_mode or self._mining_mode_for_epoch(0)
+        if self.mode == "siamese":
+            self.train_step = steps.make_siamese_train_step(
+                self.module, self.optimizer,
+                augment_fn=self.augment_fn, reg_rules=reg_rules,
+                compute_dtype=self.compute_dtype)
+            self.eval_step = steps.make_siamese_eval_step(
+                self.module, compute_dtype=self.compute_dtype)
+            return
         self.train_step = steps.make_triplet_train_step(
             self.module, self.optimizer, margin=g.margin,
-            mode=g.negatives_selection_mode, augment_fn=self.augment_fn,
-            reg_rules=optim.reg_rules_for(self.params.model.backbone_name),
-            compute_dtype=self.compute_dtype,
+            mode=self._mining_mode, augment_fn=self.augment_fn,
+            reg_rules=reg_rules, compute_dtype=self.compute_dtype,
             # P-K batches bound the positives per anchor, which arms the
-            # grouped fast path; _check_pk_layout guards the layout
-            max_positives=g.k_samples - 1)
+            # grouped paths; _check_pk_layout guards the layout.
+            # k_samples=1 has no positives: claim nothing
+            max_positives=g.k_samples - 1 if g.k_samples >= 2 else None)
         self.eval_step = steps.make_triplet_eval_step(
             self.module, margin=g.margin, compute_dtype=self.compute_dtype)
 
@@ -214,10 +241,15 @@ class Trainer:
         # uninterrupted one would
         seed = (self.params.general.seed
                 + 9973 * getattr(self, "_current_epoch", 0))
-        sampler = PKSampler(self.data_loader.train_data,
-                            self.data_loader.class_names,
-                            k_classes=g.k_classes, k_samples=g.k_samples,
-                            seed=seed)
+        if self.mode == "siamese":
+            sampler = PairSampler(self.data_loader.train_data,
+                                  self.data_loader.class_names,
+                                  batch_size=g.batch_size, seed=seed)
+        else:
+            sampler = PKSampler(self.data_loader.train_data,
+                                self.data_loader.class_names,
+                                k_classes=g.k_classes,
+                                k_samples=g.k_samples, seed=seed)
         return BatchLoader(sampler, self.params.model.input_shape,
                            n_batches=g.n_batches,
                            fast_decode=self.params.performance.fast_decode,
@@ -227,11 +259,17 @@ class Trainer:
         if not self.data_loader.validate or not self.data_loader.val_data:
             return None
         g = self.params.generator
-        # offline random triplets, as the reference validates triplet mode
-        sampler = TripletSampler(self.data_loader.val_data,
-                                 self.data_loader.class_names,
-                                 batch_size=g.batch_size,
-                                 seed=self.params.general.seed + 1000)
+        seed = self.params.general.seed + 1000
+        if self.mode == "siamese":
+            sampler = PairSampler(self.data_loader.val_data,
+                                  self.data_loader.class_names,
+                                  batch_size=g.batch_size, seed=seed)
+        else:
+            # offline random triplets, as the reference validates triplet
+            # mode
+            sampler = TripletSampler(self.data_loader.val_data,
+                                     self.data_loader.class_names,
+                                     batch_size=g.batch_size, seed=seed)
         return BatchLoader(sampler, self.params.model.input_shape,
                            n_batches=g.n_batches_val,
                            cache=self._decode_cache)
@@ -298,9 +336,18 @@ class Trainer:
     def _check_pk_layout(self, loader):
         """Host-side guard of the grouped P-K layout that the armed miner
         asserts, on every batch (O(B) on the host-side labels)."""
+        armed = self._pk_armed()
         for batch in loader:
-            self._validate_pk_labels(batch[1])
+            if armed:
+                self._validate_pk_labels(batch[1])
             yield batch
+
+    def _pk_armed(self) -> bool:
+        # the parity modes and batch_all poison a broken layout when
+        # k_samples is armed; batch_hard takes any layout
+        return (self.mode == "triplet"
+                and self.params.generator.k_samples >= 2
+                and self._mining_mode != "batch_hard")
 
     def _validate_pk_labels(self, labels):
         k = self.params.generator.k_samples
@@ -343,11 +390,17 @@ class Trainer:
             self._data_wait_s += time.perf_counter() - t_wait
             if batch is None:
                 break
-            images, labels = batch
-            self.state, metrics = self.train_step(self.state, images, labels)
+            images, targets = batch
+            if self.mode == "siamese":
+                self.state, metrics = self.train_step(self.state, *images,
+                                                      targets)
+                images_seen += sum(int(x.shape[0]) for x in images)
+            else:
+                self.state, metrics = self.train_step(self.state, images,
+                                                      targets)
+                images_seen += int(images.shape[0])
             totals = self._accumulate(totals, metrics)
             count += 1
-            images_seen += int(images.shape[0])
             # a read every 32 steps keeps the queue of launches shallow
             if count % 32 == 0 or self.params.performance.debug_nans:
                 self._check_finite(float(totals["loss"]))
@@ -367,9 +420,11 @@ class Trainer:
         if loader is None:
             return {}
         totals, count = None, 0
-        for (a, p, n), _ in self._device_prefetch(loader):
+        for images, targets in self._device_prefetch(loader):
+            # siamese: (pair streams) and targets; triplet: (a, p, n)
+            args = (*images, targets) if self.mode == "siamese" else images
             totals = self._accumulate(totals,
-                                      self.eval_step(self.state, a, p, n))
+                                      self.eval_step(self.state, *args))
             count += 1
             if count % 32 == 0:
                 float(totals["loss"])
@@ -382,6 +437,14 @@ class Trainer:
         for epoch in range(self.start_epoch, n_epochs):
             t_epoch = time.perf_counter()
             self._current_epoch = epoch   # epoch-distinct sampler seeds
+            want_mode = self._mining_mode_for_epoch(epoch)
+            if want_mode != self._mining_mode:
+                # staged mining: a new step for the new selection mode; the
+                # module, optimizer and generator carry over untouched
+                self.log(f"epoch {epoch}: mining mode {self._mining_mode} "
+                         f"-> {want_mode} (TRAIN.mining_warmup_epochs="
+                         f"{self.params.train.mining_warmup_epochs})")
+                self._build_steps(mining_mode=want_mode)
             if profile_dir and epoch == self.start_epoch:
                 # a torch.profiler trace of the first epoch (Perfetto or
                 # chrome://tracing)
@@ -513,28 +576,25 @@ class Trainer:
 
     def _recall_encoder(self) -> torch.nn.Module:
         """The encoder in eval mode with :meth:`encoder_variables`: the live
-        module, or with EMA a second module holding the EMA weights."""
+        one, or with EMA a second module holding the EMA weights."""
         if self.state.ema is None:
-            return self.module.eval()
+            return self.encoder.eval()
         if self._ema_module is None:
-            m = self.params.model
-            self._ema_module = EmbeddingModule(
-                backbone_name=m.backbone_name,
-                encodings_len=m.encodings_len,
-                embeddings_normalization=m.embeddings_normalization,
-                bn_momentum=self.params.performance.bn_momentum,
-                fast_conv=self.params.performance.pallas_conv,
-                dtype=self.compute_dtype).to(self.device)
+            self._ema_module = self._new_encoder().to(self.device)
         self._ema_module.load_state_dict(self.encoder_variables())
         return self._ema_module.eval()
 
     # -- export ------------------------------------------------------------
 
     def encoder_variables(self) -> dict:
-        """The encoder's ``state_dict`` for export and recall: the EMA
-        parameters when ``PERFORMANCE.ema_decay`` is on, with the live
-        BatchNorm statistics; else the live module's."""
-        out = dict(self.module.state_dict())
+        """The encoder's ``state_dict`` for export and recall (in siamese
+        mode the siamese module's encoder, without the distance head): the
+        EMA parameters when ``PERFORMANCE.ema_decay`` is on, with the live
+        BatchNorm statistics; else the live encoder's."""
+        out = dict(self.encoder.state_dict())
         if self.state.ema is not None:
-            out.update(self.state.ema)
+            prefix = "encoder." if self.mode == "siamese" else ""
+            out.update({name[len(prefix):]: value
+                        for name, value in self.state.ema.items()
+                        if name.startswith(prefix)})
         return out

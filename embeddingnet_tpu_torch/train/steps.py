@@ -1,13 +1,21 @@
-"""The triplet train and eval steps (port of ``make_triplet_train_step``,
-``make_triplet_eval_step`` and ``make_eval_step`` in
-``embeddingnet_tpu/train/steps.py``).
+"""The triplet and siamese train and eval steps (port of
+``make_triplet_train_step``, ``make_triplet_eval_step``,
+``make_siamese_train_step``, ``make_siamese_eval_step`` and
+``make_eval_step`` in ``embeddingnet_tpu/train/steps.py``).
 
-One train step: uint8 P-K batch -> [augmentation in 0..255 ->] ``/255`` in
-the compute dtype (:func:`_preprocess`) -> encoder in train mode (BatchNorm
-on batch statistics, running averages updated) -> f32 embeddings -> mined
-triplet loss + L2 penalty -> backward -> optimizer update with the learning
-rate of the schedule at this step times the state's plateau scale -> the
-parameters' EMA, where the state keeps one.
+One triplet train step: uint8 P-K batch -> [augmentation in 0..255 ->]
+``/255`` in the compute dtype (:func:`_preprocess`) -> encoder in train
+mode (BatchNorm on batch statistics, running averages updated) -> f32
+embeddings -> mined triplet loss + L2 penalty -> backward -> optimizer
+update with the learning rate of the schedule at this step times the
+state's plateau scale -> the parameters' EMA, where the state keeps one.
+A siamese step does the same for a batch of pairs, through the
+:class:`~embeddingnet_tpu_torch.models.registry.SiameseModule` (the encoder
+once per stream), with the contrastive loss on the pair distances.
+
+The random draws (augmentation, mining) come from ``state.generator``
+unless the caller passes them, in this order: the augmentation's (per
+stream), then the mining's.
 
 The eval steps run the encoder in eval mode (BatchNorm on its running
 statistics) on ``/255`` of the uint8 batch, without augmentation.
@@ -21,7 +29,8 @@ import torch
 
 from embeddingnet_tpu_torch.ops import mining
 from embeddingnet_tpu_torch.ops.augment import Augment, Draws
-from embeddingnet_tpu_torch.ops.losses import triplet_hinge
+from embeddingnet_tpu_torch.ops.losses import (accuracy, contrastive_loss,
+                                               triplet_hinge)
 from embeddingnet_tpu_torch.ops.preprocess import preprocess
 from embeddingnet_tpu_torch.train.optim import (OptimizerSpec, l2_penalty,
                                                 update_param_ema)
@@ -62,6 +71,30 @@ def apply_update(state: TrainState, optimizer: OptimizerSpec) -> None:
     state.step += 1
 
 
+def _backward_and_update(state: TrainState, module: torch.nn.Module,
+                         optimizer: OptimizerSpec, loss: torch.Tensor,
+                         reg_rules: Sequence, device: torch.device) -> None:
+    """Differentiate ``loss + l2_penalty`` and apply the update."""
+    total = loss
+    if reg_rules:
+        total = total + l2_penalty(module.named_parameters(),
+                                   reg_rules).to(device)
+    state.optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    for p in module.parameters():
+        # optax updates every leaf: a parameter the loss does not reach
+        # (the classifier head) takes a zero gradient, not none
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    apply_update(state, optimizer)
+
+
+def _on_device(module: torch.nn.Module, *tensors):
+    device = next(module.parameters()).device
+    return device, [torch.as_tensor(t).to(device, non_blocking=True)
+                    for t in tensors]
+
+
 def make_triplet_train_step(module: torch.nn.Module,
                             optimizer: OptimizerSpec, *,
                             margin: float = 0.5, mode: str = "semihard",
@@ -70,7 +103,8 @@ def make_triplet_train_step(module: torch.nn.Module,
                             compute_dtype: torch.dtype = torch.float32,
                             max_positives: Optional[int] = None):
     """Online-mining triplet step over P-K batches; returns
-    ``step(state, images_u8, labels, aug_draws=None) -> (state, metrics)``.
+    ``step(state, images_u8, labels, aug_draws=None, mine_draws=None) ->
+    (state, metrics)``.
 
     The step updates ``state`` in place (parameters, BatchNorm statistics,
     optimizer moments, step count) and returns it. ``metrics`` holds device
@@ -85,36 +119,30 @@ def make_triplet_train_step(module: torch.nn.Module,
     ``augment_fn`` is a preset of :func:`~embeddingnet_tpu_torch.ops.
     augment.get_aug` (None: no augmentation). The step samples its draws
     from ``state.generator``, on the generator's device, so a generator on
-    the card keeps the step free of host synchronisation; ``aug_draws``
-    (the preset's draws for this batch) overrides that."""
+    the card keeps the step free of host synchronisation: the
+    augmentation's, then the mining's (semihard and random_hard,
+    :func:`~embeddingnet_tpu_torch.ops.mining.draws_shape`). ``aug_draws``
+    (the preset's draws for this batch) and ``mine_draws`` override them.
+    The mining runs inside a ``record_function("mining")`` range for the
+    profiler."""
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
-             aug_draws: Optional[List[Draws]] = None
+             aug_draws: Optional[List[Draws]] = None,
+             mine_draws: Optional[torch.Tensor] = None
              ) -> Tuple[TrainState, dict]:
         if state.module is not module:
             raise ValueError("the state was created for another module")
         module.train()
-        device = next(module.parameters()).device
-        images = torch.as_tensor(images).to(device, non_blocking=True)
-        labels = torch.as_tensor(labels).to(device, non_blocking=True)
+        device, (images, labels) = _on_device(module, images, labels)
         x = _preprocess(images, compute_dtype, augment_fn, state.generator,
                         aug_draws)
         emb = module(x).float()
-        loss, stats = mining.mined_triplet_loss(
-            emb, labels, margin=margin, mode=mode,
-            max_positives=max_positives)
-        total = loss
-        if reg_rules:
-            total = total + l2_penalty(module.named_parameters(),
-                                       reg_rules).to(device)
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        for p in module.parameters():
-            # optax updates every leaf: a parameter the loss does not reach
-            # (the classifier head) takes a zero gradient, not none
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        apply_update(state, optimizer)
+        with torch.profiler.record_function("mining"):
+            loss, stats = mining.mined_triplet_loss(
+                emb, labels, margin=margin, mode=mode, rng=state.generator,
+                draws=mine_draws, max_positives=max_positives)
+        _backward_and_update(state, module, optimizer, loss, reg_rules,
+                             device)
         metrics = {
             "loss": loss.detach(),
             "n_triplets": stats.n_triplets,
@@ -123,6 +151,71 @@ def make_triplet_train_step(module: torch.nn.Module,
             "mean_neg_dist": stats.mean_neg_dist,
         }
         return state, metrics
+
+    return step
+
+
+def make_siamese_train_step(module: torch.nn.Module,
+                            optimizer: OptimizerSpec, *,
+                            contrastive_margin: float = 1.0,
+                            augment_fn: Optional[Augment] = None,
+                            reg_rules: Sequence = (),
+                            compute_dtype: torch.dtype = torch.float32):
+    """Siamese pair step; returns ``step(state, images_1, images_2,
+    targets, aug_draws=None) -> (state, metrics)``.
+
+    ``module`` is a :class:`~embeddingnet_tpu_torch.models.registry.
+    SiameseModule` (its ``distance_type`` decides the head). The
+    contrastive loss on the pair distances (``targets`` 1 for a
+    same-class pair) plus the L2 penalty is differentiated; ``metrics``
+    holds the loss and the pair accuracy at the 0.5 threshold, as device
+    scalars. The two streams' augmentation draws come from
+    ``state.generator``, the first stream's first; ``aug_draws`` is a
+    pair of the preset's draws that overrides them."""
+
+    def step(state: TrainState, images_1, images_2, targets,
+             aug_draws: Optional[Tuple[List[Draws], List[Draws]]] = None
+             ) -> Tuple[TrainState, dict]:
+        if state.module is not module:
+            raise ValueError("the state was created for another module")
+        module.train()
+        device, (images_1, images_2, targets) = _on_device(
+            module, images_1, images_2, targets)
+        draws_1, draws_2 = aug_draws if aug_draws is not None else (None,
+                                                                    None)
+        x1 = _preprocess(images_1, compute_dtype, augment_fn,
+                         state.generator, draws_1)
+        x2 = _preprocess(images_2, compute_dtype, augment_fn,
+                         state.generator, draws_2)
+        d, _, _ = module((x1, x2))
+        d = d.float()
+        loss = contrastive_loss(targets, d, contrastive_margin)
+        _backward_and_update(state, module, optimizer, loss, reg_rules,
+                             device)
+        return state, {"loss": loss.detach(),
+                       "accuracy": accuracy(targets, d.detach())}
+
+    return step
+
+
+def make_siamese_eval_step(module: torch.nn.Module, *,
+                           contrastive_margin: float = 1.0,
+                           compute_dtype: torch.dtype = torch.float32):
+    """Val loss and pair accuracy on a batch of pairs, the module in eval
+    mode; ``step(state, images_1, images_2, targets) -> {"loss",
+    "accuracy"}`` (device scalars). Each stream's uint8 batch is divided
+    by :func:`preprocess` (T2 for uint8 to bf16)."""
+
+    @torch.no_grad()
+    def step(state, images_1, images_2, targets) -> dict:
+        module.eval()
+        _, (images_1, images_2, targets) = _on_device(
+            module, images_1, images_2, targets)
+        d, _, _ = module((preprocess(images_1, compute_dtype),
+                          preprocess(images_2, compute_dtype)))
+        d = d.float()
+        return {"loss": contrastive_loss(targets, d, contrastive_margin),
+                "accuracy": accuracy(targets, d)}
 
     return step
 

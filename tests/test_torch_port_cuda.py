@@ -526,3 +526,79 @@ def test_epilogue_is_one_sm90_kernel(card):
     assert "conv3x3_sm90_kernel<false," in names[0], names
     assert ", false, true>" in names[0], names
     assert fc.LAUNCHES == _launched(conv3x3_small_affine_relu=2)
+
+
+# -- the mining modes on the card ---------------------------------------------
+
+# card against CPU on exact distances (below): the selections equal, the
+# loss and the stats (sums in another order) to 1e-5 relative, the
+# gradient (products with 1/n_selected) to 1e-5 of its largest entry
+MINING_RTOL = 1e-5
+
+
+def _exact_embeddings(b, d=256, seed=0):
+    """[b, d] f32 embeddings on a grid of 1/256 within +-0.5: every product
+    and partial sum of the squared distances is exact in float32, so the
+    card and the CPU compute the same distances in any order."""
+    rng = np.random.default_rng(seed)
+    x = np.clip(rng.normal(size=(b, d)) * 0.12, -0.5, 0.5)
+    return (np.round(x * 256) / 256).astype(np.float32)
+
+
+def _mine_on(device, mode, emb, labels, draws, max_positives):
+    """(loss, stats, embedding gradient, selections) of ``mode`` on
+    ``device``, all on the host."""
+    from embeddingnet_tpu_torch.ops import mining
+    e = torch.from_numpy(emb).to(device).requires_grad_()
+    lab = torch.from_numpy(labels).to(device)
+    d = None if draws is None else draws.to(device)
+    loss, stats = mining.mined_triplet_loss(
+        e, lab, margin=0.5, mode=mode, draws=d, max_positives=max_positives)
+    loss.backward()
+    sel = {}
+    b = len(labels)
+    if mode in mining.PARITY_MODES and b > 256:
+        k = None if max_positives is None else max_positives + 1
+        aux = mining._parity_forward_large(e.detach(), lab, 0.5, mode, d,
+                                           k)[3]
+        sel = {n: v.cpu() for n, v in aux.items() if v is not None}
+    elif mode in mining.PARITY_MODES:
+        dist = mining.pairwise_sq_l2(e.detach()).sqrt()
+        _, _, _, s, n_star = mining._parity_select(dist, lab, 0.5, mode, d)
+        sel = {"selected": s.cpu(), "n_star": torch.where(s, n_star, -1)
+               .cpu()}
+    return (loss.item(), [float(v) for v in stats], e.grad.cpu(), sel)
+
+
+@pytest.mark.parametrize("mode,path", [
+    (mode, path) for mode in ("semihard", "hardest", "random_hard",
+                              "batch_hard", "batch_all")
+    for path in ("enumeration", "pk", "dense")
+    # batch_all's generic-label path is not ported (ROADMAP.md, item 3)
+    if (mode, path) != ("batch_all", "dense")])
+def test_mining_on_the_card_matches_the_cpu(card, mode, path):
+    """Each mode on each of its paths (B=256 enumeration, B=1024 grouped
+    P-K and, with the rows shuffled, B=1024 dense) on exact-distance
+    embeddings with the same draws: identical selections, equal loss,
+    stats and embedding gradient."""
+    from embeddingnet_tpu_torch.ops import mining
+    b = 256 if path == "enumeration" else 1024
+    emb = _exact_embeddings(b)
+    labels = np.repeat(np.arange(b // 4), 4).astype(np.int64)
+    max_positives = 3
+    if path == "dense":
+        order = np.random.default_rng(1).permutation(b)
+        emb, labels, max_positives = emb[order], labels[order], None
+    draws = mining.sample_draws(mode, b, max_positives,
+                                torch.Generator().manual_seed(2))
+    got = _mine_on(card, mode, emb, labels, draws, max_positives)
+    want = _mine_on("cpu", mode, emb, labels, draws, max_positives)
+    np.testing.assert_allclose(got[0], want[0], rtol=MINING_RTOL)
+    np.testing.assert_allclose(got[1], want[1], rtol=MINING_RTOL)
+    scale = want[2].abs().max().item()
+    torch.testing.assert_close(got[2], want[2], rtol=0,
+                               atol=MINING_RTOL * scale)
+    assert got[3].keys() == want[3].keys()
+    for name in want[3]:
+        assert torch.equal(got[3][name], want[3][name]), name
+    assert got[1][0] > 0              # triplets were mined

@@ -5,8 +5,10 @@ are installed: in a fresh interpreter with ``jax``, ``flax``, ``optax``,
 encode plus kNN vote, the HTTP server's ``/healthz``, the dataset index of
 a folder and of a CSV, a small CPU triplet train step with the ``default``
 augmentation and the T1 A/B tool run; with cv2 allowed (it decodes), a
-``Trainer`` fits one epoch on the CPU. No file of the port imports the JAX
-package, not even inside a function."""
+``Trainer`` fits one epoch on the CPU, and so do a siamese ``Trainer``
+(radam) and a triplet one whose warm-up switches its mining mode, after
+every mining mode ran on each of its paths and rms_prop took a step. No
+file of the port imports the JAX package, not even inside a function."""
 
 import os
 import re
@@ -190,6 +192,81 @@ assert not any(m == "embeddingnet_tpu" or m.startswith("embeddingnet_tpu.")
                for m in sys.modules), "the JAX package was imported"
 print("ok")
 """
+
+
+MODES_SCRIPT = """
+import sys
+for name in ("jax", "flax", "optax", "orbax", "sklearn", "pandas",
+             "matplotlib"):
+    sys.modules[name] = None          # import of it raises ImportError
+import os, tempfile
+import cv2, numpy as np, torch
+torch.set_num_threads(1)     # small ops; the suite runs files in parallel
+from embeddingnet_tpu_torch.ops import mining
+from embeddingnet_tpu_torch.train import optim
+
+# every mining mode on each of its paths, draws from a generator
+g = torch.Generator().manual_seed(0)
+for b, k in ((32, 4), (264, 4), (264, None)):
+    emb = torch.randn(b, 8, generator=g, requires_grad=True)
+    labels = torch.arange(b // 4).repeat_interleave(4)
+    for mode in mining.ALL_MODES:
+        if mode == "batch_all" and k is None:
+            continue
+        loss, stats = mining.mined_triplet_loss(
+            emb, labels, margin=0.5, mode=mode, rng=g,
+            max_positives=None if k is None else k - 1)
+        loss.backward()
+        assert torch.isfinite(loss) and torch.isfinite(emb.grad).all()
+p = torch.nn.Parameter(torch.ones(3))
+opt = optim.get_optimizer("rms_prop", 0.1).build([p])
+p.grad = torch.ones(3)
+opt.step()
+assert (p < 1).all()
+
+from embeddingnet_tpu_torch.config import params_from_dict
+from embeddingnet_tpu_torch.data import ENDataLoader
+from embeddingnet_tpu_torch.train.loop import Trainer
+with tempfile.TemporaryDirectory() as tmp:
+    rng = np.random.default_rng(0)
+    for c in range(4):
+        os.makedirs(f"{tmp}/data/class_{c}")
+        for i in range(6):
+            cv2.imwrite(f"{tmp}/data/class_{c}/{i}.png",
+                        rng.integers(0, 256, (16, 16, 3), np.uint8))
+    for mode, extra in (("siamese", {}),
+                        ("triplet", {"mining_warmup_epochs": 1,
+                                     "mining_warmup_mode": "random_hard"})):
+        params = params_from_dict({
+            "MODEL": {"backbone_name": "resnet18",
+                      "input_shape": [32, 32, 3], "encodings_len": 16,
+                      "backbone_weights": None, "mode": mode},
+            "DATALOADER": {"dataset_path": f"{tmp}/data", "val_ratio": 0.2},
+            "GENERATOR": {"negatives_selection_mode": "hardest",
+                          "k_classes": 2, "k_samples": 3, "batch_size": 4,
+                          "n_batches": 1, "n_batches_val": 1},
+            "TRAIN": {"n_epochs": 2, "optimizer": "radam", **extra},
+            "GENERAL": {"work_dir": f"{tmp}/{mode}"},
+            "PERFORMANCE": {"compute_dtype": "float32",
+                            "pallas_conv": True}})
+        loader = ENDataLoader(**{k: params.dataloader[k]
+                                 for k in params.dataloader.keys()})
+        history = Trainer(params, loader, device="cpu",
+                          log_fn=lambda *a: None).fit().history
+        assert np.isfinite(history["loss"]).all() and "val_loss" in history
+assert not any(m == "embeddingnet_tpu" or m.startswith("embeddingnet_tpu.")
+               for m in sys.modules), "the JAX package was imported"
+print("ok")
+"""
+
+
+def test_modes_run_without_jax_and_host_deps():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", MODES_SCRIPT], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("ok")
 
 
 def test_trainer_fits_without_jax_and_host_deps():

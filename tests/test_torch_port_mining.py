@@ -128,9 +128,20 @@ def test_mined_triplet_loss_dispatch():
                                          mode="batch_all", max_positives=3)
     want, _ = tmining.batch_all_loss(e, lab, margin=0.5, max_positives=3)
     assert loss.item() == want.item()
-    for mode in ("semihard", "hardest", "random_hard", "batch_hard"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tmining.mined_triplet_loss(e, lab, mode=mode)
+    # the other modes dispatch to their miners (held to the JAX package in
+    # tests/test_torch_port_mining_modes.py)
+    hard, _ = tmining.mined_triplet_loss(e, lab, margin=0.5,
+                                         mode="batch_hard")
+    assert hard.item() == tmining.batch_hard_loss(e, lab,
+                                                  margin=0.5)[0].item()
+    draws = torch.zeros(16, 16, 16)
+    for mode in ("semihard", "hardest", "random_hard"):
+        got, _ = tmining.mined_triplet_loss(e, lab, margin=0.5, mode=mode,
+                                            draws=draws)
+        want, _ = tmining._parity_mined_loss(
+            e, lab, margin=0.5, mode=mode,
+            draws=None if mode == "hardest" else draws)
+        assert got.item() == want.item()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tmining.batch_all_loss(e, lab, margin=0.5)      # generic labels
     with pytest.raises(ValueError, match="unknown mining mode"):

@@ -300,9 +300,18 @@ def test_get_optimizer_maps_and_refuses():
     assert opt.defaults["eps"] == 1e-8
     assert isinstance(toptim.get_optimizer("adamw", 1e-3).build(
         [torch.nn.Parameter(torch.zeros(3))]), torch.optim.AdamW)
-    for name in ("rms_prop", "radam"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            toptim.get_optimizer(name, 1e-3)
+    # radam and rms_prop are optax's rules (held to optax in
+    # tests/test_torch_port_siamese.py), with the JAX package's settings
+    radam = toptim.get_optimizer("radam", 1e-3).build(
+        [torch.nn.Parameter(torch.zeros(3))])
+    assert isinstance(radam, toptim.RAdam)
+    assert radam.defaults["threshold"] == 4.0
+    rms = toptim.get_optimizer("rms_prop", 1e-3).build(
+        [torch.nn.Parameter(torch.zeros(3))])
+    assert isinstance(rms, toptim.RMSProp)
+    assert (rms.defaults["decay"], rms.defaults["eps"]) == (0.9, 1e-8)
+    assert isinstance(toptim.get_optimizer("nope", 1e-3).build(
+        [torch.nn.Parameter(torch.zeros(3))]), torch.optim.SGD)
 
 
 def test_l2_penalty_matches_jax():

@@ -256,19 +256,14 @@ def test_resume_without_a_checkpoint_raises(tiny_dataset, tmp_path):
 
 
 @pytest.mark.parametrize("sections,item", [
-    ({"MODEL": {"mode": "siamese"}}, 11),
     ({"MODEL": {"mode": "arcface"}}, 11),
     ({"SOFTMAX_PRETRAINING": {"n_epochs": 1}}, 11),
-    ({"GENERATOR": {"negatives_selection_mode": "semihard"}}, 11),
-    ({"TRAIN": {"mining_warmup_epochs": 1,
-                "mining_warmup_mode": "semihard"}}, 11),
     ({"MODEL": {"backbone_weights": "imagenet"}}, 12),
     ({"MESH": {"model": 2}}, 13),
     ({"MESH": {"data": 2}}, 13),
     ({"PERFORMANCE": {"params_dtype": "bfloat16"}}, 16),
-], ids=["siamese", "arcface", "softmax_pretraining", "semihard",
-        "warmup_semihard", "backbone_weights", "mesh_model", "mesh_data",
-        "bf16_params"])
+], ids=["arcface", "softmax_pretraining", "backbone_weights", "mesh_model",
+        "mesh_data", "bf16_params"])
 def test_unported_settings_raise_at_construction(tiny_dataset, tmp_path,
                                                  sections, item):
     cfg = _cfg(tiny_dataset, tmp_path, **sections)

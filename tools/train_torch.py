@@ -2,7 +2,7 @@
 """Train CLI of the PyTorch port: ``python tools/train_torch.py
 <config.yml> [--device cuda] [--resume_from EPOCH|latest]``.
 
-Fits the config's triplet model with :class:`embeddingnet_tpu_torch.train.
+Fits the config's triplet or siamese model with :class:`embeddingnet_tpu_torch.train.
 loop.Trainer` on one device (``cuda`` unless ``--device cpu``), in the
 work-dir tree ``<work_dir>/<project_name>/{weights,encodings,plots,
 tf_log,...}``; ``--resume_from`` restores the whole train state of a
@@ -74,7 +74,8 @@ def main(argv=None):
     net = EmbeddingNet(params, device=args.device,
                        fast_conv=params.performance.pallas_conv,
                        dtype=trainer.compute_dtype)
-    net.module.load_state_dict(trainer.encoder_variables())
+    # the encoder of either mode (the siamese one has no classifier)
+    net.load_encoder_state(trainer.encoder_variables())
     weights_path = net.save_base_model(trainer.paths["work_dir"])
     print(f"base model saved to {weights_path}")
 
