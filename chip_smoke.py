@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one CUDA card: the serving path, the
 T1 A/B tool, the triplet training step with and without augmentation, a
 short flagship fit through the Trainer and its CLI, the step under every
-mining mode, and a siamese fit, each through the hand-written kernels.
+mining mode, and a siamese fit, each through the hand-written kernels;
+then the ViT/ArcFace path, which reaches T2 alone.
 
     python3 chip_smoke.py
 
@@ -106,6 +107,24 @@ mining mode, and a siamese fit, each through the hand-written kernels.
     launches of K1's forward, the dgrad, K2, K3, K4 and T2 predicted from
     the gate (``SIAMESE_PER_STEP``), a second Trainer's ``resume(0)`` bit
     for bit, and the CLI's resume and export.
+12. ViT/ArcFace phase: (a) ``configs/vit_arcface.yml``'s step at full
+    width and depth (ViT-B/16, 224 px, 512-d, B=256, Adam with its warm-up
+    schedule, EMA, the ``deepfake`` flip, bf16, random weights from the
+    seed) on colour-cell images of 1,000 classes: 3 warm-up and 10 timed
+    steps (median, images/s, peak memory, every port kernel's launches at
+    0), then 2 under ``torch.profiler``: device time, busy share, the top
+    ops and kernels, and the shares of attention's products and softmax,
+    of LayerNorm and the activations and of all matmuls; (b) the same for
+    ``configs/clip_vitl14_arcface.yml`` (the CLIP ViT-L/14 tower, B=32,
+    AdamW), 2 warm-up and 5 timed steps; (c) small ViTs of both families
+    under an ArcFace module, f32 with TF32 off, on the card against the
+    CPU: embeddings, loss and every gradient within 1e-5; (d)
+    ``configs/vit_arcface_smoke.yml`` fitted through the ``Trainer`` on
+    107 classes x 40 PNGs at 96 px after a ``SOFTMAX_PRETRAINING`` epoch
+    of 4 steps and 2 val steps (cuts and settings printed), which must log
+    its handoff: loss, recall and wall per epoch, T2's launches exact (the
+    pretraining's val batches), every other kernel at 0; (e) a second
+    Trainer's ``resume(0)`` bit for bit, and the CLI's resume and export.
 
 The last line of standard output is the result,
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -113,8 +132,9 @@ and power limit. The line before that lists each kernel: its launches
 during the run of its path (the augmented training run for the conv
 kernels, K3 also during the serving run; the aug-off training run for T2;
 the A/B tool's run for T1; phase 11's siamese fit for K1's forward) and
-its launches over phase 9's fit (``fit_launches``) and phase 11's
-(``siamese_fit_launches``), its worst error, and ``ms`` / ``plain_ms`` /
+its launches over phase 9's fit (``fit_launches``), phase 11's
+(``siamese_fit_launches``) and phase 12's (``vit_fit_launches``), its
+worst error, and ``ms`` / ``plain_ms`` /
 ``bound_ms`` / ``library_ms``, the event time of the kernel, its plain
 version, the card's bound and the library call, summed over the calls one
 training step makes at B = 1024 (T1: one call at B = 1024, S = 2, C = 512;
@@ -351,6 +371,62 @@ SIAMESE_PER_VAL = {"conv3x3_small": 4, "conv3x3_small_bn_relu": 8,
                    "normalize_u8": 2}
 # K1's forward calls per siamese train step: (S, C, calls)
 SIAMESE_K1_SHAPES = [(4, 256, 2), (2, 512, 2)]
+
+# phase 12: the ViT/ArcFace path. (a) configs/vit_arcface.yml's step at
+# full width and depth, (b) configs/clip_vitl14_arcface.yml's, both on
+# synthetic colour-cell images of VIT_CLASSES classes; (c) small ViTs of
+# both families and the ArcFace loss on the card against the CPU; (d)
+# configs/vit_arcface_smoke.yml fitted through the Trainer with a softmax
+# pretraining phase, (e) its resume and CLI
+VIT_CONFIG = os.path.join(os.path.dirname(FIT_CONFIG), "vit_arcface.yml")
+CLIP_CONFIG = os.path.join(os.path.dirname(FIT_CONFIG),
+                           "clip_vitl14_arcface.yml")
+VIT_SMOKE_CONFIG = os.path.join(os.path.dirname(FIT_CONFIG),
+                                "vit_arcface_smoke.yml")
+VIT_CLASSES, VIT_POOL = 1000, 1024
+VIT_WARMUP, VIT_TIMED, CLIP_WARMUP, CLIP_TIMED, VIT_PROFILED = 3, 10, 2, 5, 2
+# device time by aten op: attention's core (its score and value products,
+# the only batched matmuls of a ViT, and the softmax, forward and
+# backward); LayerNorm and the activations (quick-GELU's sigmoid counted,
+# its product not); every matmul; the copies (dtype casts, and the heads'
+# transposes made contiguous)
+VIT_SHARES = {
+    "attention": ("aten::bmm", "aten::_softmax",
+                  "aten::_softmax_backward_data"),
+    "norm_act": ("aten::native_layer_norm", "aten::native_layer_norm_backward",
+                 "aten::gelu", "aten::gelu_backward", "aten::sigmoid",
+                 "aten::sigmoid_backward"),
+    "matmul": ("aten::mm", "aten::addmm", "aten::bmm"),
+    "copy": ("aten::copy_",),
+}
+# (c): small ViTs of each family (the registry names' entries replaced),
+# f32 with TF32 off, card against CPU from the same weights and images: the
+# embeddings, the ArcFace loss and every gradient to VIT_CARD_TOL of the
+# tensor's largest entry (sums in another order); the key biases, whose
+# gradient is zero in exact arithmetic, to VIT_CARD_TOL of the model's
+# largest gradient entry
+VIT_SMALL = {"vit-b16": dict(patch=16, dim=128, depth=2, heads=4),
+             "vit-l14": dict(patch=16, dim=128, depth=2, heads=4,
+                             ln_pre=True, use_quick_gelu=True,
+                             patch_bias=False, proj_dim=96, ln_eps=1e-5)}
+VIT_CARD_TOL = 1e-5
+# (d): the smoke config's dataset (its comment: 107 classes x 40 PNGs at
+# 96 px), its cuts and the pretraining phase it is given
+VIT_FIT_CLASSES, VIT_FIT_PER_CLASS, VIT_FIT_SIZE = 107, 40, 96
+VIT_FIT_CUTS = [
+    ("DATALOADER", "dataset_path", None, "no data on the machine"),
+    ("TRAIN", "n_epochs", 2, "run time"),
+    ("GENERATOR", "n_batches", 8, "run time"),
+    ("TRAIN", "eval_recall_every", 1, "so recall runs every epoch"),
+    ("TRAIN", "plot_history", False, "the card's machine has no "
+                                     "matplotlib"),
+    ("GENERAL", "work_dir", None, "a temp dir"),
+]
+VIT_FIT_SETTINGS = [("SOFTMAX_PRETRAINING", "n_epochs", 1),
+                    ("SOFTMAX_PRETRAINING", "steps_per_epoch", 4),
+                    ("SOFTMAX_PRETRAINING", "val_steps", 2),
+                    ("SOFTMAX_PRETRAINING", "batch_size", 128)]
+HANDOFF_LOG = "handed to the model's encoder.backbone"
 
 
 @functools.lru_cache(maxsize=None)
@@ -1320,18 +1396,20 @@ def augmented_training_phase(db_classes):
     return launches, device, P_CLASSES * K_SAMPLES / med, images
 
 
-def _write_fit_dataset(root, n_classes=FIT_CLASSES):
-    """A fit's folder dataset: ``n_classes`` classes of FIT_PER_CLASS PNGs
-    of 8x8 colour cells (as phase 8's), written with cv2 on 8 threads."""
+def _write_fit_dataset(root, n_classes=FIT_CLASSES, per_class=FIT_PER_CLASS,
+                       size=64):
+    """A fit's folder dataset: ``n_classes`` classes of ``per_class`` PNGs
+    of 8x8 colour cells (as phase 8's) at ``size`` px, written with cv2 on
+    8 threads."""
     import cv2
     from concurrent.futures import ThreadPoolExecutor
-    classes = np.repeat(np.arange(n_classes), FIT_PER_CLASS)
-    images = cell_images(np.random.default_rng(SEED + 5), classes)
+    classes = np.repeat(np.arange(n_classes), per_class)
+    images = cell_images(np.random.default_rng(SEED + 5), classes, size=size)
 
     def write(i):
         d = os.path.join(root, f"class_{classes[i]:04d}")
         os.makedirs(d, exist_ok=True)
-        if not cv2.imwrite(os.path.join(d, f"{i % FIT_PER_CLASS}.png"),
+        if not cv2.imwrite(os.path.join(d, f"{i % per_class}.png"),
                            images[i]):
             raise OSError(f"cv2 could not write image {i}")
     with ThreadPoolExecutor(8) as pool:
@@ -1561,7 +1639,8 @@ def _resume_check(label, params, loader, trainer):
 def _cli_export(label, path, params, batch):
     """The CLI on the config at ``path``: resume the latest checkpoint, fit
     what is left, export; the exported base model, reloaded, must encode
-    ``batch`` within bf16 rounding of the CLI's Trainer's encoder."""
+    ``batch`` within bf16 rounding of the CLI's Trainer's recall encoder
+    (the weights it exports, L2-normalised in arcface mode)."""
     from embeddingnet_tpu_torch.models.api import EmbeddingNet as Net
     from embeddingnet_tpu_torch.train.steps import make_eval_step
     t0 = time.perf_counter()
@@ -1574,7 +1653,7 @@ def _cli_export(label, path, params, batch):
                    dtype=cli_trainer.compute_dtype).load_model(
         os.path.join(work, "base_model.pt"))
     got = reloaded.encode(batch)
-    want = make_eval_step(cli_trainer.encoder, compute_dtype=(
+    want = make_eval_step(cli_trainer._recall_encoder(), compute_dtype=(
         cli_trainer.compute_dtype))(cli_trainer.state, torch.from_numpy(
             batch)).cpu().numpy()
     err = float(np.abs(got - want).max())
@@ -1849,6 +1928,352 @@ def siamese_phase(smi, tmp):
     return launches
 
 
+def _arcface_from_config(path, label, batch=None):
+    """The ArcFace module, train state and step that the Trainer builds
+    for the config at ``path`` (its backbone, widths, margin, optimizer,
+    schedule, EMA, augmentation and compute dtype), over VIT_CLASSES
+    classes, random weights drawn on the card from SEED; ``batch``
+    overrides the config's. Prints what it takes as ``set`` lines and what
+    it leaves as ``reduced`` lines."""
+    from embeddingnet_tpu_torch.config import parse_params
+    from embeddingnet_tpu_torch.models.registry import ArcFaceModule
+    from embeddingnet_tpu_torch.train.steps import make_arcface_train_step
+    params = parse_params(path)
+    m, g, t, perf = (params.model, params.generator, params.train,
+                     params.performance)
+    dtype = (torch.bfloat16 if perf.compute_dtype == "bfloat16"
+             else torch.float32)
+    batch = batch or g.batch_size
+    print(f"{label}: set from {os.path.relpath(path)}: {m.backbone_name}, "
+          f"input {list(m.input_shape)}, {m.encodings_len}-d, B={batch}, "
+          f"margin {g.margin}, {t.optimizer} lr {t.learning_rate} "
+          f"(warm-up {t.warmup_epochs} epoch of {g.n_batches} steps, decay "
+          f"{t.decay_factor}, weight decay "
+          f"{t.weight_decay if t.optimizer == 'adamw' else None}), EMA "
+          f"{perf.ema_decay}, augmentation {g.augmentations!r}, "
+          f"{perf.compute_dtype}")
+    print(f"{label}: reduced DATALOADER.dataset_path: {VIT_CLASSES} classes "
+          f"of synthetic colour cells (no data on the machine); "
+          f"PERFORMANCE.remat: {perf.remat!r} -> not ported (activations "
+          f"kept)")
+    module = ArcFaceModule(m.backbone_name, encodings_len=m.encodings_len,
+                           n_classes=VIT_CLASSES, dtype=dtype,
+                           input_shape=m.input_shape).to(DEVICE)
+    module.reset_parameters(torch.Generator(DEVICE).manual_seed(SEED))
+    kw = {"weight_decay": t.weight_decay} if t.optimizer == "adamw" else {}
+    spec = get_optimizer(t.optimizer, step_decay_schedule(
+        t.learning_rate, t.decay_factor, t.step_size, g.n_batches,
+        warmup_epochs=t.warmup_epochs), **kw)
+    state = TrainState.create(
+        module, spec, generator=torch.Generator(DEVICE).manual_seed(SEED + 1),
+        ema_decay=perf.ema_decay)
+    step = make_arcface_train_step(
+        module, spec, n_classes=VIT_CLASSES, margin=g.margin,
+        augment_fn=aug.get_aug(g.augmentations), compute_dtype=dtype)
+    n_params = sum(p.numel() for p in module.parameters())
+    flops = _vit_flops(m.backbone_name, m.input_shape, m.encodings_len,
+                       VIT_CLASSES)
+    return (module, state, step, batch, tuple(m.input_shape), n_params,
+            flops)
+
+
+def _vit_flops(backbone, input_shape, encodings_len, n_classes):
+    """(FLOPs of one image's training step, of which attention's score and
+    value products): the forward's multiply-adds from the shapes (patch
+    embedding, each block's projections, products and MLP, the projection,
+    the head and the ArcFace cosines), times 2 for a multiply-add and 3
+    for the forward and the backward."""
+    from embeddingnet_tpu_torch.models import vit
+    kw = vit._VARIANTS[backbone]
+    p, d, depth, heads = kw["patch"], kw["dim"], kw["depth"], kw["heads"]
+    h, w, c = input_shape
+    n = (h // p) * (w // p)
+    tokens = n + 1
+    out = kw.get("proj_dim") or d
+    attention = depth * 2 * tokens * tokens * d
+    macs = (n * p * p * c * d + attention
+            + depth * (tokens * d * 3 * d + tokens * d * d
+                       + 2 * tokens * d * 4 * d)
+            + (tokens * d * out if kw.get("proj_dim") else 0)
+            + out * encodings_len // 2 + encodings_len ** 2 // 2
+            + encodings_len * n_classes)
+    return 6 * macs, 6 * attention
+
+
+def _vit_batches(shape, batch, n, seed):
+    """``n`` uniform batches of colour-cell images (a pool of VIT_POOL
+    images of VIT_CLASSES classes) and their labels, on the card."""
+    rng = np.random.default_rng(seed)
+    classes = rng.integers(0, VIT_CLASSES, VIT_POOL)
+    pool = cell_images(rng, classes, size=shape[0])
+    out = []
+    for _ in range(n):
+        idx = rng.integers(0, VIT_POOL, batch)
+        out.append((torch.from_numpy(pool[idx]).to(DEVICE),
+                    torch.from_numpy(classes[idx]).to(DEVICE)))
+    return out
+
+
+def _vit_profile(state, step, batches):
+    """torch.profiler over ``batches``: the device ms per step, the busy
+    share of the wall, the ten kernels and the ten host-side ops with the
+    most device time of their own, and the VIT_SHARES of the device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for images, labels in batches:
+            step(state, images, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(e.device_time_total for e in kernels)
+    by_kernel = {}
+    for e in kernels:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total
+    by_op = {e.key: e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and e.self_device_time_total > 0}
+    n = len(batches)
+    return {"device_ms": busy_us * 1e-3 / n, "busy": busy_us * 1e-6 / wall,
+            "top_kernels": sorted(by_kernel.items(), key=lambda kv: -kv[1])
+            [:10], "top_ops": sorted(by_op.items(), key=lambda kv: -kv[1])
+            [:10], "top_ops_ms": {k: us * 1e-3 / n for k, us in by_op.items()},
+            "n": n, **{
+                name: sum(by_op.get(k, 0.0) for k in ops) / busy_us
+                for name, ops in VIT_SHARES.items()}}
+
+
+def vit_step_phase(smi, label, path, warmup, timed, batch=None):
+    """Phase 12 (a) and (b): the config's ArcFace step at full width and
+    depth: warm-up, timed steps with every port kernel's launches counted
+    (all must stay 0: a ViT has no 3x3 conv, and the augmented step
+    divides in f32), the median, images/s, peak memory, then the profiled
+    steps' device time, busy share, top kernels and ops and the attention
+    and LayerNorm/activation shares."""
+    t0 = time.perf_counter()
+    module, state, step, batch, shape, n_params, (flops, attn_flops) = (
+        _arcface_from_config(path, label, batch))
+    batches = _vit_batches(shape, batch, warmup + timed + VIT_PROFILED,
+                           SEED + 7)
+    _timed_steps(state, step, batches[:warmup])
+    print(f"{label}: {n_params / 1e6:.1f} M parameters; built and "
+          f"{warmup} warm-up steps in {time.perf_counter() - t0:.1f} s")
+    # ---- the step's path: every launch count from here to the reading
+    fc.reset_launch_counts()
+    pre.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = _timed_steps(state, step,
+                                  batches[warmup:warmup + timed])
+    launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    # ---- end of the step's path ----
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(times))
+    losses = [m["loss"] for m in metrics]
+    step_flops = flops * batch
+    print(f"{label}: {timed} steps of B={batch}: median {med * 1e3:.2f} ms "
+          f"(min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), "
+          f"{batch / med:.0f} img/s, peak memory {peak / 2 ** 30:.2f} GiB "
+          f"[{smi}]")
+    print(f"{label}: {step_flops / 1e12:.2f} TFLOP a step from the shapes "
+          f"({attn_flops * batch / 1e12:.3f} of them attention's score and "
+          f"value products), {step_flops / PEAK_BF16_FLOPS * 1e3:.2f} ms at "
+          f"the dense bf16 peak; {step_flops / med / 1e12:.1f} TFLOP/s at "
+          f"the median")
+    print(f"{label}: losses " + " ".join(f"{l:.4f}" for l in losses))
+    print(f"{label}: port kernel launches over the timed steps: {launches}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: a loss is not finite: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"{label}: a port kernel launched on the ViT "
+                             f"path: {launches}")
+    prof = _vit_profile(state, step, batches[warmup + timed:])
+    print(f"{label}: torch.profiler over {prof['n']} steps: "
+          f"{prof['device_ms']:.2f} ms of device time per step, busy "
+          f"{prof['busy']:.3f} of the profiled wall, "
+          f"{prof['device_ms'] / (med * 1e3):.3f} of the unprofiled "
+          f"median; attention's products and softmax "
+          f"{prof['attention']:.3f} of the device time, LayerNorm and the "
+          f"activations {prof['norm_act']:.3f}, all matmuls "
+          f"{prof['matmul']:.3f}, copies {prof['copy']:.3f}")
+    # attention's products are the only aten::bmm; every other FLOP is
+    # counted as the other matmuls'
+    bmm_ms = prof["top_ops_ms"].get("aten::bmm", 0.0)
+    other_ms = prof["matmul"] * prof["device_ms"] - bmm_ms
+    if bmm_ms and other_ms > 0:
+        print(f"{label}: attention's products {bmm_ms:.2f} ms of device "
+              f"time per step, {attn_flops * batch / bmm_ms / 1e9:.1f} "
+              f"TFLOP/s; the other matmuls {other_ms:.2f} ms, "
+              f"{(flops - attn_flops) * batch / other_ms / 1e9:.1f} TFLOP/s")
+    for name, us in prof["top_ops"]:
+        print(f"  profile top op: {us / prof['n'] / 1e3:8.3f} ms/step  "
+              f"{name}")
+    for name, us in prof["top_kernels"]:
+        print(f"  profile top kernel: {us / prof['n'] / 1e3:8.3f} ms/step  "
+              f"{name[:90]}")
+    del module, state, step, batches
+    torch.cuda.empty_cache()
+
+
+def vit_card_check():
+    """Phase 12 (c): small ViTs of each family under an ArcFaceModule, f32
+    with TF32 off, on the card against the CPU from the same weights and
+    images: the embeddings, the ArcFace loss and every gradient."""
+    import copy
+    from embeddingnet_tpu_torch.models import vit
+    from embeddingnet_tpu_torch.models.registry import ArcFaceModule
+    from embeddingnet_tpu_torch.ops.losses import arcface_loss
+    rng = np.random.default_rng(SEED + 9)
+    images = torch.from_numpy(rng.uniform(0, 1, (16, 64, 64, 3)).astype(
+        np.float32))
+    labels = torch.from_numpy(rng.integers(0, 37, 16))
+    for name, small in VIT_SMALL.items():
+        saved = vit._VARIANTS[name]
+        vit._VARIANTS[name] = small
+        try:
+            cpu = ArcFaceModule(name, encodings_len=64, n_classes=37,
+                                input_shape=(64, 64, 3))
+        finally:
+            vit._VARIANTS[name] = saved
+        cpu.reset_parameters(torch.Generator().manual_seed(SEED))
+        card = copy.deepcopy(cpu).to(DEVICE)
+        out = {}
+        for where, module in (("cpu", cpu), ("card", card)):
+            emb, w = module(images.to("cpu" if where == "cpu" else DEVICE))
+            loss = arcface_loss(emb, labels.to(emb.device), w, margin=0.5,
+                                scale=64.0)
+            loss.backward()
+            out[where] = (emb.detach().cpu(), loss.item(),
+                          {n: p.grad.cpu() for n, p in
+                           module.named_parameters()})
+        (e_cpu, l_cpu, g_cpu), (e_card, l_card, g_card) = (out["cpu"],
+                                                            out["card"])
+        worst = {"embeddings": ((e_card - e_cpu).abs().max()
+                                / e_cpu.abs().max()).item(),
+                 "loss": abs(l_card - l_cpu) / abs(l_cpu)}
+        top = max(g.abs().max().item() for g in g_cpu.values())
+        for n, g in g_cpu.items():
+            scale = top if n.endswith(".attn.key.bias") else \
+                g.abs().max().item()
+            worst[n] = (g_card[n] - g).abs().max().item() / scale
+        key = max(worst, key=worst.get)
+        print(f"vit card check {name} (small: {small}): embeddings "
+              f"{worst['embeddings']:.2e}, loss {l_card:.6f} against "
+              f"{l_cpu:.6f} ({worst['loss']:.2e}), worst of "
+              f"{len(g_cpu)} gradients {key} {worst[key]:.2e}; tolerance "
+              f"{VIT_CARD_TOL:g} of each tensor's largest entry")
+        if not all(np.isfinite(list(worst.values()))) or \
+                worst[key] > VIT_CARD_TOL:
+            raise AssertionError(f"vit card check {name}: {key} off by "
+                                 f"{worst[key]:.2e}")
+
+
+def vit_fit_phase(smi, tmp):
+    """Phase 12 (d) and (e): configs/vit_arcface_smoke.yml fitted through
+    the Trainer after a softmax pretraining phase, on the dataset its
+    comment names, with exact launches; a second Trainer's resume and the
+    CLI's resume and export. Returns the launches over the fit."""
+    from embeddingnet_tpu_torch.config import parse_params
+    from embeddingnet_tpu_torch.data import ENDataLoader
+    from embeddingnet_tpu_torch.train.loop import Trainer
+    root = os.path.join(tmp, "vit")
+    t0 = time.perf_counter()
+    images = _write_fit_dataset(os.path.join(root, "dataset"),
+                                VIT_FIT_CLASSES, VIT_FIT_PER_CLASS,
+                                VIT_FIT_SIZE)
+    print(f"vit fit: wrote {len(images)} PNGs of {VIT_FIT_CLASSES} classes "
+          f"at {VIT_FIT_SIZE} px in {time.perf_counter() - t0:.1f} s")
+    path = _fit_config(root, source=VIT_SMOKE_CONFIG, cuts=VIT_FIT_CUTS,
+                       settings=VIT_FIT_SETTINGS, label="vit fit")
+    params = parse_params(path)
+    loader = ENDataLoader(**{k: params.dataloader[k]
+                             for k in params.dataloader.keys()})
+    logs = []
+
+    def log(line):
+        logs.append(str(line))
+        print(f"vit fit: {line}")
+    trainer = Trainer(params, loader, device=DEVICE, log_fn=log)
+    sp = params.softmax
+    # T2 divides the pretraining's val batches (uint8 -> bf16, eval mode);
+    # the train steps augment and divide in f32, the recall eval divides
+    # in f32, and a ViT has no 3x3 conv
+    expected = {name: 0 for name in {**fc.LAUNCHES, **pre.LAUNCHES}}
+    expected["normalize_u8"] = sp.n_epochs * sp.val_steps
+    print(f"vit fit: predicted launches over the pretraining and the fit: "
+          f"{expected}")
+
+    # ---- the ViT fit's path: every launch count from here to the reading
+    fc.reset_launch_counts()
+    pre.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.pretrain_softmax()
+    torch.cuda.synchronize()
+    pretrain_s = time.perf_counter() - t0
+    history = trainer.fit().history
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0 - pretrain_s
+    launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    # ---- end of the ViT fit's path ----
+    peak = torch.cuda.max_memory_allocated()
+    # T2 at the one shape this path gives it, the pretraining's val batches
+    shape = (sp.batch_size, *params.model.input_shape)
+    x = torch.from_numpy(np.random.default_rng(SEED + 12).integers(
+        0, 256, shape, np.uint8)).to(DEVICE)
+    exact = torch.equal(pre.normalize_u8(x), pre._plain_normalize_u8(x))
+    print(f"vit fit: check normalize_u8 B={shape[0]} {list(shape[1:])}: "
+          f"tolerance exact (0), equal {exact}")
+    if not exact:
+        raise AssertionError("vit fit: normalize_u8 differs from its plain "
+                             "version at the pretraining's val shape")
+    for e, timing in enumerate(trainer.timings):
+        print(f"vit fit: epoch {e}: loss {history['loss'][e]:.4f}, "
+              f"recall@1 {history['val_recall1'][e]:.4f}, recall@5 "
+              f"{history['val_recall5'][e]:.4f}, {timing['epoch_s']:.2f} s "
+              f"(train {timing['train_s']:.2f}, waiting "
+              f"{timing['data_wait_s']:.2f} for batches, recall "
+              f"{timing['recall_s']:.2f}, checkpoint "
+              f"{timing['checkpoint_s']:.2f} s, "
+              f"{timing['checkpoint_bytes'] / 2 ** 20:.1f} MiB), "
+              f"images_per_sec {history['images_per_sec'][e]:.0f} [{smi}]")
+    print(f"vit fit: pretraining {pretrain_s:.1f} s, fit {fit_s:.1f} s, peak "
+          f"memory {peak / 2 ** 30:.2f} GiB; launches {launches}")
+    if not any(HANDOFF_LOG in line for line in logs):
+        raise AssertionError("vit fit: the pretraining logged no handoff")
+    if not np.all(np.isfinite(history["loss"])):
+        raise AssertionError("vit fit: loss not finite")
+    for key in ("val_recall1", "val_recall5"):
+        if len(history[key]) != 2 or not all(0 <= v <= 1
+                                             for v in history[key]):
+            raise AssertionError(f"vit fit: {key} {history[key]}")
+    if launches != expected:
+        raise AssertionError(f"vit fit: launches {launches}, predicted "
+                             f"{expected}")
+    if trainer.ckpt_mgr.latest_epoch() is None:
+        raise AssertionError("vit fit: no checkpoint")
+    _resume_check("vit fit", params, loader, trainer)
+    del trainer
+    _cli_export("vit fit", path, params, images[:64])
+    return launches
+
+
+def vit_phase(smi, tmp):
+    """Phase 12: the ViT/ArcFace path; returns the fit's launches."""
+    t0 = time.perf_counter()
+    vit_step_phase(smi, "vit-b16 step", VIT_CONFIG, VIT_WARMUP, VIT_TIMED)
+    vit_step_phase(smi, "clip vit-l14 step", CLIP_CONFIG, CLIP_WARMUP,
+                   CLIP_TIMED)
+    vit_card_check()
+    launches = vit_fit_phase(smi, tmp)
+    print(f"vit: phase 12 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     smi = check_card()
     # f32 references in full f32: cuDNN's convs default to TF32
@@ -1874,6 +2299,7 @@ def main():
         del cell_db
         warmup_fit_phase(tmp)
         siamese_launches = siamese_phase(smi, tmp)
+        vit_launches = vit_phase(smi, tmp)
     finally:
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1912,6 +2338,7 @@ def main():
                  "replaces": replaces, "launches": launches,
                  "fit_launches": fit_launches[name],
                  "siamese_fit_launches": siamese_launches[name],
+                 "vit_fit_launches": vit_launches[name],
                  "max_abs_err": rec["max_abs_err"], **sums, "per": per}
         if name in LIBRARY_RATIO:
             entry["library_ratio"] = sums["ms"] / sums["library_ms"]

@@ -1,5 +1,5 @@
 """Batch samplers (the port's own copy of ``PKSampler``,
-``TripletSampler`` and ``PairSampler`` in
+``TripletSampler``, ``PairSampler`` and ``SimpleSampler`` in
 ``embeddingnet_tpu/data/samplers.py``).
 
 * :class:`PKSampler`: ``k_classes`` classes without replacement x
@@ -10,6 +10,8 @@
   triplets, which the triplet val epoch draws.
 * :class:`PairSampler`: siamese pairs, one anchor class per batch, the
   first half same-class (target 1), the second half of another class (0).
+* :class:`SimpleSampler`: uniform random (image, class) batches, for the
+  arcface mode and the softmax pretraining.
 
 Each draws from a numpy generator seeded by the caller: the same seed gives
 the same batches as the JAX package's sampler.
@@ -37,6 +39,9 @@ class _SamplerBase:
                           for c in self.class_names}
         self.class_to_id = {c: i for i, c in enumerate(class_names)}
         self.rng = np.random.default_rng(seed)
+
+    def _random_class(self) -> str:
+        return self.class_names[self.rng.integers(self.n_classes)]
 
     def __iter__(self) -> Iterator:
         while True:
@@ -142,3 +147,23 @@ class PairSampler(_SamplerBase):
             right.append(self.class_files_paths[other][
                 int(self.rng.integers(self.n_samples[other]))])
         return (left, right), targets
+
+
+class SimpleSampler(_SamplerBase):
+    """Uniform batches: each of ``batch_size`` rows a random class, then a
+    random image of it; yields ``(paths, int_labels)``."""
+
+    def __init__(self, class_files_paths: ClassFiles,
+                 class_names: Sequence[str], batch_size: int = 32,
+                 seed: int = 0):
+        super().__init__(class_files_paths, class_names, seed)
+        self.batch_size = batch_size
+
+    def sample(self) -> Tuple[List[str], np.ndarray]:
+        paths, labels = [], []
+        for _ in range(self.batch_size):
+            cls = self._random_class()
+            idx = int(self.rng.integers(self.n_samples[cls]))
+            paths.append(self.class_files_paths[cls][idx])
+            labels.append(self.class_to_id[cls])
+        return paths, np.asarray(labels, np.int32)

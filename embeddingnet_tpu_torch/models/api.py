@@ -72,7 +72,8 @@ class EmbeddingNet:
             encodings_len=m["encodings_len"],
             embeddings_normalization=normalize,
             bn_momentum=performance.get("bn_momentum", 0.99),
-            fast_conv=self.fast_conv, dtype=self.dtype)
+            fast_conv=self.fast_conv, dtype=self.dtype,
+            input_shape=m.get("input_shape"))
         generator = torch.Generator().manual_seed(
             int(self.params_general.get("seed", 42)))
         self.module.reset_parameters(generator)
@@ -281,8 +282,8 @@ class EmbeddingNet:
 
     def load_encoder_state(self, state, source: str = "the state dict"):
         """Load an encoder ``state_dict``. Only the ``classifier`` head may
-        be missing (an encoder-only export, or a siamese encoder, keeps a
-        fresh head); any other missing key raises, and keys the model lacks
+        be missing (an encoder-only export, or a siamese or arcface
+        encoder, keeps a fresh head); any other missing key raises, and keys the model lacks
         warn and are ignored."""
         template = self.module.state_dict()
         missing = [k for k in template if k not in state

@@ -5,10 +5,17 @@ The port's modules carry the Flax module names, so the mapping is by leaf:
 
 * conv ``kernel`` [H, W, I, O] -> ``weight`` [O, I, H, W];
 * Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in];
+* attention's DenseGeneral kernels -> Linear ``weight`` [out, in]: the
+  ``query``/``key``/``value`` kernel [D, heads, head_dim] as
+  [D, heads * head_dim], the ``out`` kernel [heads, head_dim, D] as
+  [heads * head_dim, D], each transposed; their [heads, head_dim] biases
+  flattened;
 * ``bias`` -> ``bias``;
-* BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
-  (batch_stats) -> ``weight``/``bias``/``running_mean``/``running_var``,
-  plus a zero ``num_batches_tracked``.
+* BatchNorm and LayerNorm ``scale``/``bias`` (params) and BatchNorm
+  ``mean``/``var`` (batch_stats) -> ``weight``/``bias``/``running_mean``/
+  ``running_var``, plus a zero ``num_batches_tracked``;
+* the raw parameters ``cls_token``, ``pos_embed`` (ViT) and
+  ``class_weights`` (ArcFace) keep their names and shapes.
 """
 
 from __future__ import annotations
@@ -29,6 +36,10 @@ def _leaves(tree: Mapping[str, Any], path: Tuple[str, ...] = ()
             yield path + (key,), np.asarray(value)
 
 
+# parameters that are neither a kernel nor a bias nor a scale
+_RAW = ("cls_token", "pos_embed", "class_weights")
+
+
 def flax_to_torch(variables: Mapping[str, Any],
                   module: nn.Module) -> Dict[str, torch.Tensor]:
     """Convert ``{"params": ..., "batch_stats": ...}`` (numpy or JAX arrays)
@@ -43,17 +54,27 @@ def flax_to_torch(variables: Mapping[str, Any],
         for path, value in _leaves(tree):
             prefix, leaf = ".".join(path[:-1]), path[-1]
             if collection == "params" and leaf == "kernel":
+                if value.ndim == 3:
+                    # DenseGeneral: "out" contracts its first two axes,
+                    # query/key/value produce their last two
+                    value = (value.reshape(-1, value.shape[-1])
+                             if path[-2] == "out"
+                             else value.reshape(value.shape[0], -1))
                 value = (value.transpose(3, 2, 0, 1) if value.ndim == 4
                          else value.T)
                 name = "weight"
             elif collection == "params" and leaf in ("bias", "scale"):
                 name = "weight" if leaf == "scale" else "bias"
+                if value.ndim == 2:           # a DenseGeneral bias
+                    value = value.reshape(-1)
+            elif collection == "params" and leaf in _RAW:
+                name = leaf
             elif collection == "batch_stats" and leaf in ("mean", "var"):
                 name = "running_" + leaf
                 out[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
             else:
                 raise KeyError(f"unknown leaf {collection}/{'/'.join(path)}")
-            out[f"{prefix}.{name}"] = value
+            out[f"{prefix}.{name}" if prefix else name] = value
 
     template = module.state_dict()
     missing = sorted(set(template) - set(out))

@@ -32,15 +32,16 @@ class Dense(nn.Linear):
     """``nn.Linear`` computing in ``compute_dtype`` (Flax ``nn.Dense``)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 compute_dtype: Optional[torch.dtype] = None):
-        super().__init__(in_features, out_features)
+                 compute_dtype: Optional[torch.dtype] = None,
+                 bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype or torch.promote_types(x.dtype,
                                                           self.weight.dtype)
-        return F.linear(x.to(dtype), self.weight.to(dtype),
-                        self.bias.to(dtype))
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
 
 
 class EmbeddingHead(nn.Module):

@@ -1,8 +1,8 @@
 """Loss functions and metrics (port of ``embeddingnet_tpu/ops/losses.py``):
 the contrastive loss and pair accuracy of siamese training, the triplet
-hinge on a concatenated ``[a‖p‖n]`` embedding and on separate ones.
-``softmax_cross_entropy`` and ``arcface_loss`` come with their train steps
-(``ROADMAP.md``, item 11).
+hinge on a concatenated ``[a‖p‖n]`` embedding and on separate ones, the
+softmax cross-entropy of the pretraining phase and the ArcFace
+additive-angular-margin loss.
 """
 
 from __future__ import annotations
@@ -51,3 +51,46 @@ def accuracy(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
     pair closer than 0.5 is called same-class."""
     pred = (y_pred < 0.5).to(y_true.dtype)
     return (y_true == pred).float().mean()
+
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          onehot: torch.Tensor) -> torch.Tensor:
+    """Categorical cross-entropy, ``-mean(sum(onehot * log_softmax))``,
+    with the log-softmax written as the JAX function writes it."""
+    m = logits.amax(-1, keepdim=True)
+    log_probs = (logits - torch.log(torch.exp(logits - m).sum(
+        -1, keepdim=True)) - m)
+    return -(onehot * log_probs).sum(-1).mean()
+
+
+def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """f32 ``[B, num_classes]`` one-hot rows of integer ``labels``."""
+    classes = torch.arange(num_classes, device=labels.device)
+    return (labels[:, None] == classes[None, :]).float()
+
+
+def arcface_loss(embeddings: torch.Tensor, labels: torch.Tensor,
+                 class_weights: torch.Tensor, *, margin: float = 0.5,
+                 scale: float = 64.0) -> torch.Tensor:
+    """ArcFace (Deng et al. 2019): the embeddings [B, D] and the class
+    weights [C, D] L2-normalised, ``cos`` their f32 product clipped to
+    +-(1 - 1e-7), the target class's angle ``arccos(cos)`` widened by
+    ``margin`` (no easy-margin branch), logits ``scale`` times the cosines,
+    then :func:`softmax_cross_entropy`.
+
+    ``cos`` wants f32 products: at scale 64 a TF32 ``cos`` moves the
+    logits by about 0.06, so callers on a card keep TF32 off. At a cosine
+    exactly on the clip, JAX's ``clip`` gives half the gradient to each
+    side and ``torch.clamp`` all of it to one; the parity tests' inputs
+    stay off the clip."""
+    def normalize(x):
+        return x / torch.linalg.vector_norm(x, dim=-1,
+                                            keepdim=True).clamp_min(1e-12)
+
+    cos = torch.clamp(normalize(embeddings).float()
+                      @ normalize(class_weights).float().T,
+                      -1.0 + 1e-7, 1.0 - 1e-7)
+    onehot = one_hot(labels, class_weights.shape[0])
+    target_cos = torch.cos(torch.arccos(cos) + margin)
+    logits = scale * torch.where(onehot > 0, target_cos, cos)
+    return softmax_cross_entropy(logits, onehot)

@@ -1,25 +1,29 @@
 """The training loop: config + data -> trained embedding model (port of
-``embeddingnet_tpu/train/loop.py`` ``Trainer``, triplet and siamese modes).
+``embeddingnet_tpu/train/loop.py`` ``Trainer``: the triplet, siamese and
+arcface modes and the softmax pretraining).
 
 One :class:`Trainer` drives the epochs of a run: batches decoded on host
 threads (:class:`~embeddingnet_tpu_torch.data.pipeline.BatchLoader`, with
-the decode cache) — P-K batches for triplet mode, pairs for siamese mode —
+the decode cache) — P-K batches for triplet mode, pairs for siamese mode,
+uniform batches for arcface mode —
 copied to the device from pinned memory one batch ahead, the train step
 (with its mining, in triplet mode); then the val epoch on offline triplets
-or pairs, recall@1/@5 by kNN every ``TRAIN.eval_recall_every`` epochs,
+or pairs (arcface mode has none and monitors the train loss), recall@1/@5
+by kNN every ``TRAIN.eval_recall_every`` epochs,
 the plateau scale, the best checkpoint and early stopping. With
 ``TRAIN.mining_warmup_epochs`` the first epochs mine with
 ``TRAIN.mining_warmup_mode`` and the step is rebuilt at the stage
 boundary. It resumes a run from a checkpoint with the same parameters,
 optimizer state, random state and callbacks as an uninterrupted one.
+:meth:`Trainer.pretrain_softmax` runs the ``SOFTMAX_PRETRAINING`` phase
+and hands its backbone to the encoder.
 
 It runs on the device it is given (``cuda`` unless the caller asks for
 ``cpu``) and never falls back: not to the CPU when there is no card, nor
 to cuDNN when a kernel of ``PERFORMANCE.pallas_conv`` fails. What the port
 lacks raises ``NotImplementedError`` at construction, naming its
-``ROADMAP.md`` item: the arcface mode and softmax pretraining (item 11),
-pretrained backbone weights (item 12), more than one device (item 13) and
-bf16 master weights (item 16).
+``ROADMAP.md`` item: pretrained backbone weights (item 12), more than one
+device (item 13) and bf16 master weights (item 16).
 """
 
 from __future__ import annotations
@@ -34,10 +38,14 @@ import torch
 
 from embeddingnet_tpu_torch.data.pipeline import BatchLoader, DecodeCache
 from embeddingnet_tpu_torch.data.samplers import (PairSampler, PKSampler,
+                                                  SimpleSampler,
                                                   TripletSampler)
-from embeddingnet_tpu_torch.models.registry import (EmbeddingModule,
+from embeddingnet_tpu_torch.models.registry import (ArcFaceModule,
+                                                    EmbeddingModule,
                                                     SiameseModule,
-                                                    backbone_param_mask)
+                                                    SoftmaxModule,
+                                                    backbone_param_mask,
+                                                    transfer_backbone_params)
 from embeddingnet_tpu_torch.ops.augment import augment_from_params
 from embeddingnet_tpu_torch.train import callbacks as cb
 from embeddingnet_tpu_torch.train import checkpoint as ckpt
@@ -45,8 +53,8 @@ from embeddingnet_tpu_torch.train import optim, steps
 from embeddingnet_tpu_torch.train.state import TrainState
 from embeddingnet_tpu_torch.utils.logging import MetricsLogger
 
-# the MODEL.mode values the port trains (every mining mode runs)
-PORTED_MODES = ("triplet", "siamese")
+# the modes whose module nests the encoder under ``encoder``
+_NESTED = ("siamese", "arcface")
 
 
 class Trainer:
@@ -110,14 +118,6 @@ class Trainer:
         """Raise ``NotImplementedError`` for what the port cannot run yet,
         before anything is built or written."""
         p = self.params
-        if self.mode not in PORTED_MODES:
-            raise NotImplementedError(
-                f"MODEL.mode {self.mode!r} is not ported to PyTorch yet (see "
-                f"ROADMAP.md, item 11); ported: {list(PORTED_MODES)}")
-        if p.softmax is not None:
-            raise NotImplementedError(
-                "SOFTMAX_PRETRAINING is not ported to PyTorch yet (see "
-                "ROADMAP.md, item 11)")
         if p.model.backbone_weights is not None:
             raise NotImplementedError(
                 f"MODEL.backbone_weights {p.model.backbone_weights!r}: "
@@ -138,9 +138,12 @@ class Trainer:
                 "not ported to PyTorch yet (see ROADMAP.md, item 16)")
 
     def _monitor(self) -> str:
-        # TRAIN.monitor overrides; else val_loss when validating, else loss
+        # TRAIN.monitor overrides; else val_loss when validating, else
+        # loss; arcface mode has no val epoch, so loss
         if self.params.train.monitor:
             return self.params.train.monitor
+        if self.mode == "arcface":
+            return "loss"
         return "val_loss" if self.data_loader.validate else "loss"
 
     def _build_module(self):
@@ -155,30 +158,45 @@ class Trainer:
                 embeddings_normalization=m.embeddings_normalization,
                 distance_type=m.distance_type,
                 fast_conv=self.params.performance.pallas_conv,
-                dtype=self.compute_dtype)
+                dtype=self.compute_dtype, input_shape=m.input_shape)
+        elif self.mode == "arcface":
+            # the encoder trains without the normalisation (the loss
+            # normalises); recall and export add it (_new_encoder)
+            self.module = ArcFaceModule(
+                backbone_name=m.backbone_name,
+                encodings_len=m.encodings_len,
+                n_classes=self.data_loader.n_classes,
+                embeddings_normalization=False,
+                fast_conv=self.params.performance.pallas_conv,
+                dtype=self.compute_dtype, input_shape=m.input_shape)
         else:
             self.module = self._new_encoder()
         self.module.reset_parameters(
             torch.Generator().manual_seed(self.params.general.seed))
         self.module.to(self.device)
-        self._ema_module = None
+        self._view = None
 
     def _new_encoder(self) -> EmbeddingModule:
         """An encoder of the config's architecture (the triplet model, or
-        the eval/export view of the siamese one, without the classifier
-        the siamese tree lacks)."""
+        the eval/export view of the siamese or arcface one, without the
+        classifier their trees lack). The arcface view L2-normalises, as
+        the JAX ``encoder_module`` does: the mode trains cosine structure
+        only, so retrieval lives on the hypersphere."""
         m = self.params.model
         return EmbeddingModule(
             backbone_name=m.backbone_name, encodings_len=m.encodings_len,
-            embeddings_normalization=m.embeddings_normalization,
+            embeddings_normalization=(m.embeddings_normalization
+                                      or self.mode == "arcface"),
             bn_momentum=self.params.performance.bn_momentum,
             fast_conv=self.params.performance.pallas_conv,
-            dtype=self.compute_dtype, classifier=self.mode != "siamese")
+            dtype=self.compute_dtype, classifier=self.mode == "triplet",
+            input_shape=m.input_shape)
 
     @property
     def encoder(self) -> EmbeddingModule:
-        """The live encoder: the module, or the siamese module's."""
-        return self.module.encoder if self.mode == "siamese" else self.module
+        """The live encoder: the module, or the siamese or arcface
+        module's."""
+        return self.module.encoder if self.mode in _NESTED else self.module
 
     def _build_optimizer(self):
         t = self.params.train
@@ -221,6 +239,13 @@ class Trainer:
             self.eval_step = steps.make_siamese_eval_step(
                 self.module, compute_dtype=self.compute_dtype)
             return
+        if self.mode == "arcface":
+            self.train_step = steps.make_arcface_train_step(
+                self.module, self.optimizer,
+                n_classes=self.data_loader.n_classes, margin=g.margin,
+                augment_fn=self.augment_fn, compute_dtype=self.compute_dtype)
+            self.eval_step = None
+            return
         self.train_step = steps.make_triplet_train_step(
             self.module, self.optimizer, margin=g.margin,
             mode=self._mining_mode, augment_fn=self.augment_fn,
@@ -245,6 +270,10 @@ class Trainer:
             sampler = PairSampler(self.data_loader.train_data,
                                   self.data_loader.class_names,
                                   batch_size=g.batch_size, seed=seed)
+        elif self.mode == "arcface":
+            sampler = SimpleSampler(self.data_loader.train_data,
+                                    self.data_loader.class_names,
+                                    batch_size=g.batch_size, seed=seed)
         else:
             sampler = PKSampler(self.data_loader.train_data,
                                 self.data_loader.class_names,
@@ -256,6 +285,8 @@ class Trainer:
                            cache=self._decode_cache)
 
     def _val_loader(self):
+        if self.mode == "arcface":
+            return None
         if not self.data_loader.validate or not self.data_loader.val_data:
             return None
         g = self.params.generator
@@ -576,25 +607,127 @@ class Trainer:
 
     def _recall_encoder(self) -> torch.nn.Module:
         """The encoder in eval mode with :meth:`encoder_variables`: the live
-        one, or with EMA a second module holding the EMA weights."""
-        if self.state.ema is None:
+        one, or (with EMA, or in arcface mode, whose view normalises) a
+        second module from :meth:`_new_encoder` holding them."""
+        if self.state.ema is None and self.mode != "arcface":
             return self.encoder.eval()
-        if self._ema_module is None:
-            self._ema_module = self._new_encoder().to(self.device)
-        self._ema_module.load_state_dict(self.encoder_variables())
-        return self._ema_module.eval()
+        if self._view is None:
+            self._view = self._new_encoder().to(self.device)
+        self._view.load_state_dict(self.encoder_variables())
+        return self._view.eval()
 
     # -- export ------------------------------------------------------------
 
     def encoder_variables(self) -> dict:
         """The encoder's ``state_dict`` for export and recall (in siamese
-        mode the siamese module's encoder, without the distance head): the
-        EMA parameters when ``PERFORMANCE.ema_decay`` is on, with the live
-        BatchNorm statistics; else the live encoder's."""
+        and arcface mode the module's encoder, without the distance head or
+        the class weights): the EMA parameters when
+        ``PERFORMANCE.ema_decay`` is on, with the live BatchNorm
+        statistics; else the live encoder's."""
         out = dict(self.encoder.state_dict())
         if self.state.ema is not None:
-            prefix = "encoder." if self.mode == "siamese" else ""
+            prefix = "encoder." if self.mode in _NESTED else ""
             out.update({name[len(prefix):]: value
                         for name, value in self.state.ema.items()
                         if name.startswith(prefix)})
         return out
+
+    # -- softmax pretraining -----------------------------------------------
+
+    def pretrain_softmax(self) -> Optional[TrainState]:
+        """The ``SOFTMAX_PRETRAINING`` phase (the JAX
+        ``Trainer.pretrain_softmax``): a :class:`SoftmaxModule` whose
+        backbone starts with the encoder's parameters (its BatchNorm
+        statistics fresh, as in JAX) trains with the section's
+        optimizer and step-decay schedule on :class:`SimpleSampler` batches
+        (seeds ``GENERAL.seed`` + 11, and + 12 for the val batches), under
+        a plateau scale (patience 4) and an early stop (patience 10) on
+        ``val_loss`` (``loss`` without val batches); the best epoch's
+        weights are kept, saved to ``pretraining_weights/backbone.pt`` and
+        the backbone handed to the encoder. The main optimizer's moments
+        and the EMA keep their start, as in JAX. Returns the pretraining's
+        state, or None without the section."""
+        sp = self.params.softmax
+        if sp is None:
+            return None
+        m, seed = self.params.model, self.params.general.seed
+        dl = self.data_loader
+        module = SoftmaxModule(m.backbone_name, n_classes=dl.n_classes,
+                               dtype=self.compute_dtype,
+                               input_shape=m.input_shape)
+        module.reset_parameters(torch.Generator().manual_seed(seed + 7))
+        module.to(self.device)
+        transfer_backbone_params(self.encoder, module)
+        optimizer = optim.get_optimizer(sp.optimizer, optim.step_decay_schedule(
+            sp.learning_rate, sp.decay_factor, sp.step_size,
+            sp.steps_per_epoch))
+        state = TrainState.create(
+            module, optimizer, generator=torch.Generator(
+                device=self.device).manual_seed(seed + 7))
+        train_step = steps.make_softmax_train_step(
+            module, optimizer, n_classes=dl.n_classes,
+            augment_fn=self.augment_fn, compute_dtype=self.compute_dtype)
+        eval_step = steps.make_softmax_eval_step(
+            module, n_classes=dl.n_classes, compute_dtype=self.compute_dtype)
+        sampler = SimpleSampler(dl.train_data, dl.class_names,
+                                batch_size=sp.batch_size, seed=seed + 11)
+        validate = bool(dl.validate and dl.val_data and sp.val_steps > 0)
+        val_sampler = SimpleSampler(
+            dl.val_data, dl.class_names, batch_size=sp.batch_size,
+            seed=seed + 12) if validate else None
+        monitor = "val_loss" if validate else "loss"
+        plateau = cb.ReduceLROnPlateau(monitor=monitor, patience=4)
+        early = cb.EarlyStopping(monitor=monitor, patience=10)
+        best_value, best = float("inf"), None
+        for epoch in range(sp.n_epochs):
+            state, metrics = self._pretrain_epoch(
+                state, train_step, eval_step, sampler, val_sampler, sp)
+            if metrics.get(monitor, float("inf")) < best_value:
+                best_value = metrics[monitor]
+                best = {k: v.detach().clone()
+                        for k, v in module.state_dict().items()}
+            state.plateau_scale = plateau.update(metrics)
+            self.log(f"softmax-pretrain epoch {epoch}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in metrics.items()))
+            if early.update(metrics):
+                break
+        if best is not None:
+            module.load_state_dict(best)
+        torch.save({k: v.cpu() for k, v in module.state_dict().items()},
+                   os.path.join(self.paths["pretraining_weights"],
+                                "backbone.pt"))
+        self._finish_pretrain(module)
+        return state
+
+    def _pretrain_epoch(self, state, train_step, eval_step, sampler,
+                        val_sampler, sp):
+        """One pretraining epoch: ``sp.steps_per_epoch`` train steps, then
+        ``sp.val_steps`` val batches when ``val_sampler`` is given; returns
+        ``(state, metrics)``, the metrics averaged over the batches."""
+        shape = self.params.model.input_shape
+        totals, count = None, 0
+        loader = BatchLoader(sampler, shape, n_batches=sp.steps_per_epoch)
+        for images, labels in self._device_prefetch(loader):
+            state, metrics = train_step(state, images, labels)
+            totals = self._accumulate(totals, metrics)
+            count += 1
+        out = {k: float(v) / max(count, 1) for k, v in (totals or {}).items()}
+        if val_sampler is not None:
+            totals, count = None, 0
+            loader = BatchLoader(val_sampler, shape, n_batches=sp.val_steps)
+            for images, labels in self._device_prefetch(loader):
+                totals = self._accumulate(totals,
+                                          eval_step(state, images, labels))
+                count += 1
+            out.update({f"val_{k}": float(v) / max(count, 1)
+                        for k, v in (totals or {}).items()})
+        return state, out
+
+    def _finish_pretrain(self, module: SoftmaxModule) -> None:
+        """Hand the pretrained backbone (parameters and BatchNorm
+        statistics) to the encoder."""
+        transfer_backbone_params(module, self.encoder, statistics=True)
+        where = "encoder.backbone" if self.mode in _NESTED else "backbone"
+        self.log(f"softmax pretraining: the pretrained backbone "
+                 f"({len(module.backbone.state_dict())} tensors) handed to "
+                 f"the model's {where}")

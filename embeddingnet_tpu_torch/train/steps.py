@@ -1,6 +1,7 @@
-"""The triplet and siamese train and eval steps (port of
-``make_triplet_train_step``, ``make_triplet_eval_step``,
-``make_siamese_train_step``, ``make_siamese_eval_step`` and
+"""The train and eval steps (port of ``make_triplet_train_step``,
+``make_triplet_eval_step``, ``make_siamese_train_step``,
+``make_siamese_eval_step``, ``make_arcface_train_step``,
+``make_softmax_train_step``, ``make_softmax_eval_step`` and
 ``make_eval_step`` in ``embeddingnet_tpu/train/steps.py``).
 
 One triplet train step: uint8 P-K batch -> [augmentation in 0..255 ->]
@@ -11,7 +12,12 @@ update with the learning rate of the schedule at this step times the
 state's plateau scale -> the parameters' EMA, where the state keeps one.
 A siamese step does the same for a batch of pairs, through the
 :class:`~embeddingnet_tpu_torch.models.registry.SiameseModule` (the encoder
-once per stream), with the contrastive loss on the pair distances.
+once per stream), with the contrastive loss on the pair distances. An ArcFace step runs an
+:class:`~embeddingnet_tpu_torch.models.registry.ArcFaceModule` and the
+ArcFace loss on its f32 embeddings and class weights; a softmax
+pretraining step a :class:`~embeddingnet_tpu_torch.models.registry.
+SoftmaxModule` and the cross-entropy of its f32 logits. Neither adds the
+L2 penalty, as in JAX.
 
 The random draws (augmentation, mining) come from ``state.generator``
 unless the caller passes them, in this order: the augmentation's (per
@@ -29,7 +35,9 @@ import torch
 
 from embeddingnet_tpu_torch.ops import mining
 from embeddingnet_tpu_torch.ops.augment import Augment, Draws
-from embeddingnet_tpu_torch.ops.losses import (accuracy, contrastive_loss,
+from embeddingnet_tpu_torch.ops.losses import (accuracy, arcface_loss,
+                                               contrastive_loss, one_hot,
+                                               softmax_cross_entropy,
                                                triplet_hinge)
 from embeddingnet_tpu_torch.ops.preprocess import preprocess
 from embeddingnet_tpu_torch.train.optim import (OptimizerSpec, l2_penalty,
@@ -216,6 +224,92 @@ def make_siamese_eval_step(module: torch.nn.Module, *,
         d = d.float()
         return {"loss": contrastive_loss(targets, d, contrastive_margin),
                 "accuracy": accuracy(targets, d)}
+
+    return step
+
+
+def make_arcface_train_step(module: torch.nn.Module,
+                            optimizer: OptimizerSpec, *, n_classes: int,
+                            margin: float = 0.5, scale: float = 64.0,
+                            augment_fn: Optional[Augment] = None,
+                            compute_dtype: torch.dtype = torch.float32):
+    """ArcFace step; returns ``step(state, images_u8, labels,
+    aug_draws=None) -> (state, {"loss"})``. ``module`` is an
+    :class:`~embeddingnet_tpu_torch.models.registry.ArcFaceModule` with
+    ``n_classes`` class weights; the loss takes its embeddings and class
+    weights in f32. The augmentation's draws come from ``state.generator``
+    unless ``aug_draws`` gives them."""
+
+    def step(state: TrainState, images, labels,
+             aug_draws: Optional[List[Draws]] = None
+             ) -> Tuple[TrainState, dict]:
+        if state.module is not module:
+            raise ValueError("the state was created for another module")
+        module.train()
+        device, (images, labels) = _on_device(module, images, labels)
+        x = _preprocess(images, compute_dtype, augment_fn, state.generator,
+                        aug_draws)
+        emb, weights = module(x)
+        if weights.shape[0] != n_classes:
+            raise ValueError(f"the module has {weights.shape[0]} class "
+                             f"weights, the step {n_classes} classes")
+        loss = arcface_loss(emb.float(), labels, weights.float(),
+                            margin=margin, scale=scale)
+        _backward_and_update(state, module, optimizer, loss, (), device)
+        return state, {"loss": loss.detach()}
+
+    return step
+
+
+def _softmax_metrics(logits: torch.Tensor, labels: torch.Tensor,
+                     n_classes: int):
+    """(cross-entropy, accuracy) of f32 ``logits``."""
+    loss = softmax_cross_entropy(logits, one_hot(labels, n_classes))
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return loss, acc
+
+
+def make_softmax_train_step(module: torch.nn.Module,
+                            optimizer: OptimizerSpec, *, n_classes: int,
+                            augment_fn: Optional[Augment] = None,
+                            compute_dtype: torch.dtype = torch.float32):
+    """Softmax pretraining step; returns ``step(state, images_u8, labels,
+    aug_draws=None) -> (state, {"loss", "accuracy"})``. ``module`` is a
+    :class:`~embeddingnet_tpu_torch.models.registry.SoftmaxModule`; the
+    cross-entropy of its f32 logits is differentiated. Draws as
+    :func:`make_arcface_train_step`'s."""
+
+    def step(state: TrainState, images, labels,
+             aug_draws: Optional[List[Draws]] = None
+             ) -> Tuple[TrainState, dict]:
+        if state.module is not module:
+            raise ValueError("the state was created for another module")
+        module.train()
+        device, (images, labels) = _on_device(module, images, labels)
+        x = _preprocess(images, compute_dtype, augment_fn, state.generator,
+                        aug_draws)
+        logits = module(x).float()
+        loss, acc = _softmax_metrics(logits, labels, n_classes)
+        _backward_and_update(state, module, optimizer, loss, (), device)
+        return state, {"loss": loss.detach(), "accuracy": acc.detach()}
+
+    return step
+
+
+def make_softmax_eval_step(module: torch.nn.Module, *, n_classes: int,
+                           compute_dtype: torch.dtype = torch.float32):
+    """Val cross-entropy and accuracy of the softmax pretraining, the
+    module in eval mode; ``step(state, images_u8, labels) -> {"loss",
+    "accuracy"}`` (device scalars). :func:`preprocess` runs T2 for uint8
+    to bf16."""
+
+    @torch.no_grad()
+    def step(state, images, labels) -> dict:
+        module.eval()
+        _, (images, labels) = _on_device(module, images, labels)
+        logits = module(preprocess(images, compute_dtype)).float()
+        loss, acc = _softmax_metrics(logits, labels, n_classes)
+        return {"loss": loss, "accuracy": acc}
 
     return step
 

@@ -4,8 +4,9 @@ with the affine-ReLU epilogue T1 — all in csrc/conv3x3_sm90.cu, the
 TMA/wgmma design, K3 and K4 with the BN-ReLU prologue on the landed input
 tile, T1 with the epilogue on the accumulators — and the u8 normalisation
 T2) against their plain
-PyTorch versions, the modules that launch them, forward and backward, and
-the augmentation presets on the card against the CPU.
+PyTorch versions, the modules that launch them, forward and backward, the
+augmentation presets, the miner, and the ViT forward and the ArcFace loss
+on the card against the CPU.
 They skip on a machine without a card. On the card, run them with
 
     python -m pytest tests/test_torch_port_cuda.py -q -m cuda --noconftest
@@ -602,3 +603,57 @@ def test_mining_on_the_card_matches_the_cpu(card, mode, path):
     for name in want[3]:
         assert torch.equal(got[3][name], want[3][name]), name
     assert got[1][0] > 0              # triplets were mined
+
+
+# the ViT/ArcFace path (no kernel of the port: plain PyTorch ops), f32 with
+# TF32 off, card against CPU from the same weights and inputs: sums in
+# another order, to 1e-5 of each tensor's largest entry
+VIT_SMALL = {"vit-b16": dict(patch=16, dim=128, depth=2, heads=4),
+             "vit-l14": dict(patch=16, dim=128, depth=2, heads=4,
+                             ln_pre=True, use_quick_gelu=True,
+                             patch_bias=False, proj_dim=96, ln_eps=1e-5)}
+VIT_CARD_TOL = 1e-5
+
+
+def _rel(got, want):
+    return ((got.cpu().double() - want.double()).abs().max()
+            / want.double().abs().max()).item()
+
+
+@pytest.mark.parametrize("name", sorted(VIT_SMALL))
+def test_vit_forward_on_the_card_matches_the_cpu(card, name, monkeypatch):
+    import copy
+    from embeddingnet_tpu_torch.models import vit
+    from embeddingnet_tpu_torch.models.registry import EmbeddingModule
+    monkeypatch.setitem(vit._VARIANTS, name, VIT_SMALL[name])
+    cpu = EmbeddingModule(name, encodings_len=64, input_shape=(64, 64, 3))
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(card)
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (16, 64, 64, 3)).astype(np.float32))
+    with torch.no_grad():
+        assert _rel(gpu.features(x.to(card)), cpu.features(x)) \
+            < VIT_CARD_TOL
+        assert _rel(gpu(x.to(card)), cpu(x)) < VIT_CARD_TOL
+    assert fc.LAUNCHES == _launched()
+
+
+def test_arcface_loss_on_the_card_matches_the_cpu(card):
+    from embeddingnet_tpu_torch.ops.losses import arcface_loss
+    rng = np.random.default_rng(2)
+    emb = torch.from_numpy(rng.normal(size=(256, 512)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(1000, 512)) * 0.01).astype(
+        np.float32))
+    labels = torch.from_numpy(rng.integers(0, 1000, 256))
+    out = []
+    for device in ("cpu", card):
+        e = emb.to(device).detach().requires_grad_()
+        cw = w.to(device).detach().requires_grad_()
+        loss = arcface_loss(e, labels.to(device), cw, margin=0.5,
+                            scale=64.0)
+        loss.backward()
+        out.append((loss.detach().cpu(), e.grad.cpu(), cw.grad.cpu()))
+    (l_cpu, ge_cpu, gw_cpu), (l_gpu, ge_gpu, gw_gpu) = out
+    assert _rel(l_gpu, l_cpu) < VIT_CARD_TOL
+    assert _rel(ge_gpu, ge_cpu) < VIT_CARD_TOL
+    assert _rel(gw_gpu, gw_cpu) < VIT_CARD_TOL

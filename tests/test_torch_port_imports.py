@@ -4,7 +4,7 @@ are installed: in a fresh interpreter with ``jax``, ``flax``, ``optax``,
 ``triton`` blocked, every module of the port imports, and a small CPU
 encode plus kNN vote, the HTTP server's ``/healthz``, the dataset index of
 a folder and of a CSV, a small CPU triplet train step with the ``default``
-augmentation and the T1 A/B tool run; with cv2 allowed (it decodes), a
+augmentation, a ViT encode and an ArcFace step, and the T1 A/B tool run; with cv2 allowed (it decodes), a
 ``Trainer`` fits one epoch on the CPU, and so do a siamese ``Trainer``
 (radam) and a triplet one whose warm-up switches its mining mode, after
 every mining mode ran on each of its paths and rms_prop took a step. No
@@ -40,6 +40,7 @@ MODULES = [
     "embeddingnet_tpu_torch.ops.fused_conv",
     "embeddingnet_tpu_torch.models.heads",
     "embeddingnet_tpu_torch.models.resnet",
+    "embeddingnet_tpu_torch.models.vit",
     "embeddingnet_tpu_torch.models.registry",
     "embeddingnet_tpu_torch.models.convert",
     "embeddingnet_tpu_torch.models.api",
@@ -143,6 +144,29 @@ state, metrics = step(state, torch.from_numpy(imgs[np.arange(8) % 6]),
                       labels)
 assert state.step == 1 and torch.isfinite(metrics["loss"])
 assert int(metrics["n_triplets"]) > 0
+
+# a small ViT: an arcface encode (unit norm) and one ArcFace step
+from embeddingnet_tpu_torch.models import vit
+from embeddingnet_tpu_torch.models.registry import ArcFaceModule
+from embeddingnet_tpu_torch.train.steps import make_arcface_train_step
+vit._VARIANTS["vit-b16"] = dict(patch=8, dim=32, depth=2, heads=4)
+vparams = {{"model": {{"backbone_name": "vit-b16", "encodings_len": 16,
+                       "embeddings_normalization": False, "mode": "arcface",
+                       "input_shape": [32, 32, 3]}}, "general": {{"seed": 3}}}}
+vemb = EmbeddingNet(vparams, device="cpu").encode(imgs)
+assert vemb.shape == (6, 16)
+norms = np.linalg.norm(vemb, axis=1)      # 0 where the ReLU zeroed a row
+assert (norms > 0).any() and np.allclose(norms[norms > 0], 1.0, atol=1e-5)
+arc = ArcFaceModule("vit-b16", encodings_len=16, n_classes=3,
+                    input_shape=(32, 32, 3))
+arc.reset_parameters(torch.Generator().manual_seed(0))
+aspec = get_optimizer("adamw", 1e-3)
+astate = TrainState.create(arc, aspec)
+astep = make_arcface_train_step(arc, aspec, n_classes=3,
+                                augment_fn=get_aug("deepfake"))
+astate, ametrics = astep(astate, torch.from_numpy(imgs),
+                         torch.arange(6) % 3)
+assert astate.step == 1 and torch.isfinite(ametrics["loss"])
 
 # the T1 A/B tool, plain version
 import os, runpy

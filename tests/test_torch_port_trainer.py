@@ -8,7 +8,8 @@ A fit reports its metrics and writes the work-dir tree; a run resumed from
 its epoch-0 checkpoint ends bit for bit where an uninterrupted run does;
 the plateau scale and early stopping act on the applied learning rate;
 the EMA and the freeze mask do what the JAX optimizer chain does; what the
-port lacks raises at construction; the CLI's exported model encodes as the
+port lacks raises at construction, and the arcface mode and the softmax
+pretraining construct; the CLI's exported model encodes as the
 Trainer's encoder does."""
 
 import json
@@ -256,14 +257,11 @@ def test_resume_without_a_checkpoint_raises(tiny_dataset, tmp_path):
 
 
 @pytest.mark.parametrize("sections,item", [
-    ({"MODEL": {"mode": "arcface"}}, 11),
-    ({"SOFTMAX_PRETRAINING": {"n_epochs": 1}}, 11),
     ({"MODEL": {"backbone_weights": "imagenet"}}, 12),
     ({"MESH": {"model": 2}}, 13),
     ({"MESH": {"data": 2}}, 13),
     ({"PERFORMANCE": {"params_dtype": "bfloat16"}}, 16),
-], ids=["arcface", "softmax_pretraining", "backbone_weights", "mesh_model",
-        "mesh_data", "bf16_params"])
+], ids=["backbone_weights", "mesh_model", "mesh_data", "bf16_params"])
 def test_unported_settings_raise_at_construction(tiny_dataset, tmp_path,
                                                  sections, item):
     cfg = _cfg(tiny_dataset, tmp_path, **sections)
@@ -271,6 +269,25 @@ def test_unported_settings_raise_at_construction(tiny_dataset, tmp_path,
                                                   rf"{item}\b"):
         _trainer(cfg)
     assert not (tmp_path / "run").exists()      # nothing was written
+
+
+@pytest.mark.parametrize("sections", [
+    {"MODEL": {"mode": "arcface"}},
+    {"SOFTMAX_PRETRAINING": {"n_epochs": 1}},
+], ids=["arcface", "softmax_pretraining"])
+def test_ported_settings_construct_and_write_nothing_until_fit(
+        tiny_dataset, tmp_path, sections):
+    """The arcface mode and the softmax pretraining, which raised before
+    they were ported, construct; the Trainer writes nothing before it
+    trains (the work-dir tree and an empty metrics log)."""
+    trainer = _trainer(_cfg(tiny_dataset, tmp_path, **sections))
+    assert trainer.mode == sections.get("MODEL", {}).get("mode", "triplet")
+    assert (trainer.params.softmax is not None) == (
+        "SOFTMAX_PRETRAINING" in sections)
+    assert trainer.ckpt_mgr.latest_epoch() is None
+    written = [os.path.join(d, f) for d, _, fs in os.walk(tmp_path / "run")
+               for f in fs if os.path.getsize(os.path.join(d, f))]
+    assert not written, written
 
 
 def test_trainer_and_cli_default_to_the_card(tiny_dataset, tmp_path):

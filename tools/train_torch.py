@@ -2,8 +2,10 @@
 """Train CLI of the PyTorch port: ``python tools/train_torch.py
 <config.yml> [--device cuda] [--resume_from EPOCH|latest]``.
 
-Fits the config's triplet or siamese model with :class:`embeddingnet_tpu_torch.train.
-loop.Trainer` on one device (``cuda`` unless ``--device cpu``), in the
+Fits the config's triplet, siamese or arcface model with
+:class:`embeddingnet_tpu_torch.train.loop.Trainer` on one device (``cuda``
+unless ``--device cpu``), after the softmax pretraining phase when the
+config has a ``SOFTMAX_PRETRAINING`` section, in the
 work-dir tree ``<work_dir>/<project_name>/{weights,encodings,plots,
 tf_log,...}``; ``--resume_from`` restores the whole train state of a
 checkpoint epoch. Then it loads the best epoch, plots the history
@@ -63,6 +65,9 @@ def main(argv=None):
         epoch = None if args.resume_from == "latest" else int(
             args.resume_from)
         trainer.resume(epoch)
+    if params.softmax is not None:
+        print("SOFTMAX PRETRAINING")
+        trainer.pretrain_softmax()
 
     history = trainer.fit()
     # export the best-monitored epoch, not wherever early stopping halted
@@ -74,7 +79,8 @@ def main(argv=None):
     net = EmbeddingNet(params, device=args.device,
                        fast_conv=params.performance.pallas_conv,
                        dtype=trainer.compute_dtype)
-    # the encoder of either mode (the siamese one has no classifier)
+    # the encoder of any mode (the siamese and arcface ones have no
+    # classifier)
     net.load_encoder_state(trainer.encoder_variables())
     weights_path = net.save_base_model(trainer.paths["work_dir"])
     print(f"base model saved to {weights_path}")
