@@ -3,7 +3,8 @@
 T1 A/B tool, the triplet training step with and without augmentation, a
 short flagship fit through the Trainer and its CLI, the step under every
 mining mode, and a siamese fit, each through the hand-written kernels;
-then the ViT/ArcFace path, which reaches T2 alone.
+then the ViT/ArcFace path, which reaches T2 alone; then the EfficientNet
+step and fit (T2 alone) and the inference tools (K3).
 
     python3 chip_smoke.py
 
@@ -125,6 +126,34 @@ then the ViT/ArcFace path, which reaches T2 alone.
     its handoff: loss, recall and wall per epoch, T2's launches exact (the
     pretraining's val batches), every other kernel at 0; (e) a second
     Trainer's ``resume(0)`` bit for bit, and the CLI's resume and export.
+13. Depthwise phase: (a) ``configs/efficientnetb3_batchhard_1024.yml``'s
+    step at full width and depth (EfficientNet-B3 at 96 px, 256-d, L2
+    norm, B=1,024 as P-K 256 x 4, bf16, bn_momentum 0.9, the ``default``
+    augmentation, batch_hard, Adam 1e-3 with its warm-up schedule,
+    drop-connect drawn from the state's generator) on colour-cell images
+    of 1,024 classes: 3 warm-up and 10 timed steps (median, images/s, peak
+    memory, every port kernel's launches at 0), 2 under ``torch.profiler``
+    (device time, busy share, the depthwise convs forward and backward by
+    kernel name apart from the other convs, BatchNorm's eager ops, SiLU and
+    sigmoid, copies, the top ops and kernels), the miner alone, and one
+    semihard step (the config's warm-up mode); (b) small EfficientNet,
+    MobileNet v1/v2, ``simple`` and ``simple2`` models on the card against
+    the CPU from one state_dict, the CPU run's drop masks fed to the card:
+    in float64 train mode the embeddings, the triplet loss and every
+    gradient, in f32 eval mode with TF32 off the embeddings, to 1e-5
+    (``CARD_FAMILIES`` says why float64); (c) ``configs/road_signs_tpu.yml``
+    (EfficientNet-B1 at 48 px, semihard, radam) fitted through the
+    ``Trainer`` on a CSV index (``file_path``/``class_name``) of 400
+    colour-cell PNGs of 40 classes, cut to 2 epochs of 8 steps (each cut a
+    ``reduced`` line): finite losses, T2's launches exact (the val
+    batches) and every other kernel at 0, T2 against its plain version at
+    the val batches' shape, a second Trainer's ``resume(0)`` bit for bit;
+    (d) on phase 9's CLI export (ResNet-50, ``pallas_conv`` on, bf16):
+    ``encode_dataset`` over its 10,240 PNGs (images/s), the evaluate CLI's
+    recall equal to ``calculate_prediction_accuracy``, the test CLI's label
+    equal to ``predict_knn``, the ``.pt2`` reloaded on the card within bf16
+    rounding of the module, K3's launches exact over all of it, and K3
+    against its plain version at the test CLI's B = 1.
 
 The last line of standard output is the result,
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -133,7 +162,9 @@ during the run of its path (the augmented training run for the conv
 kernels, K3 also during the serving run; the aug-off training run for T2;
 the A/B tool's run for T1; phase 11's siamese fit for K1's forward) and
 its launches over phase 9's fit (``fit_launches``), phase 11's
-(``siamese_fit_launches``) and phase 12's (``vit_fit_launches``), its
+(``siamese_fit_launches``), phase 12's (``vit_fit_launches``), phase 13's
+road-signs fit (``road_signs_fit_launches``) and inference tools
+(``inference_launches``), its
 worst error, and ``ms`` / ``plain_ms`` /
 ``bound_ms`` / ``library_ms``, the event time of the kernel, its plain
 version, the card's bound and the library call, summed over the calls one
@@ -1418,17 +1449,18 @@ def _write_fit_dataset(root, n_classes=FIT_CLASSES, per_class=FIT_PER_CLASS,
 
 
 def _fit_config(tmp, source=FIT_CONFIG, cuts=FIT_CUTS, settings=(),
-                label="fit", work="work", name="config.yml"):
+                label="fit", work="work", name="config.yml", values=None):
     """A config with a phase's cuts (``cuts``: (section, key, value, why),
     printed as ``reduced`` lines) and settings (``settings``: (section, key,
     value), what the phase exercises, printed as ``set`` lines), written as
     a YAML file for the port's parse_params and the CLI; the dataset is
-    ``tmp/dataset``, the work dir ``tmp/<work>``."""
+    ``tmp/dataset``, the work dir ``tmp/<work>``, and ``values`` gives the
+    other keys whose cut is a path of the phase."""
     import yaml
     with open(source) as f:
         cfg = yaml.safe_load(f)
     values = {"dataset_path": os.path.join(tmp, "dataset"),
-              "work_dir": os.path.join(tmp, work)}
+              "work_dir": os.path.join(tmp, work), **(values or {})}
     changes = [(s, k, v, "reduced", f" ({why})") for s, k, v, why in cuts]
     changes += [(s, k, v, "set", "") for s, k, v in settings]
     for section, key, value, verb, why in changes:
@@ -2274,6 +2306,566 @@ def vit_phase(smi, tmp):
     return launches
 
 
+# phase 13: the depthwise family, the simple CNNs and the inference
+# remainder. (a) configs/efficientnetb3_batchhard_1024.yml's step at full
+# width and depth on colour cells, (b) small models of each new family on
+# the card against the CPU, (c) configs/road_signs_tpu.yml fitted on a CSV
+# dataset, (d) encode_dataset, the CLIs and the .pt2 on phase 9's export
+B3_CONFIG = os.path.join(os.path.dirname(FIT_CONFIG),
+                         "efficientnetb3_batchhard_1024.yml")
+ROAD_CONFIG = os.path.join(os.path.dirname(FIT_CONFIG), "road_signs_tpu.yml")
+TEST_CLI = os.path.join(os.path.dirname(TRAIN_CLI), "test_torch.py")
+EVALUATE_CLI = os.path.join(os.path.dirname(TRAIN_CLI), "evaluate_torch.py")
+B3_CLASSES, B3_WARMUP, B3_TIMED, B3_PROFILED = 1024, 3, 10, 2
+# device time by aten op (self time) and by kernel name: the elementwise
+# products, sums and reductions (BatchNorm's eager f32 statistics and
+# affine, forward and backward, most of them; also the SE gate's product,
+# drop-connect, the augmentation's), SiLU and the SE gate's sigmoid, copies
+# (dtype casts); the convs by kernel name, the depthwise ones apart
+B3_SHARES = {
+    "elementwise_and_reductions": (
+        "aten::mean", "aten::square", "aten::pow", "aten::sum", "aten::mul",
+        "aten::add", "aten::sub", "aten::rsub", "aten::rsqrt", "aten::lerp_",
+        "aten::clamp_min"),
+    "silu_sigmoid": ("aten::silu", "aten::silu_backward", "aten::sigmoid",
+                     "aten::sigmoid_backward"),
+    "copy": ("aten::copy_",),
+}
+# (b): the families at small size, card against CPU from one state_dict
+# and the same drop masks. In float64 on both: the embeddings, the
+# triplet loss and every gradient to CARD_TOL of each tensor's largest
+# entry, a tensor whose gradient is zero in exact arithmetic (a BatchNorm
+# bias before a train-mode BatchNorm) to CARD_TOL of the model's largest
+# gradient entry. float32 train-mode BatchNorm on batch statistics
+# amplifies two devices' rounding past 1e-5 (on the CPU, two conv layouts
+# put MobileNet's f32 embeddings 1.3e-5 apart and simple2's conv_7
+# gradient 1.8% apart, a ReLU's kink taking a pre-activation either way),
+# so f32 with TF32 off is held in eval mode: the embeddings to CARD_TOL
+CARD_FAMILIES = (("efficientnet-b0", 64), ("mobilenet", 64),
+                 ("mobilenetv2", 64), ("simple", 72), ("simple2", 64))
+CARD_SMALL_B0 = (0.25, 0.5, 224)   # width, depth, resolution
+CARD_TOL, CARD_BATCH = 1e-5, 16
+# (c): the road-signs config on a CSV index of colour-cell PNGs
+ROAD_CLASSES, ROAD_TRAIN, ROAD_VAL, ROAD_SIZE = 40, 8, 2, 48
+ROAD_CUTS = [
+    ("DATALOADER", "dataset_path", None, "no data on the machine"),
+    ("DATALOADER", "train_csv_file", None, "a CSV of the temp dataset"),
+    ("DATALOADER", "val_csv_file", None, "a CSV of the temp dataset"),
+    ("TRAIN", "n_epochs", 2, "run time"),
+    ("GENERATOR", "n_batches", 8, "run time"),
+    ("TRAIN", "plot_history", False, "the card's machine has no "
+                                     "matplotlib"),
+    ("GENERAL", "work_dir", None, "a temp dir"),
+]
+
+
+def _b3_batches(rng, n, batch, size):
+    """``n`` grouped P-K batches (``batch`` / 4 classes x 4) drawn from a
+    pool of B3_CLASSES colour-cell classes x 4 images, on the card."""
+    pool_classes = np.repeat(np.arange(B3_CLASSES), K_SAMPLES)
+    pool = cell_images(rng, pool_classes, size=size)
+    out = []
+    for _ in range(n):
+        picked = rng.choice(B3_CLASSES, batch // K_SAMPLES, replace=False)
+        idx = (picked[:, None] * K_SAMPLES
+               + np.arange(K_SAMPLES)[None]).reshape(-1)
+        out.append((torch.from_numpy(pool[idx]).to(DEVICE),
+                    torch.from_numpy(pool_classes[idx]).to(DEVICE)))
+    return out
+
+
+def _depthwise_alone(module, images):
+    """The depthwise convs alone, at the step's shapes: each MBConv's
+    ``dw_conv`` input captured in an eval forward of ``images`` (bf16
+    ``/255``), then every depthwise conv run as its ``F.conv2d`` (padded
+    as the module pads it) forward, and backward to its input and weight,
+    under torch.profiler. Returns (forward kernel names, backward
+    kernel names, forward device ms, backward device ms, the number of
+    depthwise convs) of one step's set."""
+    from torch.profiler import ProfilerActivity, profile
+    from embeddingnet_tpu_torch.models import efficientnet as efn
+    captured = []
+    hooks = [m.dw_conv.register_forward_hook(
+        lambda conv, inp, out: captured.append((conv, inp[0].detach())))
+        for m in module.modules() if isinstance(m, efn.MBConv)]
+    try:
+        with torch.no_grad():
+            module.eval()((images.float() / 255.0).to(torch.bfloat16))
+    finally:
+        for h in hooks:
+            h.remove()
+    calls = []
+    for conv, x in captured:
+        # the conv's own padding where symmetric, else F.pad, as
+        # SameConv2d runs it (cuDNN picks its kernels by both)
+        k, st = conv.kernel_size[0], conv.stride[0]
+        (top, bottom), (left, right) = (efn.same_padding(n, k, st)
+                                        for n in x.shape[2:])
+        padding = (top, left)
+        if top != bottom or left != right:
+            x, padding = F.pad(x, (left, right, top, bottom)), (0, 0)
+        w = conv.weight.detach().bfloat16().requires_grad_()
+        calls.append((x.requires_grad_(), w, st, padding, conv.groups))
+
+    def kernels(prof):
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+        return {e.name for e in ev}, sum(e.device_time_total for e in ev)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as fwd:
+        outs = [F.conv2d(x, w, None, st, pad, 1, g)
+                for x, w, st, pad, g in calls]
+        torch.cuda.synchronize()
+    grads = [torch.ones_like(o) for o in outs]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as bwd:
+        torch.autograd.backward(outs, grads)
+        torch.cuda.synchronize()
+    (f_names, f_us), (b_names, b_us) = kernels(fwd), kernels(bwd)
+    module.train()
+    return f_names, b_names - f_names, f_us * 1e-3, b_us * 1e-3, len(calls)
+
+
+def _b3_profile(state, step, batches, depthwise_names):
+    """torch.profiler over ``batches``: device ms a step, busy share, the
+    B3_SHARES and the convs' device time by kernel name (the depthwise
+    forward and backward kernels, ``depthwise_names``, apart from the
+    other convs), the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for images, labels in batches:
+            step(state, images, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    n = len(batches)
+    busy_us = sum(e.device_time_total for e in kernels)
+    if not busy_us:
+        raise AssertionError("b3 step: torch.profiler saw no device time")
+    by_kernel = {}
+    for e in kernels:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total
+    convs = {"depthwise_fwd": 0.0, "depthwise_bwd": 0.0, "other_conv": 0.0}
+    fwd_names, bwd_names = depthwise_names
+    for name, us in by_kernel.items():
+        if name in fwd_names:
+            convs["depthwise_fwd"] += us
+        elif name in bwd_names:
+            convs["depthwise_bwd"] += us
+        elif any(t in name.lower() for t in ("conv", "fprop", "dgrad",
+                                             "wgrad", "implicit", "xmma",
+                                             "gemm")):
+            convs["other_conv"] += us
+    by_op = {e.key: e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and e.self_device_time_total > 0}
+    return {"device_ms": busy_us * 1e-3 / n, "busy": busy_us * 1e-6 / wall,
+            "n": n, "convs_ms": {k: v * 1e-3 / n for k, v in convs.items()},
+            "shares": {name: sum(by_op.get(k, 0.0) for k in ops) / busy_us
+                       for name, ops in B3_SHARES.items()},
+            "top_kernels": sorted(by_kernel.items(),
+                                  key=lambda kv: -kv[1])[:12],
+            "top_ops": sorted(by_op.items(), key=lambda kv: -kv[1])[:12]}
+
+
+def b3_step_phase(smi):
+    """Phase 13 (a): the B3 config's triplet step at full width and depth
+    through make_triplet_train_step, as the Trainer builds it (batch_hard,
+    the default augmentation, bf16, bn_momentum 0.9, Adam with its warm-up
+    schedule, drop-connect drawn from the state's generator): warm-up,
+    timed steps with every port kernel's launches counted (all 0: the
+    family has no kernel of the port, and the augmented step divides in
+    f32), median, images/s, peak memory; profiled steps; the miner alone;
+    one semihard step (the config's warm-up mode)."""
+    from embeddingnet_tpu_torch.config import parse_params
+    params = parse_params(B3_CONFIG)
+    m, g, t, perf = (params.model, params.generator, params.train,
+                     params.performance)
+    batch = g.k_classes * g.k_samples
+    shape = tuple(m.input_shape)
+    print(f"b3 step: set from {os.path.relpath(B3_CONFIG)}: "
+          f"{m.backbone_name}, input {list(shape)}, {m.encodings_len}-d, "
+          f"B={batch} as P-K {g.k_classes}x{g.k_samples}, "
+          f"{g.negatives_selection_mode} (warm-up {t.mining_warmup_epochs} "
+          f"epochs {t.mining_warmup_mode}), margin {g.margin}, "
+          f"{t.optimizer} {t.learning_rate} (warm-up {t.warmup_epochs} epoch "
+          f"of {g.n_batches} steps, decay {t.decay_factor}), augmentation "
+          f"{g.augmentations!r}, {perf.compute_dtype}, bn_momentum "
+          f"{perf.bn_momentum}, drop-connect 0.2")
+    print(f"b3 step: reduced DATALOADER.dataset_path: {B3_CLASSES} classes "
+          f"of synthetic colour cells (no data on the machine)")
+    t0 = time.perf_counter()
+    dtype = torch.bfloat16
+    module = EmbeddingModule(m.backbone_name, encodings_len=m.encodings_len,
+                             bn_momentum=perf.bn_momentum, dtype=dtype,
+                             input_shape=shape).to(DEVICE)
+    module.reset_parameters(torch.Generator(DEVICE).manual_seed(SEED))
+    spec = get_optimizer(t.optimizer, step_decay_schedule(
+        t.learning_rate, t.decay_factor, t.step_size, g.n_batches,
+        warmup_epochs=t.warmup_epochs))
+    state = TrainState.create(module, spec, generator=torch.Generator(
+        DEVICE).manual_seed(SEED + 1))
+    kw = dict(margin=g.margin, augment_fn=aug.get_aug(g.augmentations),
+              compute_dtype=dtype, max_positives=g.k_samples - 1)
+    step = make_triplet_train_step(module, spec,
+                                   mode=g.negatives_selection_mode, **kw)
+    batches = _b3_batches(np.random.default_rng(SEED + 14),
+                          B3_WARMUP + B3_TIMED + B3_PROFILED + 1, batch,
+                          shape[0])
+    _timed_steps(state, step, batches[:B3_WARMUP])
+    n_params = sum(p.numel() for p in module.parameters())
+    print(f"b3 step: {n_params / 1e6:.2f} M parameters, head "
+          f"{module.backbone.out_channels} channels; built and {B3_WARMUP} "
+          f"warm-up steps in {time.perf_counter() - t0:.1f} s")
+    # ---- the B3 step's path: every launch count from here to the reading
+    fc.reset_launch_counts()
+    pre.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    timed = batches[B3_WARMUP:B3_WARMUP + B3_TIMED]
+    times, metrics = _timed_steps(state, step, timed)
+    launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    # ---- end of the B3 step's path ----
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(times))
+    losses = [x["loss"] for x in metrics]
+    print(f"b3 step: {B3_TIMED} steps of B={batch}: median "
+          f"{med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
+          f"{max(times) * 1e3:.2f}), {batch / med:.0f} img/s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB [{smi}]")
+    print(f"b3 step: losses " + " ".join(f"{x:.4f}" for x in losses)
+          + f"; port kernel launches over the timed steps: {launches}")
+    if not np.all(np.isfinite(losses)) or any(launches.values()):
+        raise AssertionError(f"b3 step: losses {losses}, launches "
+                             f"{launches}")
+    images, labels = batches[0]
+    f_names, b_names, f_ms, b_ms, n_dw = _depthwise_alone(module, images)
+    print(f"b3 step: the {n_dw} depthwise convs alone at the step's shapes "
+          f"(F.conv2d, bf16 channels_last): forward {f_ms:.2f} ms, backward "
+          f"(input and weight) {b_ms:.2f} ms of device time; kernels: "
+          f"forward {sorted(n[:60] for n in f_names)}, backward "
+          f"{sorted(n[:60] for n in b_names)}")
+    prof = _b3_profile(state, step, batches[B3_WARMUP + B3_TIMED:-1],
+                       (f_names, b_names))
+    conv = prof["convs_ms"]
+    print(f"b3 step: torch.profiler over {prof['n']} steps: "
+          f"{prof['device_ms']:.2f} ms of device time per step, busy "
+          f"{prof['busy']:.3f} of the profiled wall, "
+          f"{prof['device_ms'] / (med * 1e3):.3f} of the unprofiled median; "
+          f"by kernel name: depthwise forward {conv['depthwise_fwd']:.2f} "
+          f"ms, depthwise backward {conv['depthwise_bwd']:.2f} ms, the "
+          f"other convs {conv['other_conv']:.2f} ms (a depthwise kernel "
+          f"name that the others share counts as depthwise); by aten op: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in prof["shares"].items())
+          + " of the device time")
+    for name, us in prof["top_ops"]:
+        print(f"  profile top op: {us / prof['n'] / 1e3:8.3f} ms/step  "
+              f"{name}")
+    for name, us in prof["top_kernels"]:
+        print(f"  profile top kernel: {us / prof['n'] / 1e3:8.3f} ms/step  "
+              f"{name[:100]}")
+    miner_ms = _mining_device_ms(module, state, images, labels,
+                                 g.negatives_selection_mode, g.k_samples - 1)
+    print(f"b3 step: the miner alone ({g.negatives_selection_mode}, forward "
+          f"and backward): {miner_ms:.3f} ms of device time")
+    warm = make_triplet_train_step(module, spec, mode=t.mining_warmup_mode,
+                                   **kw)
+    (semi_s,), (semi,) = _timed_steps(state, warm, batches[-1:])
+    print(f"b3 step: one {t.mining_warmup_mode} step (the warm-up mode): "
+          f"{semi_s * 1e3:.2f} ms, loss {semi['loss']:.4f}, n_triplets "
+          f"{semi['n_triplets']:.0f}")
+    if not np.isfinite(semi["loss"]):
+        raise AssertionError("b3 step: the semihard loss is not finite")
+    del module, state, step, warm, batches
+    torch.cuda.empty_cache()
+
+
+def _zero_in_exact_arithmetic(grads):
+    """Names of the gradients below 1e-8 of the model's largest entry."""
+    top = max(g.abs().max().item() for g in grads.values())
+    return {n for n, g in grads.items() if g.abs().max().item() < 1e-8 * top}
+
+
+def depthwise_card_check():
+    """Phase 13 (b): each new family, small, on the card against the CPU
+    from one state_dict (see CARD_FAMILIES): float64 train mode with the
+    masks the CPU run drew fed to the card, then float32 eval mode."""
+    import copy
+    from embeddingnet_tpu_torch.models import efficientnet as efn
+    from embeddingnet_tpu_torch.models.stochastic import MaskSource
+    from embeddingnet_tpu_torch.ops.mining import mined_triplet_loss
+    rng = np.random.default_rng(SEED + 15)
+    labels = torch.arange(CARD_BATCH // 4).repeat_interleave(4)
+    saved = efn.SCALINGS["efficientnet-b0"]
+    efn.SCALINGS["efficientnet-b0"] = CARD_SMALL_B0
+    try:
+        for name, size in CARD_FAMILIES:
+            cpu = EmbeddingModule(name, encodings_len=64, classifier=False,
+                                  input_shape=(size, size, 3))
+            cpu.reset_parameters(torch.Generator().manual_seed(SEED))
+            images = torch.from_numpy(rng.uniform(
+                0, 1, (CARD_BATCH, size, size, 3)))
+            out, masks = {}, None
+            for where in ("cpu", "card"):
+                module = copy.deepcopy(cpu).double().train()
+                device = "cpu" if where == "cpu" else DEVICE
+                module.to(device)
+                source = (MaskSource(generator=torch.Generator()
+                                     .manual_seed(SEED)) if masks is None
+                          else MaskSource(masks))
+                emb = module(images.to(device), source)
+                masks = source.drawn
+                loss, _ = mined_triplet_loss(emb, labels.to(device),
+                                             margin=MARGIN,
+                                             mode="batch_hard")
+                loss.backward()
+                out[where] = (emb.detach().cpu(), loss.item(), {
+                    n: p.grad.cpu() for n, p in module.named_parameters()})
+            (e_cpu, l_cpu, g_cpu), (e_card, l_card, g_card) = (
+                out["cpu"], out["card"])
+            zero = _zero_in_exact_arithmetic(g_cpu)
+            top = max(g.abs().max().item() for g in g_cpu.values())
+            worst = {"embeddings": ((e_card - e_cpu).abs().max()
+                                    / e_cpu.abs().max()).item(),
+                     "loss": abs(l_card - l_cpu) / abs(l_cpu)}
+            for n, grad in g_cpu.items():
+                scale = top if n in zero else grad.abs().max().item()
+                worst[n] = (g_card[n] - grad).abs().max().item() / scale
+            cpu32 = copy.deepcopy(cpu).eval()
+            card32 = copy.deepcopy(cpu).to(DEVICE).eval()
+            with torch.no_grad():
+                e32 = cpu32(images.float())
+                worst["f32 eval embeddings"] = ((
+                    card32(images.float().to(DEVICE)).cpu() - e32).abs()
+                    .max() / e32.abs().max()).item()
+            key = max(worst, key=worst.get)
+            print(f"card check {name} at {size} px, B={CARD_BATCH} "
+                  f"({len(masks)} masks, {len(zero)} gradients zero in "
+                  f"exact arithmetic): float64 embeddings "
+                  f"{worst['embeddings']:.2e}, loss {l_card:.6f} against "
+                  f"{l_cpu:.6f} ({worst['loss']:.2e}); f32 eval embeddings "
+                  f"{worst['f32 eval embeddings']:.2e}; worst of "
+                  f"{len(g_cpu)} gradients and the rest: {key} "
+                  f"{worst[key]:.2e}; tolerance {CARD_TOL:g}")
+            if not all(np.isfinite(list(worst.values()))) or \
+                    worst[key] > CARD_TOL:
+                raise AssertionError(f"card check {name}: {key} off by "
+                                     f"{worst[key]:.2e}")
+    finally:
+        efn.SCALINGS["efficientnet-b0"] = saved
+
+
+def _write_csv_dataset(root):
+    """The road-signs layout: ROAD_CLASSES classes of colour-cell PNGs at
+    ROAD_SIZE px, listed in ``train.csv`` and ``val.csv`` under the
+    config's ``file_path``/``class_name`` columns; returns the images."""
+    import cv2
+    per = ROAD_TRAIN + ROAD_VAL
+    classes = np.repeat(np.arange(ROAD_CLASSES), per)
+    images = cell_images(np.random.default_rng(SEED + 16), classes,
+                         size=ROAD_SIZE)
+    rows = {"train": [], "val": []}
+    for i, c in enumerate(classes):
+        rel = os.path.join(f"sign_{c:03d}", f"{i % per}.png")
+        os.makedirs(os.path.join(root, f"sign_{c:03d}"), exist_ok=True)
+        if not cv2.imwrite(os.path.join(root, rel), images[i]):
+            raise OSError(f"cv2 could not write {rel}")
+        rows["train" if i % per < ROAD_TRAIN else "val"].append(
+            f"{rel},sign_{c:03d}")
+    for split, lines in rows.items():
+        with open(os.path.join(root, f"{split}.csv"), "w") as f:
+            f.write("file_path,class_name\n" + "\n".join(lines) + "\n")
+    return images
+
+
+def road_signs_phase(smi, tmp):
+    """Phase 13 (c): configs/road_signs_tpu.yml fitted through the Trainer
+    on a CSV dataset (cut as ROAD_CUTS prints): loss per epoch, T2's
+    launches exact (the val epochs' uint8 -> bf16), every other kernel at
+    0, T2 against its plain version at the val batches' shape, and a second
+    Trainer's resume bit for bit. Returns the fit's launches."""
+    from embeddingnet_tpu_torch.config import parse_params
+    from embeddingnet_tpu_torch.data import ENDataLoader
+    from embeddingnet_tpu_torch.train.loop import Trainer
+    root = os.path.join(tmp, "road")
+    data = os.path.join(root, "dataset")
+    t0 = time.perf_counter()
+    images = _write_csv_dataset(data)
+    print(f"road signs: wrote {len(images)} PNGs of {ROAD_CLASSES} classes "
+          f"at {ROAD_SIZE} px and train.csv/val.csv in "
+          f"{time.perf_counter() - t0:.1f} s")
+    path = _fit_config(root, source=ROAD_CONFIG, cuts=ROAD_CUTS,
+                       label="road signs", values={
+                           "train_csv_file": os.path.join(data, "train.csv"),
+                           "val_csv_file": os.path.join(data, "val.csv")})
+    params = parse_params(path)
+    loader = ENDataLoader(**{k: params.dataloader[k]
+                             for k in params.dataloader.keys()})
+    trainer = Trainer(params, loader, device=DEVICE,
+                      log_fn=lambda line: print(f"road signs: {line}"))
+    g, t = params.generator, params.train
+    expected = {name: 0 for name in {**fc.LAUNCHES, **pre.LAUNCHES}}
+    # the augmented train steps divide in f32; each val batch's eval
+    # forward of 3 x batch_size divides by T2 (uint8 -> bf16)
+    expected["normalize_u8"] = t.n_epochs * g.n_batches_val
+    print(f"road signs: {params.model.backbone_name} at "
+          f"{list(params.model.input_shape)}, B={g.k_classes * g.k_samples} "
+          f"as P-K {g.k_classes}x{g.k_samples} (GENERATOR.batch_size "
+          f"{g.batch_size} sizes the val triplets), "
+          f"{g.negatives_selection_mode}, {t.optimizer}, "
+          f"{params.performance.compute_dtype}; {loader.n_classes} classes; "
+          f"predicted launches {expected}")
+    # ---- the road-signs fit's path: every launch count to the reading
+    fc.reset_launch_counts()
+    pre.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = trainer.fit().history
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    # ---- end of the road-signs fit's path ----
+    for e, timing in enumerate(trainer.timings):
+        print(f"road signs: epoch {e}: loss {history['loss'][e]:.4f}, "
+              f"val_loss {history['val_loss'][e]:.4f}, "
+              f"{timing['epoch_s']:.2f} s (train {timing['train_s']:.2f}, "
+              f"waiting {timing['data_wait_s']:.2f} for batches, val "
+              f"{timing['val_s']:.2f}, checkpoint "
+              f"{timing['checkpoint_s']:.2f} s), images_per_sec "
+              f"{history['images_per_sec'][e]:.0f} [{smi}]")
+    print(f"road signs: fit {fit_s:.1f} s; launches {launches}")
+    x = torch.from_numpy(np.random.default_rng(SEED + 17).integers(
+        0, 256, (3 * g.batch_size, *params.model.input_shape),
+        np.uint8)).to(DEVICE)
+    exact = torch.equal(pre.normalize_u8(x), pre._plain_normalize_u8(x))
+    print(f"road signs: check normalize_u8 B={x.shape[0]} "
+          f"{list(x.shape[1:])}: tolerance exact (0), equal {exact}")
+    if not exact:
+        raise AssertionError("road signs: normalize_u8 differs from its "
+                             "plain version at the val batches' shape")
+    for key in ("loss", "val_loss"):
+        if not np.all(np.isfinite(history[key])):
+            raise AssertionError(f"road signs: {key} {history[key]}")
+    if launches != expected:
+        raise AssertionError(f"road signs: launches {launches}, predicted "
+                             f"{expected}")
+    _resume_check("road signs", params, loader, trainer)
+    return launches
+
+
+def inference_phase(smi, tmp):
+    """Phase 13 (d): on phase 9's CLI export (the flagship ResNet-50,
+    pallas_conv on, bf16): encode_dataset over its 10,240 PNGs, the
+    evaluate CLI against calculate_prediction_accuracy, the test CLI
+    against predict_knn, the .pt2 reloaded on the card against the
+    module, with K3's launches predicted exactly; K3 against its plain
+    version at the test CLI's B=1. Returns the launches."""
+    from embeddingnet_tpu_torch.config import parse_params
+    from embeddingnet_tpu_torch.data import ENDataLoader
+    path = os.path.join(tmp, "config.yml")
+    params = parse_params(path)
+    work = os.path.join(params.general.work_dir,
+                        params.general.project_name)
+    weights = os.path.join(work, "base_model.pt")
+    encodings = os.path.join(work, "encodings", "encodings.pkl")
+    loader = ENDataLoader(**{k: params.dataloader[k]
+                             for k in params.dataloader.keys()})
+    paths = loader.flat("train")[0] + loader.flat("val")[0]
+    n_val = len(loader.flat("val")[0])
+    t0 = time.perf_counter()
+    net = EmbeddingNet.for_inference(params, weights, encodings,
+                                     device=DEVICE)
+    print(f"inference: {params.model.backbone_name}, pallas_conv "
+          f"{params.performance.pallas_conv}, "
+          f"{params.performance.compute_dtype}, loaded in "
+          f"{time.perf_counter() - t0:.1f} s; {len(paths)} PNGs, {n_val} "
+          f"val, DB {len(net.encoded_training_data['labels'])}")
+    k3 = "conv3x3_small_bn_relu"
+    per_forward = sum(n for _, _, n in FUSED_SHAPES)
+    forwards = (-(-len(paths) // DB_BATCH) + -(-n_val // DB_BATCH)
+                + 1 + 1)
+    expected = {name: 0 for name in {**fc.LAUNCHES, **pre.LAUNCHES}}
+    expected[k3] = per_forward * forwards
+    print(f"inference: predicted launches {expected} ({forwards} forwards: "
+          f"encode_dataset in {DB_BATCH}s, the evaluate CLI's val batches, "
+          f"the test CLI's image, the module against the .pt2)")
+    image = loader.flat("val")[0][0]
+    # ---- the inference path: every launch count from here to the reading
+    fc.reset_launch_counts()
+    pre.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = net.encode_dataset(paths, batch_size=DB_BATCH)
+    encode_s = time.perf_counter() - t0
+    acc = runpy.run_path(EVALUATE_CLI)["main"](
+        [path, "--weights", weights, "--encodings", encodings,
+         "--device", DEVICE])
+    label = runpy.run_path(TEST_CLI)["main"](
+        [path, "--weights", weights, "--encodings", encodings, "--image",
+         image, "--device", DEVICE])
+    t1 = time.perf_counter()
+    exported = net.save_exported(os.path.join(tmp, "export"))
+    export_s = time.perf_counter() - t1
+    x = torch.from_numpy(np.random.default_rng(SEED + 18).uniform(
+        0, 1, (1, *params.model.input_shape)).astype(np.float32)).to(DEVICE)
+    with torch.inference_mode():
+        want = net.module(x).float()
+    launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    # ---- end of the inference path ----
+    print(f"inference: encode_dataset of {len(paths)} PNGs in "
+          f"{encode_s:.2f} s, {len(paths) / encode_s:.0f} img/s (cv2 decode "
+          f"on 8 threads included), shape {list(emb.shape)} [{smi}]; "
+          f"launches {launches}")
+    if emb.shape != (len(paths), params.model.encodings_len) or \
+            not np.isfinite(emb).all():
+        raise AssertionError(f"inference: encode_dataset {emb.shape}")
+    if launches != expected:
+        raise AssertionError(f"inference: launches {launches}, predicted "
+                             f"{expected}")
+    direct_acc = net.calculate_prediction_accuracy(loader)
+    direct_label = net.predict_knn(image)
+    print(f"inference: the evaluate CLI {acc}, direct {direct_acc}; the "
+          f"test CLI {label!r}, predict_knn {direct_label!r}")
+    if acc != direct_acc or label != direct_label:
+        raise AssertionError("inference: a CLI differs from the direct "
+                             "call")
+    program = torch.export.load(exported).module()
+    with torch.inference_mode():
+        got = program(x)
+    print(f"inference: the .pt2 ({os.path.getsize(exported) / 2 ** 20:.1f} "
+          f"MiB, exported in {export_s:.1f} s, traced on the library path) "
+          f"reloaded on the card")
+    _check("inference: .pt2 against the module", got, want, ATOL, RTOL)
+    rng = np.random.default_rng(SEED + 19)
+    for s, c, _ in FUSED_SHAPES:
+        xk = _tensor(rng, (1, s, s, c)).bfloat16()
+        wk = _tensor(rng, (3, 3, c, c), 0.05).bfloat16()
+        scale, bias = _affine(rng, c)
+        _check(f"inference: {k3} B=1 S={s} C={c}",
+               fc.conv3x3_small_bn_relu(xk, wk, scale, bias),
+               fc._plain_conv3x3(fc._affine_relu(xk, scale, bias).float(),
+                                 wk.float()), ATOL, RTOL)
+    return launches
+
+
+def depthwise_phase(smi, tmp):
+    """Phase 13; returns the launches of (c) and (d)."""
+    t0 = time.perf_counter()
+    b3_step_phase(smi)
+    depthwise_card_check()
+    road = road_signs_phase(smi, tmp)
+    inference = inference_phase(smi, tmp)
+    print(f"depthwise: phase 13 in {time.perf_counter() - t0:.1f} s")
+    return road, inference
+
+
 def main():
     smi = check_card()
     # f32 references in full f32: cuDNN's convs default to TF32
@@ -2300,6 +2892,7 @@ def main():
         warmup_fit_phase(tmp)
         siamese_launches = siamese_phase(smi, tmp)
         vit_launches = vit_phase(smi, tmp)
+        road_launches, inference_launches = depthwise_phase(smi, tmp)
     finally:
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2339,6 +2932,8 @@ def main():
                  "fit_launches": fit_launches[name],
                  "siamese_fit_launches": siamese_launches[name],
                  "vit_fit_launches": vit_launches[name],
+                 "road_signs_fit_launches": road_launches[name],
+                 "inference_launches": inference_launches[name],
                  "max_abs_err": rec["max_abs_err"], **sums, "per": per}
         if name in LIBRARY_RATIO:
             entry["library_ratio"] = sums["ms"] / sums["library_ms"]

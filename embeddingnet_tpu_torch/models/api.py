@@ -3,9 +3,12 @@
 
 Holds the :class:`~embeddingnet_tpu_torch.models.registry.EmbeddingModule`
 on an explicit device and exposes the reference's methods:
-``generate_encodings``, ``save_encodings``, ``load_encodings``, ``predict``,
-``predict_knn``, ``calculate_prediction_accuracy``, ``save_base_model`` /
-``load_model``. ``params`` is the JAX package's parsed config
+``generate_encodings``, ``encode_dataset`` (the bulk encode),
+``save_encodings``, ``load_encodings``, ``train_embeddings_classifier``,
+``predict``, ``predict_knn``, ``calculate_prediction_accuracy``,
+``save_base_model`` / ``load_model``, and ``save_exported`` (alias
+``save_onnx``), a ``torch.export`` program in place of the JAX package's
+StableHLO file. ``params`` is the JAX package's parsed config
 (``embeddingnet_tpu_torch.config.parse_params``) or a plain dict with the
 same lower-case sections; ``model``, ``general``, ``encodings`` and
 ``performance`` (``bn_momentum`` only) are read.
@@ -58,6 +61,20 @@ class EmbeddingNet:
             torch.backends.cudnn.allow_tf32 = False
         self._create_base_model()
 
+    @classmethod
+    def for_inference(cls, params, weights: str, encodings: str, *, device):
+        """The config's encoder on ``device`` with the base model
+        ``weights`` (:meth:`save_base_model`'s file) and the encodings DB
+        ``encodings`` loaded, computing as ``PERFORMANCE.compute_dtype``
+        and ``PERFORMANCE.pallas_conv`` say (the inference CLIs' and the
+        server's encoder)."""
+        perf = params["performance"]
+        net = cls(params, device=device, fast_conv=perf["pallas_conv"],
+                  dtype=getattr(torch, perf["compute_dtype"]))
+        net.load_model(weights)
+        net.load_encodings(encodings)
+        return net
+
     # -- construction ------------------------------------------------------
 
     def _create_base_model(self):
@@ -67,13 +84,15 @@ class EmbeddingNet:
         normalize = bool(m["embeddings_normalization"]
                          or m.get("mode") == "arcface")
         performance = self.params.get("performance") or {}
-        self.module = EmbeddingModule(
+        # the architecture, for the export's copy too
+        self._architecture = dict(
             backbone_name=m["backbone_name"],
             encodings_len=m["encodings_len"],
             embeddings_normalization=normalize,
             bn_momentum=performance.get("bn_momentum", 0.99),
-            fast_conv=self.fast_conv, dtype=self.dtype,
-            input_shape=m.get("input_shape"))
+            dtype=self.dtype, input_shape=m.get("input_shape"))
+        self.module = EmbeddingModule(fast_conv=self.fast_conv,
+                                      **self._architecture)
         generator = torch.Generator().manual_seed(
             int(self.params_general.get("seed", 42)))
         self.module.reset_parameters(generator)
@@ -149,6 +168,35 @@ class EmbeddingNet:
             h.update(arr.tobytes())
         return h.hexdigest()[:16]
 
+    def encode_dataset(self, paths, batch_size: int = 256,
+                       num_workers: int = 8) -> np.ndarray:
+        """Bulk encode of image files: f32 embeddings [N, D] in the order
+        of ``paths`` ((0, D) for none). The port's
+        :class:`~embeddingnet_tpu_torch.data.pipeline.BatchLoader` decodes
+        batches of ``batch_size`` with cv2 on ``num_workers`` threads, a
+        batch ahead of the device; a file that does not decode encodes a
+        zero image. The tail batch is encoded as it is (no compiled shape
+        to pad to); the embeddings stay on the device until the end."""
+        from embeddingnet_tpu_torch.data.pipeline import BatchLoader
+        paths = list(paths)
+
+        class _ListSampler:
+            def __iter__(self):
+                for start in range(0, len(paths), batch_size):
+                    chunk = paths[start:start + batch_size]
+                    yield chunk, np.zeros(len(chunk), np.int32)
+
+        loader = BatchLoader(_ListSampler(), self.input_shape,
+                             num_workers=num_workers)
+        out = []
+        with torch.inference_mode():
+            for images, _ in loader:
+                out.append(self.embed(torch.from_numpy(images)))
+            if not out:
+                return np.zeros((0, self.params_model["encodings_len"]),
+                                np.float32)
+            return torch.cat(out).cpu().numpy()
+
     def save_encodings(self, encoded_training_data,
                        save_folder: str = "./",
                        save_file_name: str = "encodings.pkl"):
@@ -169,6 +217,23 @@ class EmbeddingNet:
                 "meaningless; re-run generate_encodings or load the "
                 "matching base_model", stacklevel=2)
         return self.encoded_training_data
+
+    # -- classifier over encodings ----------------------------------------
+
+    def train_embeddings_classifier(self, data_loader, classification_model,
+                                    max_n_samples: int = 10,
+                                    shuffle: bool = True):
+        """Fit a classifier on the DB (the reference's
+        ``models.py:52-59``): :meth:`generate_encodings`, then
+        ``classification_model.fit(encodings, labels)`` (any object with
+        an sklearn-style ``fit``), stored under
+        ``encoded_training_data["knn_classifier"]`` and returned."""
+        encodings = self.generate_encodings(data_loader,
+                                            max_n_samples=max_n_samples,
+                                            shuffle=shuffle)
+        classification_model.fit(encodings["encodings"], encodings["labels"])
+        self.encoded_training_data["knn_classifier"] = classification_model
+        return classification_model
 
     # -- inference ---------------------------------------------------------
 
@@ -299,6 +364,45 @@ class EmbeddingNet:
         self.module.load_state_dict(
             {k: v for k, v in state.items() if k in template}, strict=False)
         return self
+
+    def save_exported(self, save_folder: str,
+                      save_name: str = "base_model.pt2") -> str:
+        """The encoder as a ``torch.export`` program file
+        (``torch.export.save``; load with ``torch.export.load(path)
+        .module()``): f32 NHWC images already divided by 255, [1, H, W, 3]
+        as the JAX package exports, in, f32 embeddings out; eval mode.
+
+        The program is traced on the library path: a copy of the encoder
+        built with ``fast_conv`` off (cuDNN or the CPU's convs in place of
+        the hand-written kernels, which are not ``torch.library`` ops and
+        are built at run time), carrying the same ``state_dict``, so the
+        file loads where the kernels' build does not exist. It is a file
+        format, not the serving path: :meth:`embed`, :meth:`encode_dataset`
+        and the kNN keep running the kernels."""
+        copy = EmbeddingModule(fast_conv=False, **self._architecture)
+        copy.load_state_dict(self.module.state_dict())
+        copy.to(self.device).eval()
+        x = torch.zeros((1,) + self.input_shape, dtype=torch.float32,
+                        device=self.device)
+        program = torch.export.export(_FloatOutput(copy), (x,))
+        os.makedirs(save_folder, exist_ok=True)
+        path = os.path.join(save_folder, save_name)
+        torch.export.save(program, path)
+        return path
+
+    # the reference's method name
+    save_onnx = save_exported
+
+
+class _FloatOutput(torch.nn.Module):
+    """An encoder whose embeddings come out in f32."""
+
+    def __init__(self, encoder: torch.nn.Module):
+        super().__init__()
+        self.encoder = encoder
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encoder(x).float()
 
 
 class TripletNet(EmbeddingNet):

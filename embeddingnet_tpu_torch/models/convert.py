@@ -1,16 +1,20 @@
 """JAX checkpoint -> the port's ``state_dict`` (the inverse, in spirit, of
 ``embeddingnet_tpu/models/pretrained.py`` ``torch_resnet_to_flax``).
 
-The port's modules carry the Flax module names, so the mapping is by leaf:
+It covers every family of the port's registry: the ResNets, EfficientNet
+and MobileNet v1/v2, ``simple``/``simple2``, the ViTs, and the heads and
+modules built on them. The port's modules carry the Flax module names, so
+the mapping is by leaf:
 
-* conv ``kernel`` [H, W, I, O] -> ``weight`` [O, I, H, W];
+* conv ``kernel`` [H, W, I, O] -> ``weight`` [O, I, H, W], a depthwise
+  kernel [k, k, 1, C] to the ``groups=C`` weight [C, 1, k, k] alike;
 * Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in];
 * attention's DenseGeneral kernels -> Linear ``weight`` [out, in]: the
   ``query``/``key``/``value`` kernel [D, heads, head_dim] as
   [D, heads * head_dim], the ``out`` kernel [heads, head_dim, D] as
   [heads * head_dim, D], each transposed; their [heads, head_dim] biases
   flattened;
-* ``bias`` -> ``bias``;
+* ``bias`` -> ``bias`` (the squeeze-excitation convs' too);
 * BatchNorm and LayerNorm ``scale``/``bias`` (params) and BatchNorm
   ``mean``/``var`` (batch_stats) -> ``weight``/``bias``/``running_mean``/
   ``running_var``, plus a zero ``num_batches_tracked``;

@@ -14,6 +14,7 @@ kernels, zero biases); the draws come from the caller's generator.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -26,6 +27,11 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
     """Keras ``K.l2_normalize``: x / sqrt(max(sum(x^2), eps))."""
     sq = x.square().sum(dim, keepdim=True)
     return x / torch.sqrt(sq.clamp_min(eps))
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, or as it is when wider (float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 class Dense(nn.Linear):
@@ -61,7 +67,7 @@ class EmbeddingHead(nn.Module):
         x = F.relu(self.dense_1(x))
         x = F.relu(self.dense_2(x))
         if self.embeddings_normalization:
-            x = l2_normalize(x.float())
+            x = l2_normalize(at_least_f32(x))
         return x
 
 
@@ -114,3 +120,14 @@ def init_keras_(module: nn.Module, generator: torch.Generator) -> None:
         if isinstance(m, Dense):
             nn.init.xavier_uniform_(m.weight, generator=generator)
             nn.init.zeros_(m.bias)
+
+
+def lecun_normal_(module: nn.Module, generator: torch.Generator) -> None:
+    """Flax's default Dense/conv kernel init, ``lecun_normal``, on
+    ``module``'s weight: a normal truncated at two standard deviations,
+    scaled so the variance is 1 / fan_in; a zero bias."""
+    std = math.sqrt(1.0 / module.weight[0].numel()) / .87962566103423978
+    nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std, 2 * std,
+                          generator=generator)
+    if module.bias is not None:
+        nn.init.zeros_(module.bias)

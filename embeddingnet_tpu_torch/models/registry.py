@@ -12,11 +12,19 @@ class-weight matrix; :class:`SoftmaxModule` a backbone and the softmax
 pretraining head, whose backbone :func:`transfer_backbone_params` hands
 to an encoder.
 
-The ResNet (18-152) and ViT families (``vit-*``, ``clip-vit-*``) are
-ported; every other backbone name of the JAX registry raises
-``NotImplementedError`` naming ``ROADMAP.md``. A ViT is built for one
-image size (its position embedding), so modules take ``input_shape``
-[H, W, C], which the ResNets ignore.
+Ported: ``simple`` and ``simple2`` (which carry their own embedding head),
+the ResNets (18-152), EfficientNet-B0..B7, MobileNet v1 (``mobilenet``)
+and v2 (``mobilenetv2``), and the ViTs (``vit-*``, ``clip-vit-*``); every
+other backbone name of the JAX registry (DenseNet, VGG, Inception,
+Xception, NASNet, the SE/ResNeXt/SENet-154 ResNets) raises
+``NotImplementedError`` naming ``ROADMAP.md``. A ViT and the simple CNNs
+are built for one image size (the position embedding, the Dense head), so
+modules take ``input_shape`` [H, W, C], which the other families ignore.
+
+The stochastic backbones (EfficientNet's drop-connect, ``simple2``'s
+Dropout) take their train-mode masks from the ``masks``
+(:class:`~embeddingnet_tpu_torch.models.stochastic.MaskSource`) that each
+module's ``forward`` accepts and hands on; the others ignore it.
 """
 
 from __future__ import annotations
@@ -26,12 +34,17 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn as nn
 
+from embeddingnet_tpu_torch.models import efficientnet as _efn
+from embeddingnet_tpu_torch.models import mobilenet as _mobilenet
 from embeddingnet_tpu_torch.models import resnet as _resnet
+from embeddingnet_tpu_torch.models import simple as _simple
 from embeddingnet_tpu_torch.models import vit as _vit
-from embeddingnet_tpu_torch.models.heads import (ClassificationHead,
+from embeddingnet_tpu_torch.models.heads import (ClassificationHead, Dense,
                                                  EmbeddingHead, SiameseL1Head,
                                                  SoftmaxHead, init_keras_,
+                                                 lecun_normal_,
                                                  siamese_l2_distance)
+from embeddingnet_tpu_torch.models.stochastic import MaskSource
 
 _RESNETS = {
     "resnet18": _resnet.resnet18,
@@ -40,29 +53,63 @@ _RESNETS = {
     "resnet101": _resnet.resnet101,
     "resnet152": _resnet.resnet152,
 }
+_MOBILENETS = {"mobilenet": _mobilenet.MobileNetV1,
+               "mobilenetv2": _mobilenet.MobileNetV2}
 
 
 def list_backbones():
-    return sorted(_RESNETS) + sorted(_vit._VARIANTS)
+    return (["simple", "simple2"] + sorted(_RESNETS) + sorted(_efn.SCALINGS)
+            + sorted(_MOBILENETS) + sorted(_vit._VARIANTS))
 
 
 def _build_backbone(name: str, dtype: Optional[torch.dtype],
                     bn_momentum: float = 0.99, fast_conv: bool = False,
-                    input_shape: Optional[Sequence[int]] = None):
-    """Backbone module for ``name``. ``fast_conv`` enables the
-    small-spatial 3x3 conv kernels (``PERFORMANCE.pallas_conv``) of the
-    ResNets; the ViTs, which have no 3x3 conv, ignore it, as in JAX."""
+                    input_shape: Optional[Sequence[int]] = None,
+                    encodings_len: int = 256,
+                    embeddings_normalization: bool = True,
+                    embedding_head: bool = True):
+    """``(backbone, integrated)``: the backbone module for ``name`` and
+    whether it carries its own embedding head (``simple``, ``simple2``;
+    ``embedding_head=False`` builds their conv stack alone). ``fast_conv``
+    enables the small-spatial 3x3 conv kernels (``PERFORMANCE.pallas_conv``)
+    of the ResNets; the other families, whose convs are depthwise, 1x1,
+    5x5, biased or absent, ignore it, as in JAX."""
+    if name == "simple":
+        return _simple.SimpleCNN(
+            encodings_len, embeddings_normalization, dtype=dtype,
+            input_shape=input_shape, embedding_head=embedding_head), True
+    if name == "simple2":
+        return _simple.SimpleCNN2(
+            encodings_len, embeddings_normalization, bn_momentum=bn_momentum,
+            dtype=dtype, input_shape=input_shape,
+            embedding_head=embedding_head), True
     if name in _RESNETS:
         return _RESNETS[name](bn_momentum=bn_momentum, dtype=dtype,
-                              fast_conv=fast_conv)
+                              fast_conv=fast_conv), False
+    if name in _efn.SCALINGS:
+        return _efn.build_efficientnet(name, bn_momentum=bn_momentum,
+                                       dtype=dtype), False
+    if name in _MOBILENETS:
+        return _MOBILENETS[name](bn_momentum=bn_momentum, dtype=dtype), False
     if name.startswith("vit") or name.startswith("clip-vit"):
         if input_shape is None:
             raise ValueError(f"backbone {name!r} needs input_shape: its "
                              f"position embedding is sized by the image")
-        return _vit.build_vit(name, input_shape, dtype=dtype)
+        return _vit.build_vit(name, input_shape, dtype=dtype), False
     raise NotImplementedError(
         f"backbone {name!r} is not ported to PyTorch yet (see ROADMAP.md, "
-        f"item 12); ported: {list_backbones()}")
+        f"item 12: DenseNet, VGG, Inception, Xception, NASNet and the "
+        f"SE/ResNeXt/SENet-154 ResNets wait there); ported: "
+        f"{list_backbones()}")
+
+
+def _run_backbone(backbone: nn.Module, x: torch.Tensor,
+                  masks: Optional[MaskSource], **kw) -> torch.Tensor:
+    """``backbone`` on an NHWC batch, handing ``masks`` to the stochastic
+    families."""
+    if getattr(backbone, "stochastic", False):
+        kw["masks"] = masks
+    return backbone(_nchw(x), **kw)
 
 
 class EmbeddingModule(nn.Module):
@@ -72,7 +119,9 @@ class EmbeddingModule(nn.Module):
     ``features`` the ``backbone_model`` (image -> feature map), ``classify``
     the ``classification_model``. Images are float NHWC, already ``/255``.
     ``classifier=False`` leaves the classifier out, as a JAX module that
-    never calls it has no parameters for it (the siamese encoder).
+    never calls it has no parameters for it (the siamese encoder). The
+    simple CNNs carry their own head: no :class:`EmbeddingHead` is built on
+    them (``head`` is None), as in JAX.
     """
 
     def __init__(self, backbone_name: str = "resnet50",
@@ -85,35 +134,40 @@ class EmbeddingModule(nn.Module):
         super().__init__()
         self.fast_conv = fast_conv
         self.dtype = dtype
-        self.backbone = _build_backbone(backbone_name, dtype, bn_momentum,
-                                        fast_conv, input_shape)
-        self.head = EmbeddingHead(self.backbone.out_channels, encodings_len,
-                                  embeddings_normalization,
-                                  compute_dtype=dtype)
+        self.backbone, integrated = _build_backbone(
+            backbone_name, dtype, bn_momentum, fast_conv, input_shape,
+            encodings_len, embeddings_normalization)
+        self.head = None if integrated else EmbeddingHead(
+            self.backbone.out_channels, encodings_len,
+            embeddings_normalization, compute_dtype=dtype)
         self.classifier = (ClassificationHead(encodings_len,
                                               compute_dtype=dtype)
                            if classifier else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Initialise as the JAX module does, drawing from ``generator``:
-        the backbone's own initialisers (ResNet: He-normal convs, BatchNorm
-        1/0 with running statistics 0/1; ViT: :meth:`ViT.reset_parameters`),
-        then the heads' Keras Dense."""
+        the backbone's own initialisers (:func:`_reset_backbone`), then the
+        heads' Keras Dense."""
         _reset_backbone(self.backbone, generator)
-        init_keras_(self.head, generator)
+        if self.head is not None:
+            init_keras_(self.head, generator)
         if self.classifier is not None:
             init_keras_(self.classifier, generator)
 
-    def _backbone(self, x: torch.Tensor) -> torch.Tensor:
-        return self.backbone(_nchw(x))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                masks: Optional[MaskSource] = None) -> torch.Tensor:
         """Image batch [B, H, W, C] -> embeddings [B, encodings_len]."""
-        return self.head(self._backbone(x))
+        out = _run_backbone(self.backbone, x, masks)
+        return out if self.head is None else self.head(out)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
-        """Pre-head feature map, NHWC [B, H/32, W/32, C]."""
-        return self._backbone(x).permute(0, 2, 3, 1)
+        """Pre-head features: the NHWC map [B, h, w, C], or the simple
+        CNN's Flatten [B, F]."""
+        if self.head is None:
+            out = _run_backbone(self.backbone, x, None, return_features=True)
+        else:
+            out = _run_backbone(self.backbone, x, None)
+        return out.permute(0, 2, 3, 1) if out.dim() == 4 else out
 
     def classify(self, x: torch.Tensor) -> torch.Tensor:
         """Dense(1, sigmoid) on the embedding."""
@@ -126,8 +180,20 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 
 def _reset_backbone(backbone: nn.Module, generator: torch.Generator) -> None:
+    """Each family's JAX initialisers: ViT :meth:`ViT.reset_parameters`;
+    EfficientNet and MobileNet the untruncated fan-out normal
+    (:func:`~embeddingnet_tpu_torch.models.efficientnet.init_fan_out_`);
+    the simple CNNs glorot-uniform; the ResNets He-normal. BatchNorm 1/0
+    with running statistics 0/1."""
     if isinstance(backbone, _vit.ViT):
         backbone.reset_parameters(generator)
+        return
+    if isinstance(backbone, (_efn.EfficientNet,) + tuple(
+            _MOBILENETS.values())):
+        _efn.init_fan_out_(backbone, generator)
+        return
+    if isinstance(backbone, (_simple.SimpleCNN, _simple.SimpleCNN2)):
+        _simple.init_glorot_(backbone, generator)
         return
     for m in backbone.modules():
         if isinstance(m, nn.BatchNorm2d):
@@ -145,7 +211,8 @@ class SiameseModule(nn.Module):
     train mode each stream normalises with its own batch statistics, and
     the running averages take two updates a step, the second on top of the
     first. (Concatenating the pair into one 2B batch would change both.)
-    The encoder's names and parameters are a standalone
+    The two streams take their masks from one ``masks``, the first
+    stream's first. The encoder's names and parameters are a standalone
     :class:`EmbeddingModule`'s without the classifier, which the JAX tree
     lacks too; the encoder keeps the default BatchNorm momentum, 0.99, as
     the JAX ``SiameseModule`` passes none on (``ROADMAP.md``, F12)."""
@@ -172,10 +239,10 @@ class SiameseModule(nn.Module):
         if self.distance_head is not None:
             init_keras_(self.distance_head, generator)
 
-    def forward(self, xs):
+    def forward(self, xs, masks: Optional[MaskSource] = None):
         x1, x2 = xs
-        e1 = self.encoder(x1)
-        e2 = self.encoder(x2)
+        e1 = self.encoder(x1, masks)
+        e2 = self.encoder(x2, masks)
         if self.distance_type == "l1":
             d = self.distance_head(e1.float(), e2.float())
         else:
@@ -211,34 +278,52 @@ class ArcFaceModule(nn.Module):
         self.encoder.reset_parameters(generator)
         nn.init.normal_(self.class_weights, 0.0, 0.01, generator=generator)
 
-    def forward(self, x: torch.Tensor):
-        return self.encoder(x), self.class_weights
+    def forward(self, x: torch.Tensor, masks: Optional[MaskSource] = None):
+        return self.encoder(x, masks), self.class_weights
 
 
 class SoftmaxModule(nn.Module):
-    """A backbone and the softmax pretraining head, GAP -> Dense(n_classes)
-    logits (the JAX ``SoftmaxModule``). Its ``backbone`` is an
-    :class:`EmbeddingModule`'s, built with the default BatchNorm momentum
-    and the plain convs, as the JAX module builds it; pretrained, it moves
-    into the encoder by :func:`transfer_backbone_params`."""
+    """A backbone and the softmax pretraining head (the JAX
+    ``SoftmaxModule``): GAP -> Dense(n_classes) logits. Its ``backbone``
+    is an :class:`EmbeddingModule`'s, built with the default BatchNorm
+    momentum and the plain convs, as the JAX module builds it; pretrained,
+    it moves into the encoder by :func:`transfer_backbone_params`. On the
+    simple CNNs the backbone is the conv stack alone and the logits are
+    ``flat_logits``, a Flax-initialised Dense (``lecun_normal``) on the
+    features, pooled when they are a map (``simple2``)."""
 
     def __init__(self, backbone_name: str = "resnet50",
                  n_classes: int = 1000,
                  dtype: Optional[torch.dtype] = None,
                  input_shape: Optional[Sequence[int]] = None):
         super().__init__()
-        self.backbone = _build_backbone(backbone_name, dtype,
-                                        input_shape=input_shape)
-        self.softmax_head = SoftmaxHead(self.backbone.out_channels,
-                                        n_classes, compute_dtype=dtype)
+        self.backbone, self.integrated = _build_backbone(
+            backbone_name, dtype, input_shape=input_shape,
+            embeddings_normalization=False, embedding_head=False)
+        if self.integrated:
+            self.flat_logits = Dense(self.backbone.out_channels, n_classes,
+                                     dtype)
+        else:
+            self.softmax_head = SoftmaxHead(self.backbone.out_channels,
+                                            n_classes, compute_dtype=dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         _reset_backbone(self.backbone, generator)
-        init_keras_(self.softmax_head, generator)
+        if self.integrated:
+            lecun_normal_(self.flat_logits, generator)
+        else:
+            init_keras_(self.softmax_head, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                masks: Optional[MaskSource] = None) -> torch.Tensor:
         """Image batch [B, H, W, C] -> logits [B, n_classes]."""
-        return self.softmax_head(self.backbone(_nchw(x)))
+        if self.integrated:
+            feats = _run_backbone(self.backbone, x, masks,
+                                  return_features=True)
+            if feats.dim() > 2:
+                feats = feats.mean((2, 3))
+            return self.flat_logits(feats)
+        return self.softmax_head(_run_backbone(self.backbone, x, masks))
 
 
 @torch.no_grad()
@@ -247,17 +332,22 @@ def transfer_backbone_params(source: nn.Module, target: nn.Module,
     """Copy ``source.backbone``'s parameters into ``target.backbone`` in
     place, and with ``statistics`` its BatchNorm statistics too. The JAX
     ``transfer_backbone_params`` copies the parameter tree alone, as the
-    pretraining's seeding does; its handoff back carries the statistics."""
-    if statistics:
-        target.backbone.load_state_dict(source.backbone.state_dict())
-        return
-    params = dict(source.backbone.named_parameters())
-    result = target.backbone.load_state_dict(params, strict=False)
-    buffers = {name for name, _ in target.backbone.named_buffers()}
-    if result.unexpected_keys or set(result.missing_keys) - buffers:
+    pretraining's seeding does; its handoff back carries the statistics.
+
+    On the simple CNNs one side's backbone has the embedding head and the
+    other's does not: what both hold is copied, and the head stays where
+    it is (the JAX handoff would leave the encoder without it)."""
+    src = source.backbone.state_dict() if statistics else dict(
+        source.backbone.named_parameters())
+    tgt = target.backbone.state_dict()
+    wanted = set(tgt) if statistics else {
+        n for n, _ in target.backbone.named_parameters()}
+    if not (wanted <= set(src) or set(src) <= wanted):
         raise KeyError(f"backbones differ: missing "
-                       f"{sorted(set(result.missing_keys) - buffers)}, "
-                       f"unexpected {result.unexpected_keys}")
+                       f"{sorted(wanted - set(src))[:8]}, unexpected "
+                       f"{sorted(set(src) - wanted)[:8]}")
+    for name in wanted & set(src):
+        tgt[name].copy_(src[name])
 
 
 def backbone_param_mask(module: nn.Module, freeze_backbone

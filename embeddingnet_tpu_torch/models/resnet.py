@@ -48,7 +48,8 @@ class Conv2d(nn.Conv2d):
 
 class BatchNorm(BNScaleBias):
     """Flax ``nn.BatchNorm`` over NCHW: the affine of :class:`BNScaleBias`
-    applied in f32, the result in ``compute_dtype`` (f32 when None)."""
+    applied in f32, the result in ``compute_dtype`` (f32 when None; a
+    float64 input stays float64)."""
 
     def __init__(self, num_features: int, eps: float, momentum: float,
                  compute_dtype: Optional[torch.dtype] = None):
@@ -57,8 +58,8 @@ class BatchNorm(BNScaleBias):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scale, bias = super().forward(x)
-        y = x.float() * scale[:, None, None] + bias[:, None, None]
-        return y.to(self.compute_dtype or torch.float32)
+        y = x.to(scale.dtype) * scale[:, None, None] + bias[:, None, None]
+        return y.to(self.compute_dtype or scale.dtype)
 
 
 def _conv3x3(in_channels, filters, strides, use_bias, dtype, fast):

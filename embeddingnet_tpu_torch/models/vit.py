@@ -38,7 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from embeddingnet_tpu_torch.models.heads import Dense
+from embeddingnet_tpu_torch.models.heads import Dense, lecun_normal_
 from embeddingnet_tpu_torch.models.resnet import Conv2d
 
 
@@ -153,11 +153,7 @@ class ViT(nn.Module):
         class token and the position embedding."""
         for m in self.modules():
             if isinstance(m, (Dense, nn.Conv2d)):
-                std = math.sqrt(1.0 / m.weight[0].numel()) / .87962566103423978
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
+                lecun_normal_(m, generator)
             elif isinstance(m, LayerNorm):
                 m.reset_parameters()
         nn.init.normal_(self.cls_token, 0.0, 0.02, generator=generator)

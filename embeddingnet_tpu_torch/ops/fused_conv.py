@@ -746,7 +746,8 @@ class FastConv3x3(nn.Conv2d):
 
 class BNScaleBias(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` that returns the effective per-channel affine
-    ``(scale, bias)`` in f32 instead of applying it:
+    ``(scale, bias)`` in f32 (f64 for a float64 input) instead of applying
+    it:
     ``scale = gamma * rsqrt(var + eps)``, ``bias = beta - mean * scale``.
 
     Statistics follow Flax's ``nn.BatchNorm``: eval mode reads the running
@@ -763,8 +764,10 @@ class BNScaleBias(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        # f32, or f64 for a float64 input (a module converted with .double())
+        acc = torch.promote_types(x.dtype, torch.float32)
         if self.training:
-            xf = x.float()
+            xf = x.to(acc)
             mean = xf.mean((0, 2, 3))
             var = (xf.square().mean((0, 2, 3)) - mean.square()).clamp_min(0)
             with torch.no_grad():
@@ -773,8 +776,8 @@ class BNScaleBias(nn.BatchNorm2d):
                 self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean, self.running_var
-        scale = torch.rsqrt(var.float() + self.eps) * self.weight.float()
-        bias = self.bias.float() - mean.float() * scale
+        scale = torch.rsqrt(var.to(acc) + self.eps) * self.weight.to(acc)
+        bias = self.bias.to(acc) - mean.to(acc) * scale
         return scale, bias
 
 

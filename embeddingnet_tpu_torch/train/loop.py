@@ -20,10 +20,13 @@ and hands its backbone to the encoder.
 
 It runs on the device it is given (``cuda`` unless the caller asks for
 ``cpu``) and never falls back: not to the CPU when there is no card, nor
-to cuDNN when a kernel of ``PERFORMANCE.pallas_conv`` fails. What the port
-lacks raises ``NotImplementedError`` at construction, naming its
-``ROADMAP.md`` item: pretrained backbone weights (item 12), more than one
-device (item 13) and bf16 master weights (item 16).
+to cuDNN when a kernel of ``PERFORMANCE.pallas_conv`` fails. It builds
+every backbone of the port's registry (``simple``, ``simple2``, the
+ResNets, EfficientNet-B0..B7, MobileNet v1/v2, the ViTs). What the port
+lacks raises ``NotImplementedError`` at construction, before anything is
+written, naming its ``ROADMAP.md`` item: the other backbones and
+pretrained backbone weights (item 12), more than one device (item 13) and
+bf16 master weights (item 16).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from embeddingnet_tpu_torch.models.registry import (ArcFaceModule,
                                                     SiameseModule,
                                                     SoftmaxModule,
                                                     backbone_param_mask,
+                                                    list_backbones,
                                                     transfer_backbone_params)
 from embeddingnet_tpu_torch.ops.augment import augment_from_params
 from embeddingnet_tpu_torch.train import callbacks as cb
@@ -118,6 +122,11 @@ class Trainer:
         """Raise ``NotImplementedError`` for what the port cannot run yet,
         before anything is built or written."""
         p = self.params
+        if p.model.backbone_name not in list_backbones():
+            raise NotImplementedError(
+                f"MODEL.backbone_name {p.model.backbone_name!r} is not a "
+                f"backbone the PyTorch port builds (see ROADMAP.md, item 12, "
+                f"for those still to port); it builds {list_backbones()}")
         if p.model.backbone_weights is not None:
             raise NotImplementedError(
                 f"MODEL.backbone_weights {p.model.backbone_weights!r}: "

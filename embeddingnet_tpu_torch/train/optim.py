@@ -233,13 +233,17 @@ def l2_penalty(named_params: Iterable[Tuple[str, torch.Tensor]],
 
 
 def reg_rules_for(backbone_name: str) -> Sequence[Tuple[str, float]]:
-    """Kernel-regulariser coefficients per backbone: none for the zoo
-    backbones. ``simple`` and ``simple2``, which have some, are not ported
-    yet."""
-    if backbone_name in ("simple", "simple2"):
-        raise NotImplementedError(
-            f"backbone {backbone_name!r} is not ported to PyTorch yet (see "
-            f"ROADMAP.md, item 12)")
+    """Kernel-regulariser coefficients per backbone, from the reference's
+    layer specs: ``simple`` and ``simple2`` have theirs
+    (:data:`~embeddingnet_tpu_torch.models.simple.SIMPLE_REG_RULES`,
+    :data:`~embeddingnet_tpu_torch.models.simple.SIMPLE2_REG_RULES`), the
+    zoo backbones none."""
+    if backbone_name == "simple":
+        from embeddingnet_tpu_torch.models.simple import SIMPLE_REG_RULES
+        return SIMPLE_REG_RULES
+    if backbone_name == "simple2":
+        from embeddingnet_tpu_torch.models.simple import SIMPLE2_REG_RULES
+        return SIMPLE2_REG_RULES
     return ()
 
 

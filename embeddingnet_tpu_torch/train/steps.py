@@ -19,9 +19,12 @@ pretraining step a :class:`~embeddingnet_tpu_torch.models.registry.
 SoftmaxModule` and the cross-entropy of its f32 logits. Neither adds the
 L2 penalty, as in JAX.
 
-The random draws (augmentation, mining) come from ``state.generator``
-unless the caller passes them, in this order: the augmentation's (per
-stream), then the mining's.
+The random draws come from ``state.generator`` unless the caller passes
+them, in this order: the augmentation's (per stream), then the module's
+drop-connect and Dropout masks (:class:`~embeddingnet_tpu_torch.models.
+stochastic.MaskSource`, in the order the layers run; none for a backbone
+without such layers), then the mining's. A train step takes given masks
+as ``drop_draws``; the eval steps draw none.
 
 The eval steps run the encoder in eval mode (BatchNorm on its running
 statistics) on ``/255`` of the uint8 batch, without augmentation.
@@ -33,6 +36,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from embeddingnet_tpu_torch.models.stochastic import MaskSource
 from embeddingnet_tpu_torch.ops import mining
 from embeddingnet_tpu_torch.ops.augment import Augment, Draws
 from embeddingnet_tpu_torch.ops.losses import (accuracy, arcface_loss,
@@ -103,6 +107,16 @@ def _on_device(module: torch.nn.Module, *tensors):
                     for t in tensors]
 
 
+def _forward(module: torch.nn.Module, x, generator: torch.Generator,
+             drop_draws: Optional[Sequence[torch.Tensor]]):
+    """The train-mode forward, its masks ``drop_draws`` when given, else
+    drawn from ``generator``; given masks must all be used."""
+    masks = MaskSource(drop_draws, generator)
+    out = module(x, masks)
+    masks.check_used()
+    return out
+
+
 def make_triplet_train_step(module: torch.nn.Module,
                             optimizer: OptimizerSpec, *,
                             margin: float = 0.5, mode: str = "semihard",
@@ -128,15 +142,18 @@ def make_triplet_train_step(module: torch.nn.Module,
     augment.get_aug` (None: no augmentation). The step samples its draws
     from ``state.generator``, on the generator's device, so a generator on
     the card keeps the step free of host synchronisation: the
-    augmentation's, then the mining's (semihard and random_hard,
-    :func:`~embeddingnet_tpu_torch.ops.mining.draws_shape`). ``aug_draws``
-    (the preset's draws for this batch) and ``mine_draws`` override them.
+    augmentation's, then the module's masks, then the mining's (semihard
+    and random_hard, :func:`~embeddingnet_tpu_torch.ops.mining.
+    draws_shape`). ``aug_draws`` (the preset's draws for this batch),
+    ``drop_draws`` (the masks, in layer order) and ``mine_draws`` override
+    them.
     The mining runs inside a ``record_function("mining")`` range for the
     profiler."""
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
              aug_draws: Optional[List[Draws]] = None,
-             mine_draws: Optional[torch.Tensor] = None
+             mine_draws: Optional[torch.Tensor] = None,
+             drop_draws: Optional[List[torch.Tensor]] = None
              ) -> Tuple[TrainState, dict]:
         if state.module is not module:
             raise ValueError("the state was created for another module")
@@ -144,7 +161,7 @@ def make_triplet_train_step(module: torch.nn.Module,
         device, (images, labels) = _on_device(module, images, labels)
         x = _preprocess(images, compute_dtype, augment_fn, state.generator,
                         aug_draws)
-        emb = module(x).float()
+        emb = _forward(module, x, state.generator, drop_draws).float()
         with torch.profiler.record_function("mining"):
             loss, stats = mining.mined_triplet_loss(
                 emb, labels, margin=margin, mode=mode, rng=state.generator,
@@ -178,11 +195,14 @@ def make_siamese_train_step(module: torch.nn.Module,
     same-class pair) plus the L2 penalty is differentiated; ``metrics``
     holds the loss and the pair accuracy at the 0.5 threshold, as device
     scalars. The two streams' augmentation draws come from
-    ``state.generator``, the first stream's first; ``aug_draws`` is a
-    pair of the preset's draws that overrides them."""
+    ``state.generator``, the first stream's first, then the masks of both
+    streams' forwards, the first's first; ``aug_draws`` is a pair of the
+    preset's draws that overrides the former, ``drop_draws`` the masks in
+    that order."""
 
     def step(state: TrainState, images_1, images_2, targets,
-             aug_draws: Optional[Tuple[List[Draws], List[Draws]]] = None
+             aug_draws: Optional[Tuple[List[Draws], List[Draws]]] = None,
+             drop_draws: Optional[List[torch.Tensor]] = None
              ) -> Tuple[TrainState, dict]:
         if state.module is not module:
             raise ValueError("the state was created for another module")
@@ -195,7 +215,7 @@ def make_siamese_train_step(module: torch.nn.Module,
                          state.generator, draws_1)
         x2 = _preprocess(images_2, compute_dtype, augment_fn,
                          state.generator, draws_2)
-        d, _, _ = module((x1, x2))
+        d, _, _ = _forward(module, (x1, x2), state.generator, drop_draws)
         d = d.float()
         loss = contrastive_loss(targets, d, contrastive_margin)
         _backward_and_update(state, module, optimizer, loss, reg_rules,
@@ -237,11 +257,13 @@ def make_arcface_train_step(module: torch.nn.Module,
     aug_draws=None) -> (state, {"loss"})``. ``module`` is an
     :class:`~embeddingnet_tpu_torch.models.registry.ArcFaceModule` with
     ``n_classes`` class weights; the loss takes its embeddings and class
-    weights in f32. The augmentation's draws come from ``state.generator``
-    unless ``aug_draws`` gives them."""
+    weights in f32. The augmentation's draws, then the module's masks,
+    come from ``state.generator`` unless ``aug_draws`` and ``drop_draws``
+    give them."""
 
     def step(state: TrainState, images, labels,
-             aug_draws: Optional[List[Draws]] = None
+             aug_draws: Optional[List[Draws]] = None,
+             drop_draws: Optional[List[torch.Tensor]] = None
              ) -> Tuple[TrainState, dict]:
         if state.module is not module:
             raise ValueError("the state was created for another module")
@@ -249,7 +271,7 @@ def make_arcface_train_step(module: torch.nn.Module,
         device, (images, labels) = _on_device(module, images, labels)
         x = _preprocess(images, compute_dtype, augment_fn, state.generator,
                         aug_draws)
-        emb, weights = module(x)
+        emb, weights = _forward(module, x, state.generator, drop_draws)
         if weights.shape[0] != n_classes:
             raise ValueError(f"the module has {weights.shape[0]} class "
                              f"weights, the step {n_classes} classes")
@@ -280,7 +302,8 @@ def make_softmax_train_step(module: torch.nn.Module,
     :func:`make_arcface_train_step`'s."""
 
     def step(state: TrainState, images, labels,
-             aug_draws: Optional[List[Draws]] = None
+             aug_draws: Optional[List[Draws]] = None,
+             drop_draws: Optional[List[torch.Tensor]] = None
              ) -> Tuple[TrainState, dict]:
         if state.module is not module:
             raise ValueError("the state was created for another module")
@@ -288,7 +311,7 @@ def make_softmax_train_step(module: torch.nn.Module,
         device, (images, labels) = _on_device(module, images, labels)
         x = _preprocess(images, compute_dtype, augment_fn, state.generator,
                         aug_draws)
-        logits = module(x).float()
+        logits = _forward(module, x, state.generator, drop_draws).float()
         loss, acc = _softmax_metrics(logits, labels, n_classes)
         _backward_and_update(state, module, optimizer, loss, (), device)
         return state, {"loss": loss.detach(), "accuracy": acc.detach()}

@@ -188,3 +188,66 @@ def assert_within_one_bf16_ulp(got, want):
     diff = np.abs(got - want)
     assert (diff <= np.maximum(ulp, ZERO_ATOL)).all(), (diff - ulp).max()
     return int((diff > 0).sum())
+
+
+def triplet_steps_against_jax(jmodule, variables, module, batches, masks,
+                              holder, *, context=None, reg_rules=(),
+                              lr=0.05, mode="batch_hard", margin=0.5):
+    """SGD triplet steps of the JAX package (float64) and of the port
+    (float32) on ``batches``, each port step starting from the JAX state
+    before it (reloaded into ``module``, so that float32 rounding does not
+    compound over the steps). ``masks[i]`` are step i's keep masks in
+    layer order: the port's step takes them as ``drop_draws``, the JAX
+    module through a test-local patch of its stochastic layers that reads
+    ``holder["masks"][holder["i"]]`` (traced inputs, one jit for every
+    step) inside ``context``. Returns, per step, ``(port loss, JAX loss,
+    port state_dict, JAX state as the port's state_dict)``."""
+    import contextlib
+
+    import jax.numpy as jnp
+    import optax
+    import torch
+    from embeddingnet_tpu.train.state import TrainState as JTrainState
+    from embeddingnet_tpu.train.steps import make_triplet_train_step as jmk
+    from embeddingnet_tpu_torch.models.convert import flax_to_torch
+    from embeddingnet_tpu_torch.train import optim, steps
+    from embeddingnet_tpu_torch.train.state import TrainState
+
+    tx = optax.sgd(lr)
+    trajectory = []
+    with jax.enable_x64(True), (context or contextlib.nullcontext()):
+        state = JTrainState.create(jax.tree.map(
+            lambda a: np.asarray(a, np.float64), variables), tx)
+        jstep = jmk(jmodule, tx, margin=margin, mode=mode,
+                    reg_rules=reg_rules, compute_dtype=jnp.float64)
+
+        def run(state, images, labels, masks):
+            holder["masks"], holder["i"] = masks, 0
+            return jstep(state, images, labels)
+        run = jax.jit(run)
+        for (images, labels), step_masks in zip(batches, masks):
+            before = {"params": numpy_tree(state.params),
+                      "batch_stats": numpy_tree(state.batch_stats)}
+            state, metrics = run(state, jnp.asarray(images),
+                                 jnp.asarray(labels),
+                                 [jnp.asarray(m) for m in step_masks])
+            after = {"params": numpy_tree(state.params),
+                     "batch_stats": numpy_tree(state.batch_stats)}
+            trajectory.append((before, after, float(metrics["loss"])))
+
+    spec = optim.get_optimizer("sgd", lr)
+    tstate = TrainState.create(module, spec)
+    step = steps.make_triplet_train_step(module, spec, margin=margin,
+                                         mode=mode, reg_rules=reg_rules)
+    out = []
+    for (images, labels), step_masks, (before, after, jloss) in zip(
+            batches, masks, trajectory):
+        module.load_state_dict(flax_to_torch(before, module))
+        tstate, metrics = step(tstate, torch.from_numpy(images),
+                               torch.from_numpy(labels),
+                               drop_draws=[torch.from_numpy(m)
+                                           for m in step_masks])
+        out.append((metrics["loss"].item(), jloss,
+                    {k: v.clone() for k, v in module.state_dict().items()},
+                    flax_to_torch(after, module)))
+    return out

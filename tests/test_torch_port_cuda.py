@@ -5,8 +5,9 @@ TMA/wgmma design, K3 and K4 with the BN-ReLU prologue on the landed input
 tile, T1 with the epilogue on the accumulators — and the u8 normalisation
 T2) against their plain
 PyTorch versions, the modules that launch them, forward and backward, the
-augmentation presets, the miner, and the ViT forward and the ArcFace loss
-on the card against the CPU.
+augmentation presets, the miner, the ViT forward and the ArcFace loss, and
+the EfficientNet/MobileNet/simple CNN forward and backward on the card
+against the CPU.
 They skip on a machine without a card. On the card, run them with
 
     python -m pytest tests/test_torch_port_cuda.py -q -m cuda --noconftest
@@ -657,3 +658,60 @@ def test_arcface_loss_on_the_card_matches_the_cpu(card):
     assert _rel(l_gpu, l_cpu) < VIT_CARD_TOL
     assert _rel(ge_gpu, ge_cpu) < VIT_CARD_TOL
     assert _rel(gw_gpu, gw_cpu) < VIT_CARD_TOL
+
+
+# the depthwise family and the simple CNNs (no kernel of the port: cuDNN
+# and PyTorch's ops), card against CPU from one state_dict and the same
+# drop masks. Train mode in float64 on both: f32 train-mode BatchNorm on
+# batch statistics amplifies two devices' rounding past 1e-5, and a ReLU's
+# kink takes a pre-activation either way (on the CPU, two conv layouts put
+# simple2's f32 conv_7 gradient 1.8% apart); eval mode in f32 with TF32
+# off. Each tensor to 1e-5 of its largest entry; a gradient that is zero in
+# exact arithmetic (a BatchNorm bias before a train-mode BatchNorm) to 1e-5
+# of the model's largest gradient entry
+DEPTHWISE_FAMILIES = [("efficientnet-b0", 64), ("mobilenet", 64),
+                      ("mobilenetv2", 64), ("simple", 72), ("simple2", 64)]
+DEPTHWISE_CARD_TOL = 1e-5
+
+
+@pytest.mark.parametrize("name,size", DEPTHWISE_FAMILIES)
+def test_depthwise_family_on_the_card_matches_the_cpu(card, name, size,
+                                                      monkeypatch):
+    import copy
+    from embeddingnet_tpu_torch.models import efficientnet as efn
+    from embeddingnet_tpu_torch.models.registry import EmbeddingModule
+    from embeddingnet_tpu_torch.models.stochastic import MaskSource
+    from embeddingnet_tpu_torch.ops.mining import mined_triplet_loss
+    monkeypatch.setitem(efn.SCALINGS, "efficientnet-b0", (0.25, 0.5, 224))
+    cpu = EmbeddingModule(name, encodings_len=64, classifier=False,
+                          input_shape=(size, size, 3))
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 1, (16, size, size, 3)))
+    labels = torch.arange(4).repeat_interleave(4)
+    out, masks = [], None
+    for device in ("cpu", card):
+        module = copy.deepcopy(cpu).double().train().to(device)
+        source = (MaskSource(generator=torch.Generator().manual_seed(0))
+                  if masks is None else MaskSource(masks))
+        emb = module(x.to(device), source)
+        masks = source.drawn
+        loss, _ = mined_triplet_loss(emb, labels.to(device), margin=0.5,
+                                     mode="batch_hard")
+        loss.backward()
+        out.append((emb.detach().cpu(), loss.detach().cpu(), {
+            n: p.grad.cpu() for n, p in module.named_parameters()}))
+    (e_cpu, l_cpu, g_cpu), (e_gpu, l_gpu, g_gpu) = out
+    assert _rel(e_gpu, e_cpu) < DEPTHWISE_CARD_TOL
+    assert _rel(l_gpu, l_cpu) < DEPTHWISE_CARD_TOL
+    top = max(g.abs().max().item() for g in g_cpu.values())
+    for n, g in g_cpu.items():
+        scale = top if g.abs().max().item() < 1e-8 * top \
+            else g.abs().max().item()
+        err = (g_gpu[n] - g).abs().max().item() / scale
+        assert err < DEPTHWISE_CARD_TOL, (n, err)
+    with torch.no_grad():
+        want = copy.deepcopy(cpu).eval()(x.float())
+        got = copy.deepcopy(cpu).to(card).eval()(x.float().to(card))
+    assert _rel(got, want) < DEPTHWISE_CARD_TOL
+    assert fc.LAUNCHES == _launched()

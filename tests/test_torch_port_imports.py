@@ -4,11 +4,16 @@ are installed: in a fresh interpreter with ``jax``, ``flax``, ``optax``,
 ``triton`` blocked, every module of the port imports, and a small CPU
 encode plus kNN vote, the HTTP server's ``/healthz``, the dataset index of
 a folder and of a CSV, a small CPU triplet train step with the ``default``
-augmentation, a ViT encode and an ArcFace step, and the T1 A/B tool run; with cv2 allowed (it decodes), a
-``Trainer`` fits one epoch on the CPU, and so do a siamese ``Trainer``
+augmentation, a ViT encode and an ArcFace step, an encode on each
+EfficientNet/MobileNet/simple backbone, a ``simple2`` step with its Dropout
+and a ``.pt2`` export, and the T1 A/B tool run; with cv2 allowed (it
+decodes), a ``Trainer`` fits one epoch on the CPU and ``encode_dataset``
+equals ``encode``, and so do a siamese ``Trainer``
 (radam) and a triplet one whose warm-up switches its mining mode, after
 every mining mode ran on each of its paths and rms_prop took a step. No
-file of the port imports the JAX package, not even inside a function."""
+file of the port (its package, ``chip_smoke.py``, every
+``tools/*_torch.py``) imports the JAX package or JAX itself, not even
+inside a function."""
 
 import os
 import re
@@ -40,6 +45,10 @@ MODULES = [
     "embeddingnet_tpu_torch.ops.fused_conv",
     "embeddingnet_tpu_torch.models.heads",
     "embeddingnet_tpu_torch.models.resnet",
+    "embeddingnet_tpu_torch.models.stochastic",
+    "embeddingnet_tpu_torch.models.efficientnet",
+    "embeddingnet_tpu_torch.models.mobilenet",
+    "embeddingnet_tpu_torch.models.simple",
     "embeddingnet_tpu_torch.models.vit",
     "embeddingnet_tpu_torch.models.registry",
     "embeddingnet_tpu_torch.models.convert",
@@ -168,6 +177,36 @@ astate, ametrics = astep(astate, torch.from_numpy(imgs),
                          torch.arange(6) % 3)
 assert astate.step == 1 and torch.isfinite(ametrics["loss"])
 
+# the depthwise family and the simple CNNs: an encode each, a simple2
+# train step (its Dropout drawn from the state's generator) and the .pt2
+from embeddingnet_tpu_torch.models.registry import list_backbones
+for name, size in (("efficientnet-b0", 32), ("mobilenet", 32),
+                   ("mobilenetv2", 32), ("simple", 72), ("simple2", 32)):
+    assert name in list_backbones()
+    sparams = {{"model": {{"backbone_name": name, "encodings_len": 8,
+                           "embeddings_normalization": True,
+                           "input_shape": [size, size, 3]}},
+               "general": {{"seed": 3}}}}
+    snet = EmbeddingNet(sparams, device="cpu")
+    semb = snet.encode(np.zeros((2, size, size, 3), np.uint8))
+    assert semb.shape == (2, 8) and np.isfinite(semb).all(), name
+s2 = EmbeddingModule("simple2", encodings_len=8, input_shape=(32, 32, 3))
+s2.reset_parameters(torch.Generator().manual_seed(0))
+sspec = get_optimizer("sgd", 1e-2)
+sstate = TrainState.create(s2, sspec)
+sstep = make_triplet_train_step(s2, sspec, mode="batch_hard",
+                                reg_rules=(("conv_1.*kernel", 1e-3),))
+before = sstate.generator.get_state()
+sstate, smetrics = sstep(sstate, torch.from_numpy(
+    np.random.default_rng(1).integers(0, 255, (4, 32, 32, 3), np.uint8)),
+    torch.tensor([0, 0, 1, 1]))
+assert torch.isfinite(smetrics["loss"])
+assert not torch.equal(before, sstate.generator.get_state())
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    program = torch.export.load(snet.save_exported(tmp)).module()
+    assert program(torch.zeros(1, 32, 32, 3)).shape == (1, 8)
+
 # the T1 A/B tool, plain version
 import os, runpy
 os.environ["FC_BATCH"] = "2"
@@ -212,6 +251,14 @@ with tempfile.TemporaryDirectory() as tmp:
     history = Trainer(params, loader, device="cpu").fit().history
     assert set(history) >= {"loss", "val_loss", "val_recall1"}, history
     assert os.path.isdir(f"{tmp}/work/project/weights/0")
+    # the bulk encode decodes with cv2
+    from embeddingnet_tpu_torch.data.images import get_images
+    from embeddingnet_tpu_torch.models.api import EmbeddingNet
+    net = EmbeddingNet(params, device="cpu")
+    paths = loader.flat("train")[0]
+    bulk = net.encode_dataset(paths, batch_size=5)
+    assert np.allclose(bulk, net.encode(get_images(paths, (32, 32, 3))),
+                       atol=1e-6)
 assert not any(m == "embeddingnet_tpu" or m.startswith("embeddingnet_tpu.")
                for m in sys.modules), "the JAX package was imported"
 print("ok")
@@ -310,6 +357,8 @@ def test_slice_imports_without_jax_and_host_deps():
     assert proc.stdout.strip().endswith("ok")
 
 
+# An import of JAX or Flax itself.
+_JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
 # An import of the JAX package, at the top of a file or inside a function.
 _JAX_PACKAGE_IMPORT = re.compile(
     r"^\s*(from\s+embeddingnet_tpu(\.|\s+import\b)|"
@@ -325,11 +374,14 @@ def test_port_files_never_import_the_jax_package():
     root = Path(ROOT)
     files = sorted((root / "embeddingnet_tpu_torch").rglob("*.py"))
     tools = sorted((root / "tools").glob("*_torch.py"))
-    assert root / "tools" / "train_torch.py" in tools
+    for cli in ("train_torch.py", "test_torch.py", "evaluate_torch.py",
+                "serve_torch.py"):
+        assert root / "tools" / cli in tools
     files += [root / "chip_smoke.py"] + tools
     assert len(files) > 20
     offenders = [str(f.relative_to(root)) for f in files
-                 if _JAX_PACKAGE_IMPORT.search(f.read_text())]
+                 if _JAX_PACKAGE_IMPORT.search(f.read_text())
+                 or _JAX_IMPORT.search(f.read_text())]
     assert not offenders, offenders
     tool = (root / "tools" / "fused_conv_epilogue_torch.py").read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|pallas_fused_conv)\b",
@@ -341,3 +393,7 @@ def test_port_files_never_import_the_jax_package():
         assert _JAX_PACKAGE_IMPORT.search(line), line
     assert not _JAX_PACKAGE_IMPORT.search(
         "from embeddingnet_tpu_torch.config import parse_params")
+    for line in ("import jax", "    from jax import numpy",
+                 "import flax.linen as nn"):
+        assert _JAX_IMPORT.search(line), line
+    assert not _JAX_IMPORT.search("import jaxlib_free_module")

@@ -39,17 +39,12 @@ def parse_args(argv=None):
 def build(args):
     """(engine, server) for parsed ``args``; the server is bound, not yet
     serving."""
-    import torch
     from embeddingnet_tpu_torch.config import parse_params
     from embeddingnet_tpu_torch.models.api import EmbeddingNet
     from embeddingnet_tpu_torch.serving import InferenceEngine, make_server
 
-    params = parse_params(args.config)
-    net = EmbeddingNet(params, device=args.device,
-                       fast_conv=params.performance.pallas_conv,
-                       dtype=getattr(torch, params.performance.compute_dtype))
-    net.load_model(args.weights)
-    net.load_encodings(args.encodings)
+    net = EmbeddingNet.for_inference(parse_params(args.config), args.weights,
+                                     args.encodings, device=args.device)
     engine = InferenceEngine(net, max_batch=args.max_batch,
                              quantize_db=args.quantize_db)
     return engine, make_server(engine, args.host, args.port)

@@ -5,7 +5,13 @@
 Fits the config's triplet, siamese or arcface model with
 :class:`embeddingnet_tpu_torch.train.loop.Trainer` on one device (``cuda``
 unless ``--device cpu``), after the softmax pretraining phase when the
-config has a ``SOFTMAX_PRETRAINING`` section, in the
+config has a ``SOFTMAX_PRETRAINING`` section. Every config of the repo that
+runs on one card fits as it stands, on any backbone of the port's registry
+(``simple``, ``simple2``, the ResNets, EfficientNet-B0..B7, MobileNet v1/v2,
+the ViTs): ``configs/resnet50_batchall_1024.yml``,
+``siamese_resnet18_pairs.yml``, ``efficientnetb3_batchhard_1024.yml``,
+``road_signs_tpu.yml`` and the four ArcFace-on-ViT configs (the sharded
+``batch4096_sharded.yml`` needs several cards). It trains in the
 work-dir tree ``<work_dir>/<project_name>/{weights,encodings,plots,
 tf_log,...}``; ``--resume_from`` restores the whole train state of a
 checkpoint epoch. Then it loads the best epoch, plots the history
