@@ -154,6 +154,26 @@ step and fit (T2 alone) and the inference tools (K3).
     equal to ``predict_knn``, the ``.pt2`` reloaded on the card within bf16
     rounding of the module, K3's launches exact over all of it, and K3
     against its plain version at the test CLI's B = 1.
+14. Data-parallel phase: (a) ``configs/batch4096_sharded.yml``'s step at
+    full width and global batch (ResNet-50 at 64 px, 256-d, B=4,096 as P-K
+    1,024 x 4, bf16, batch-all, the ``default`` preset, Adam 2e-3 with its
+    warm-up, bn_momentum 0.9, random weights from seed 0, colour cells of
+    1,024 classes) through the data-parallel step in an NCCL group of one
+    rank (global BatchNorm, the row-sharded miner, the gradient
+    all-reduce: the collectives run), remat on and off: median of 10 steps
+    after 3, images/s, device time and busy share, peak memory, the
+    sharded miner's device time alone, the collectives' device time;
+    remat must lower the peak; (b) the flagship step (``pallas_conv`` on)
+    with remat against without, from the same state and batch: float64 to
+    1e-12, bf16 with K1-K4 under the recompute to stated bounds, their
+    launches exact (K3 twice a fused conv); (c) the config fitted through
+    ``torchrun --nproc_per_node=1`` and the train CLI (this script's
+    ``--fit-child`` mode runs the CLI's ``main`` on the rank), cut (each
+    cut a ``reduced`` line) on phase 9's PNGs: T2's launches exact, the
+    recall through the sharded kNN equal to the plain kNN's, and a second
+    torchrun run resumed from epoch 0 ending bit for bit where the straight
+    run ended; (d) one flagship step with bf16 master weights: every tensor
+    and the optimizer's moments bf16, the loss finite.
 
 The last line of standard output is the result,
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -163,8 +183,9 @@ kernels, K3 also during the serving run; the aug-off training run for T2;
 the A/B tool's run for T1; phase 11's siamese fit for K1's forward) and
 its launches over phase 9's fit (``fit_launches``), phase 11's
 (``siamese_fit_launches``), phase 12's (``vit_fit_launches``), phase 13's
-road-signs fit (``road_signs_fit_launches``) and inference tools
-(``inference_launches``), its
+road-signs fit (``road_signs_fit_launches``), inference tools
+(``inference_launches``) and phase 14's runs (``phase14_launches``: (a)'s
+timed sharded steps, (b)'s remat step, (c)'s fit), its
 worst error, and ``ms`` / ``plain_ms`` /
 ``bound_ms`` / ``library_ms``, the event time of the kernel, its plain
 version, the card's bound and the library call, summed over the calls one
@@ -469,6 +490,42 @@ def device_ms(fn):
     """Device time of one call of ``fn``: torch.profiler's kernel time, as
     the conv kernels' A/B tool measures it."""
     return _ab_tool()["device_ms"](fn)
+
+
+def _profile_agreed(run, what):
+    """torch.profiler (the CPU and CUDA activity) over ``run()``: ``(prof,
+    kernels, wall seconds)`` of a read that the A/B tool's ``settled``
+    takes (F15: the profiler loses kernel records now and then), reading
+    ``run`` again up to its ``READS`` times, as its ``device_ms`` does;
+    else AssertionError naming ``what``."""
+    from torch.profiler import ProfilerActivity, profile
+    counts = []
+    for _ in range(_ab_tool()["READS"]):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # device activity: kernels, copies and sets, not the annotations
+        # that span them on the device's timeline
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        counts.append(len(kernels))
+        if _ab_tool()["settled"](counts):
+            return prof, kernels, wall
+    raise AssertionError(f"{what}: no two torch.profiler reads saw the most "
+                         f"CUDA kernels (reads of {counts})")
+
+
+def _run_steps(state, step, batches):
+    """A callable that takes one step on each of ``batches``."""
+    def run():
+        for images, labels in batches:
+            step(state, images, labels)
+    return run
 
 
 def cuda_ms(fn, iters=50, warmup=5):
@@ -1148,20 +1205,8 @@ def _device_busy(state, step, batches):
     """(device-busy share, device ms per step, the port's kernels, top
     kernels, wall seconds, device ms per step under the step's "augment"
     range) over the steps, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for images, labels in batches:
-            step(state, images, labels)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device activity: kernels, copies and sets, not the annotations that
-    # span them on the device's timeline
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+    prof, kernels, wall = _profile_agreed(
+        _run_steps(state, step, batches), "the step's profile")
     busy_us = sum(e.device_time_total for e in kernels)
     by_name = {}
     for e in kernels:
@@ -2051,18 +2096,8 @@ def _vit_profile(state, step, batches):
     share of the wall, the ten kernels and the ten host-side ops with the
     most device time of their own, and the VIT_SHARES of the device
     time."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for images, labels in batches:
-            step(state, images, labels)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+    prof, kernels, wall = _profile_agreed(
+        _run_steps(state, step, batches), "the ViT step's profile")
     busy_us = sum(e.device_time_total for e in kernels)
     by_kernel = {}
     for e in kernels:
@@ -2435,22 +2470,10 @@ def _b3_profile(state, step, batches, depthwise_names):
     B3_SHARES and the convs' device time by kernel name (the depthwise
     forward and backward kernels, ``depthwise_names``, apart from the
     other convs), the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for images, labels in batches:
-            step(state, images, labels)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+    prof, kernels, wall = _profile_agreed(
+        _run_steps(state, step, batches), "b3 step")
     n = len(batches)
     busy_us = sum(e.device_time_total for e in kernels)
-    if not busy_us:
-        raise AssertionError("b3 step: torch.profiler saw no device time")
     by_kernel = {}
     for e in kernels:
         by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total
@@ -2866,6 +2889,471 @@ def depthwise_phase(smi, tmp):
     return road, inference
 
 
+# -- phase 14: data-parallel training, remat, bf16 master weights ------------
+
+SHARDED_CONFIG = os.path.join(os.path.dirname(FIT_CONFIG),
+                              "batch4096_sharded.yml")
+DP_WARMUP, DP_TIMED, DP_PROFILED = 3, 10, 2
+DP_POOL_PER_CLASS = 8
+# (b): the flagship step, remat on against off, from the same state and
+# batch: float64 (every op, the miner in f32 as the step casts) to 1e-12 of
+# each tensor's largest entry, at B = REMAT_F64_BATCH; bf16 with the
+# kernels at the flagship batch bit for bit (the same kernels on the same
+# inputs, cuDNN held to its deterministic algorithms)
+REMAT_F64_BATCH, REMAT_F64_TOL = 64, 1e-12
+# the flagship step's launches under remat: the fused op's forward runs
+# again in the backward (K3 twice); the backward kernels once
+REMAT_PER_STEP = {**EXPECTED_PER_STEP, "conv3x3_small_bn_relu":
+                  2 * EXPECTED_PER_STEP["conv3x3_small_bn_relu"]}
+# (c): the config fitted through torchrun and the CLI, with these cuts
+DP_FIT_CUTS = [
+    ("DATALOADER", "dataset_path", None, "no data on the machine"),
+    ("GENERATOR", "n_batches", 4, "run time"),
+    ("GENERATOR", "n_batches_val", 1, "run time"),
+    ("TRAIN", "n_epochs", 2, "run time"),
+    ("TRAIN", "eval_recall_every", 1, "so the recall runs through the "
+                                      "sharded kNN every epoch"),
+    ("ENCODINGS", "save_encodings", False, "run time: phases 9 and 13 "
+                                            "export encodings"),
+    ("TRAIN", "plot_history", False, "the card's machine has no "
+                                     "matplotlib"),
+    ("GENERAL", "work_dir", None, "a temp dir"),
+]
+DP_FIT_SETTINGS = [("PERFORMANCE", "async_checkpoint", True)]
+CHILD_FLAG = "--fit-child"
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _world1_nccl():
+    """An NCCL process group of one rank on this card, through a free
+    local port."""
+    import torch.distributed as dist
+    from embeddingnet_tpu_torch.parallel.collectives import DataParallel
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=torch.device(DEVICE, 0))
+    return DataParallel.current()
+
+
+def _dp_module(params, fast_conv=False, dtype=torch.bfloat16):
+    """The config's encoder (ResNet-50), random weights from SEED."""
+    m = params.model
+    module = EmbeddingModule(
+        backbone_name=m.backbone_name, encodings_len=m.encodings_len,
+        embeddings_normalization=m.embeddings_normalization,
+        bn_momentum=params.performance.bn_momentum, fast_conv=fast_conv,
+        dtype=dtype)
+    module.reset_parameters(torch.Generator().manual_seed(SEED))
+    return module.to(DEVICE)
+
+
+def _dp_step(params, dp, remat, dtype=torch.bfloat16):
+    """The config's triplet step (its optimizer, schedule and preset) on a
+    fresh :func:`_dp_module`: ``(module, state, step)``."""
+    from embeddingnet_tpu_torch.ops.augment import get_aug
+    t, g = params.train, params.generator
+    module = _dp_module(params, dtype=dtype)
+    spec = get_optimizer(t.optimizer, step_decay_schedule(
+        t.learning_rate, t.decay_factor, t.step_size, g.n_batches,
+        warmup_epochs=t.warmup_epochs))
+    state = TrainState.create(module, spec, generator=torch.Generator(
+        device=DEVICE).manual_seed(SEED + 1))
+    step = make_triplet_train_step(
+        module, spec, margin=g.margin, mode=g.negatives_selection_mode,
+        augment_fn=get_aug(g.augmentations), compute_dtype=dtype,
+        max_positives=g.k_samples - 1, remat=remat, parallel=dp)
+    return module, state, step
+
+
+def _profile_steps(state, step, batches):
+    """(device ms per step, {kernel name: device us}, {collective: host us})
+    over the steps, from a read that a second read agreed with; the
+    collectives are the CPU-side ``nccl:*`` ranges that c10d records around
+    each NCCL call."""
+    prof, kernels, _ = _profile_agreed(_run_steps(state, step, batches),
+                                       "the sharded step's profile")
+    by_name, host = {}, {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith("nccl:")):
+            host[e.name] = host.get(e.name, 0.0) + e.cpu_time_total
+    return sum(by_name.values()) * 1e-3 / len(batches), by_name, host
+
+
+def _sharded_mining_device_ms(dp, module, state, images, labels,
+                              max_positives):
+    """Device time of the step's miner alone (the row-sharded batch-all,
+    forward and backward) on the embeddings of ``images``."""
+    from embeddingnet_tpu_torch.parallel.sharded import \
+        sharded_batch_all_loss
+    from embeddingnet_tpu_torch.train.steps import make_eval_step
+    emb = make_eval_step(module, compute_dtype=torch.bfloat16)(state, images)
+    fn = sharded_batch_all_loss(dp, margin=MARGIN,
+                                max_positives=max_positives)
+
+    def run():
+        e = emb.detach().requires_grad_()
+        loss, _ = fn(e, labels)
+        loss.backward()
+    return device_ms(run)
+
+
+def sharded_step_phase(smi, params):
+    """(a) The config's step at full width and global batch on this card:
+    the data-parallel path at world 1 (an NCCL group; the collectives run),
+    remat on (as the config says) and off. Returns the launches over the
+    timed steps (the config sets pallas_conv off: none of the convs')."""
+    import torch.distributed as dist
+    g = params.generator
+    batch = g.k_classes * g.k_samples
+    classes = np.repeat(np.arange(g.k_classes), DP_POOL_PER_CLASS)
+    pool = cell_images(np.random.default_rng(SEED + 14), classes)
+    host = _pk_batches(pool, classes, DP_WARMUP + DP_TIMED + DP_PROFILED,
+                       seed=SEED + 14, k_classes=g.k_classes)
+    batches = [(x.to(DEVICE), y.to(DEVICE)) for x, y in host]
+    del pool, host
+    dp = _world1_nccl()
+    rows, launches = {}, None
+    try:
+        for remat in (True, False):
+            label = f"sharded step (remat {'on' if remat else 'off'})"
+            module, state, step = _dp_step(params, dp, remat)
+            _, warm = _timed_steps(state, step, batches[:DP_WARMUP])
+            torch.cuda.reset_peak_memory_stats()
+            fc.reset_launch_counts()
+            pre.reset_launch_counts()
+            times, metrics = _timed_steps(
+                state, step, batches[DP_WARMUP:DP_WARMUP + DP_TIMED])
+            counted = {**fc.LAUNCHES, **pre.LAUNCHES}
+            peak = torch.cuda.max_memory_allocated()
+            launches = launches or counted
+            dev_ms, by_name, host = _profile_steps(state, step,
+                                                   batches[-DP_PROFILED:])
+            nccl = [name for name in by_name if "nccl" in name.lower()]
+            nccl_us = sum(by_name[name] for name in nccl)
+            host_us = sum(host.values())
+            images, labels = batches[0]
+            miner_ms = _sharded_mining_device_ms(
+                dp, module, state, images, labels, g.k_samples - 1)
+            median = float(np.median(times))
+            losses = [m["loss"] for m in warm + metrics]
+            if not np.all(np.isfinite(losses)):
+                raise AssertionError(f"{label}: a loss is not finite: "
+                                     f"{losses}")
+            if not all(m["n_triplets"] > 0 for m in metrics):
+                raise AssertionError(f"{label}: a step mined no triplet")
+            rows[remat] = {"median_ms": median * 1e3,
+                           "images_per_s": batch / median,
+                           "device_ms": dev_ms,
+                           "busy_share": dev_ms * 1e-3 / median,
+                           "peak_gib": peak / 2 ** 30,
+                           "miner_device_ms": miner_ms,
+                           "collectives_device_ms":
+                               nccl_us * 1e-3 / DP_PROFILED,
+                           "collectives_host_ms":
+                               host_us * 1e-3 / DP_PROFILED}
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            print(f"{label}: B={batch} ({g.k_classes} x {g.k_samples}), "
+                  f"ResNet-50 64x64, bf16, batch_all, the default preset: "
+                  f"median step {median * 1e3:.2f} ms over {DP_TIMED} "
+                  f"(after {DP_WARMUP} warm-up), {batch / median:.0f} "
+                  f"img/s, device {dev_ms:.2f} ms a step (busy "
+                  f"{dev_ms * 1e-3 / median:.3f} of the median), peak "
+                  f"{peak / 2 ** 30:.2f} GiB, the sharded miner alone "
+                  f"{miner_ms:.3f} ms of device time (fwd+bwd), the "
+                  f"collectives: {len(nccl)} NCCL kernel name(s), "
+                  f"{nccl_us * 1e-3 / DP_PROFILED:.3f} ms of device time "
+                  f"and {host_us * 1e-3 / DP_PROFILED:.3f} ms of host time "
+                  f"in {sum(1 for _ in host)} kind(s) of nccl:* call a step "
+                  f"({', '.join(sorted(host))}); losses "
+                  + " ".join(f"{l:.4f}" for l in losses) + f" [{smi}]")
+            print(f"{label}: top kernels " + "; ".join(
+                f"{name[:60]} {us * 1e-3 / DP_PROFILED:.2f} ms"
+                for name, us in top))
+            del module, state, step
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    if not rows[True]["peak_gib"] < rows[False]["peak_gib"]:
+        raise AssertionError(f"remat did not lower the peak: "
+                             f"{rows[True]['peak_gib']:.2f} GiB against "
+                             f"{rows[False]['peak_gib']:.2f}")
+    for name, n in launches.items():
+        if n:
+            raise AssertionError(f"sharded step: {name} launched {n} times "
+                                 f"with pallas_conv off")
+    print(f"sharded step: remat lowers the peak {rows[False]['peak_gib']:.2f}"
+          f" -> {rows[True]['peak_gib']:.2f} GiB and costs "
+          f"{rows[True]['median_ms'] / rows[False]['median_ms'] - 1:+.3f} "
+          f"of the step")
+    return launches, rows
+
+
+def remat_check_phase(smi, params):
+    """(b) Remat on the flagship step with the kernels (``pallas_conv``
+    on): remat on against off from the same state and batch, in float64
+    (every op) and in bf16 (K1-K4 under the recompute, their launches
+    counted). Returns the remat step's launches."""
+    pool_classes = np.repeat(np.arange(P_CLASSES), 8)
+    pool = cell_images(np.random.default_rng(SEED + 15), pool_classes)
+    f64_batch = _pk_batches(pool, pool_classes, 1, seed=SEED + 15,
+                            k_classes=REMAT_F64_BATCH // K_SAMPLES)[0]
+    bf16_batch = _pk_batches(pool, pool_classes, 1, seed=SEED + 16)[0]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        launches = _remat_pairs(smi, params, f64_batch, bf16_batch)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return launches
+
+
+def _remat_pairs(smi, params, f64_batch, bf16_batch):
+    """The remat-on and remat-off steps of :func:`remat_check_phase`,
+    compared; returns the bf16 remat step's launches."""
+    import copy
+    launches = None
+    for dtype, batch in ((torch.float64, f64_batch),
+                         (torch.bfloat16, bf16_batch)):
+        label = f"remat check ({str(dtype)[6:]}, B={len(batch[1])})"
+        base = _dp_module(params, fast_conv=True,
+                          dtype=None if dtype == torch.float64 else dtype)
+        if dtype == torch.float64:
+            base.double()
+        out = {}
+        for remat in (False, True):
+            module = copy.deepcopy(base)
+            spec = get_optimizer("sgd", 0.05)
+            state = TrainState.create(module, spec)
+            step = make_triplet_train_step(
+                module, spec, margin=MARGIN, mode="batch_all",
+                compute_dtype=dtype, max_positives=K_SAMPLES - 1,
+                remat=remat)
+            fc.reset_launch_counts()
+            pre.reset_launch_counts()
+            _, m = step(state, *batch)
+            torch.cuda.synchronize()
+            counted = {**fc.LAUNCHES, **pre.LAUNCHES}
+            out[remat] = (m["loss"].double(),
+                          {n: p.grad.double() for n, p in
+                           module.named_parameters()},
+                          {k: v.double() for k, v in
+                           module.state_dict().items()}, counted)
+        (l0, g0, s0, c0), (l1, g1, s1, c1) = out[False], out[True]
+        if dtype == torch.float64:
+            worst = max([float((g1[k] - v).abs().max()
+                               / v.abs().max().clamp_min(1e-300))
+                         for k, v in g0.items()]
+                        + [float((s1[k] - v).abs().max()
+                                 / v.abs().max().clamp_min(1e-300))
+                           for k, v in s0.items() if v.numel()])
+            dl = float((l1 - l0).abs() / l0.abs())
+            print(f"{label}: remat on against off: loss {float(l1):.12f} "
+                  f"vs {float(l0):.12f}, worst gradient, parameter or "
+                  f"running statistic {worst:.3e} of its largest entry "
+                  f"(bound {REMAT_F64_TOL})")
+            if worst > REMAT_F64_TOL or dl > REMAT_F64_TOL:
+                raise AssertionError(f"{label}: remat changes the step")
+        else:
+            differ = [k for k, v in g0.items() if not torch.equal(g1[k], v)]
+            differ += [k for k, v in s0.items() if not torch.equal(s1[k], v)]
+            print(f"{label}: remat on against off: loss {float(l1):.6f} vs "
+                  f"{float(l0):.6f}, {len(differ)} of {len(g0) + len(s0)} "
+                  f"gradients, parameters and running statistics differ "
+                  f"(bound: bit-equal); launches off {c0}, on {c1} [{smi}]")
+            if not torch.equal(l1, l0) or differ:
+                raise AssertionError(f"{label}: remat changes the step: "
+                                     f"{differ[:8]}")
+            _check_launches(label + " off", c0, EXPECTED_PER_STEP, 1)
+            _check_launches(label + " on", c1, REMAT_PER_STEP, 1)
+            launches = c1
+        del base
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _fit_child(argv):
+    """``torchrun --nproc_per_node=N chip_smoke.py --fit-child CFG OUT
+    [CLI flags]``: the train CLI's ``main`` on this rank (its process group
+    from torchrun's environment), the T2 launches over it, the final live
+    state's digest (taken as the CLI calls ``restore_best``), the history,
+    and the recall of the restored best epoch by the plain kNN, written to
+    OUT as JSON by rank 0."""
+    from embeddingnet_tpu_torch.parallel.collectives import state_digest
+    from embeddingnet_tpu_torch.train.loop import Trainer
+    cfg, out, flags = argv[0], argv[1], argv[2:]
+    # cuDNN's deterministic algorithms: a resumed run must match bit for bit
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    digest = {}
+    restore_best = Trainer.restore_best
+
+    def wrapped(self):
+        digest["final"] = state_digest(self.module).tolist()
+        return restore_best(self)
+    Trainer.restore_best = wrapped
+    fc.reset_launch_counts()
+    pre.reset_launch_counts()
+    trainer, _ = runpy.run_path(TRAIN_CLI)["main"]([cfg, *flags])
+    launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    trainer.parallel = None         # the plain kNN on the restored best
+    plain = trainer.evaluate_recall()
+    if int(os.environ.get("RANK", "0")) == 0:
+        with open(out, "w") as f:
+            json.dump({"launches": launches, "digest": digest["final"],
+                       "history": trainer.history.history,
+                       "plain_recall": plain,
+                       "monitor": trainer.ckpt_mgr.monitor}, f)
+
+
+def _torchrun(cfg, out, *flags, nproc=1):
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           f"--nproc_per_node={nproc}", "--master_port", str(_free_port()),
+           os.path.abspath(__file__), CHILD_FLAG, cfg, out, *flags]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    took = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith("epoch ") or "resumed" in line:
+            print(f"  [torchrun] {line[:240]}")
+    if proc.returncode:
+        print(proc.stdout[-3000:])
+        print(proc.stderr[-6000:])
+        raise AssertionError(f"torchrun {' '.join(flags)} exited "
+                             f"{proc.returncode}")
+    with open(out) as f:
+        return json.load(f), took
+
+
+def sharded_fit_phase(smi, tmp):
+    """(c) The config fitted through ``torchrun --nproc_per_node=1`` and
+    the train CLI, cut (``reduced`` lines), on phase 9's 10,240 PNGs:
+    T2's launches (2 x the val batches), the recall through the sharded
+    kNN equal to the plain kNN's on the restored best epoch, and a second
+    torchrun run resumed from epoch 0's checkpoint ending bit for bit where
+    the straight run ended. Returns the straight run's launches."""
+    import shutil
+    path = _fit_config(tmp, source=SHARDED_CONFIG, cuts=DP_FIT_CUTS,
+                       settings=DP_FIT_SETTINGS, label="sharded fit",
+                       work="sharded_work", name="sharded.yml")
+    straight, took = _torchrun(path, os.path.join(tmp, "straight.json"))
+    h = straight["history"]
+    print(f"sharded fit: torchrun --nproc_per_node=1, {len(h['loss'])} "
+          f"epochs in {took:.1f} s (process start and decode included); "
+          + "; ".join(f"{k} " + " ".join(f"{v:.4f}" for v in vals)
+                      for k, vals in h.items()) + f" [{smi}]")
+    for key in ("loss", "val_loss"):
+        if not np.all(np.isfinite(h[key])):
+            raise AssertionError(f"sharded fit: {key} not finite")
+    launches = straight["launches"]
+    from embeddingnet_tpu_torch.config import parse_params
+    cut = parse_params(path)
+    val_batches = cut.generator.n_batches_val * cut.train.n_epochs
+    if launches["normalize_u8"] != val_batches:
+        raise AssertionError(f"sharded fit: T2 launched "
+                             f"{launches['normalize_u8']} times, expected "
+                             f"{val_batches}")
+    # the restored best epoch (first maximum of val_recall1) by the plain kNN
+    vals = h[straight["monitor"]]
+    best = int(np.argmax(vals))
+    for key in ("val_recall1", "val_recall5"):
+        if straight["plain_recall"][key] != h[key][best]:
+            raise AssertionError(
+                f"sharded fit: {key} {h[key][best]} of epoch {best} through "
+                f"the sharded kNN, {straight['plain_recall'][key]} through "
+                f"the plain kNN")
+    print(f"sharded fit: the recall of the best epoch {best} through the "
+          f"sharded kNN equals the plain kNN's: {straight['plain_recall']}")
+
+    # resume from epoch 0's checkpoint in another work dir
+    project = cut.general["project_name"]
+    weights = os.path.join(tmp, "sharded_resume", project, "weights")
+    os.makedirs(weights)
+    shutil.copytree(os.path.join(tmp, "sharded_work", project, "weights",
+                                 "0"), os.path.join(weights, "0"))
+    resume_cfg = _fit_config(
+        tmp, source=path, label="sharded fit", work="sharded_resume",
+        name="resume.yml", cuts=[("GENERAL", "work_dir", None,
+                                  "the resumed run's own dir")])
+    resumed, took = _torchrun(resume_cfg, os.path.join(tmp, "resume.json"),
+                              "--resume_from", "0")
+    if resumed["digest"] != straight["digest"]:
+        raise AssertionError(f"sharded fit: the run resumed from epoch 0 "
+                             f"ends at {resumed['digest']}, the straight "
+                             f"run at {straight['digest']}")
+    for key, values in resumed["history"].items():
+        if key.endswith("_s") or key == "images_per_sec":
+            continue
+        if values != h[key][1:]:
+            raise AssertionError(f"sharded fit: resumed {key} {values}, "
+                                 f"straight {h[key][1:]}")
+    print(f"sharded fit: resumed from epoch 0 through torchrun in "
+          f"{took:.1f} s: epoch 1's metrics and the final state (digest "
+          f"{straight['digest']}) equal the straight run's bit for bit")
+    return launches
+
+
+def bf16_params_phase(smi, tmp):
+    """(d) The flagship config with ``params_dtype: bfloat16`` through the
+    port's Trainer (phase 9's cuts and dataset): one train step on the
+    Trainer's first batch; every parameter, BatchNorm statistic and
+    optimizer moment bf16, the loss finite."""
+    from embeddingnet_tpu_torch.config import parse_params
+    from embeddingnet_tpu_torch.data import ENDataLoader
+    from embeddingnet_tpu_torch.train.loop import Trainer
+    path = _fit_config(tmp, settings=[("PERFORMANCE", "params_dtype",
+                                       "bfloat16")],
+                       label="bf16 params", work="bf16_work", name="bf16.yml")
+    params = parse_params(path)
+    loader = ENDataLoader(**{k: params.dataloader[k]
+                             for k in params.dataloader.keys()})
+    trainer = Trainer(params, loader, device=DEVICE, log_fn=lambda *a: None)
+    images, labels = next(trainer._device_prefetch(
+        trainer._check_pk_layout(trainer._train_loader())))
+    fc.reset_launch_counts()
+    pre.reset_launch_counts()
+    trainer.state, m = trainer.train_step(trainer.state, images, labels)
+    torch.cuda.synchronize()
+    launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    floats = {k: v.dtype for k, v in trainer.module.state_dict().items()
+              if v.is_floating_point()}
+    moments = {v.dtype for s in trainer.state.optimizer.state.values()
+               for v in s.values() if torch.is_tensor(v) and v.ndim}
+    print(f"bf16 params: the Trainer's first step on the flagship config "
+          f"(B={len(labels)}), loss {float(m['loss']):.4f}, {len(floats)} "
+          f"float tensors of {set(floats.values())}, optimizer moments of "
+          f"{moments}, launches {launches} [{smi}]")
+    if set(floats.values()) != {torch.bfloat16} or moments != {
+            torch.bfloat16}:
+        raise AssertionError("bf16 params: a tensor is not bf16")
+    if not np.isfinite(float(m["loss"])):
+        raise AssertionError("bf16 params: the loss is not finite")
+    _check_launches("bf16 params", launches, EXPECTED_AUG_PER_STEP, 1)
+
+
+def data_parallel_phase(smi, tmp):
+    """Phase 14: (a)-(d). Returns the launches of its runs, by kernel:
+    (a)'s timed sharded steps, (b)'s remat step, (c)'s fit."""
+    from embeddingnet_tpu_torch.config import parse_params
+    t0 = time.perf_counter()
+    params = parse_params(SHARDED_CONFIG)
+    step_launches, _ = sharded_step_phase(smi, params)
+    remat_launches = remat_check_phase(smi, params)
+    fit_launches = sharded_fit_phase(smi, tmp)
+    bf16_params_phase(smi, tmp)
+    print(f"data parallel: phase 14 in {time.perf_counter() - t0:.1f} s")
+    return {"sharded_step": step_launches, "remat_step": remat_launches,
+            "sharded_fit": fit_launches}
+
+
 def main():
     smi = check_card()
     # f32 references in full f32: cuDNN's convs default to TF32
@@ -2893,6 +3381,7 @@ def main():
         siamese_launches = siamese_phase(smi, tmp)
         vit_launches = vit_phase(smi, tmp)
         road_launches, inference_launches = depthwise_phase(smi, tmp)
+        dp_launches = data_parallel_phase(smi, tmp)
     finally:
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2934,6 +3423,8 @@ def main():
                  "vit_fit_launches": vit_launches[name],
                  "road_signs_fit_launches": road_launches[name],
                  "inference_launches": inference_launches[name],
+                 "phase14_launches": {run: counts[name] for run, counts
+                                      in dp_launches.items()},
                  "max_abs_err": rec["max_abs_err"], **sums, "per": per}
         if name in LIBRARY_RATIO:
             entry["library_ratio"] = sums["ms"] / sums["library_ms"]
@@ -2960,4 +3451,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [CHILD_FLAG]:
+        _fit_child(sys.argv[2:])
+    else:
+        main()

@@ -12,6 +12,8 @@
   first half same-class (target 1), the second half of another class (0).
 * :class:`SimpleSampler`: uniform random (image, class) batches, for the
   arcface mode and the softmax pretraining.
+* :class:`ProcessShardSampler`: one rank's rows of another sampler's
+  global batches (data-parallel feeding).
 
 Each draws from a numpy generator seeded by the caller: the same seed gives
 the same batches as the JAX package's sampler.
@@ -167,3 +169,32 @@ class SimpleSampler(_SamplerBase):
             paths.append(self.class_files_paths[cls][idx])
             labels.append(self.class_to_id[cls])
         return paths, np.asarray(labels, np.int32)
+
+
+class ProcessShardSampler:
+    """One rank's view of a global-batch sampler (data-parallel feeding).
+
+    Every rank wraps an identically seeded sampler, so each draws the
+    identical global batch; this wrapper yields rows ``[lo, hi)`` of it,
+    the block :func:`~embeddingnet_tpu_torch.parallel.mesh.
+    process_row_block` assigns to the rank, so a rank decodes only its
+    rows. ``global_check`` (optional) runs on every global batch's labels
+    before the slice: the P-K layout guard must see the global layout the
+    miner asserts, not the rank's block.
+    """
+
+    def __init__(self, sampler, lo: int, hi: int, global_check=None):
+        self.sampler = sampler
+        self.lo, self.hi = int(lo), int(hi)
+        self.global_check = global_check
+
+    def _slice(self, paths):
+        if isinstance(paths, tuple):
+            return tuple(p[self.lo:self.hi] for p in paths)
+        return paths[self.lo:self.hi]
+
+    def __iter__(self):
+        for paths, labels in self.sampler:
+            if self.global_check is not None:
+                self.global_check(labels)
+            yield self._slice(paths), labels[self.lo:self.hi]

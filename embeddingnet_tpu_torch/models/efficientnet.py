@@ -37,6 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from embeddingnet_tpu_torch.models import remat
 from embeddingnet_tpu_torch.models.resnet import BatchNorm, Conv2d
 from embeddingnet_tpu_torch.models.stochastic import MaskSource, drop_connect
 
@@ -199,6 +200,7 @@ class EfficientNet(nn.Module):
     [B, round_filters(1280), H/32, W/32]."""
 
     stochastic = True
+    remat_blocks = True
 
     def __init__(self, width_coefficient: float = 1.0,
                  depth_coefficient: float = 1.0,
@@ -238,7 +240,7 @@ class EfficientNet(nn.Module):
                 masks: Optional[MaskSource] = None) -> torch.Tensor:
         x = F.silu(self.stem_bn(self.stem_conv(x)))
         for name in self.block_names:
-            x = getattr(self, name)(x, masks)
+            x = remat.run(getattr(self, name), x, masks)
         return F.silu(self.head_bn(self.head_conv(x)))
 
 

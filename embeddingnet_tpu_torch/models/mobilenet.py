@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from embeddingnet_tpu_torch.models.efficientnet import (BN_EPS, MBConv,
                                                         SameConv2d)
+from embeddingnet_tpu_torch.models import remat
 from embeddingnet_tpu_torch.models.resnet import BatchNorm, Conv2d
 
 # (expand_ratio, channels, repeats, stride)
@@ -55,6 +56,7 @@ class MobileNetV2(nn.Module):
     W/32]."""
 
     stochastic = False
+    remat_blocks = True
 
     def __init__(self, width_multiplier: float = 1.0,
                  bn_momentum: float = 0.99,
@@ -88,7 +90,7 @@ class MobileNetV2(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu6(self.stem_bn(self.stem_conv(x)))
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            x = remat.run(getattr(self, name), x)
         return F.relu6(self.head_bn(self.head_conv(x)))
 
 

@@ -35,6 +35,7 @@ import torch
 import torch.nn as nn
 
 from embeddingnet_tpu_torch.models import efficientnet as _efn
+from embeddingnet_tpu_torch.models import remat
 from embeddingnet_tpu_torch.models import mobilenet as _mobilenet
 from embeddingnet_tpu_torch.models import resnet as _resnet
 from embeddingnet_tpu_torch.models import simple as _simple
@@ -106,10 +107,19 @@ def _build_backbone(name: str, dtype: Optional[torch.dtype],
 def _run_backbone(backbone: nn.Module, x: torch.Tensor,
                   masks: Optional[MaskSource], **kw) -> torch.Tensor:
     """``backbone`` on an NHWC batch, handing ``masks`` to the stochastic
-    families."""
-    if getattr(backbone, "stochastic", False):
-        kw["masks"] = masks
-    return backbone(_nchw(x), **kw)
+    families. Inside :func:`~embeddingnet_tpu_torch.models.remat.
+    rematerialize` a backbone without blocks of its own (``simple``,
+    ``simple2``, MobileNet v1) runs whole under one checkpoint."""
+    stochastic = getattr(backbone, "stochastic", False)
+    if getattr(backbone, "remat_blocks", False) or not remat.active():
+        if stochastic:
+            kw["masks"] = masks
+        return backbone(_nchw(x), **kw)
+    if stochastic:
+        masks = masks if masks is not None else MaskSource()
+        return remat.run(lambda x, m: backbone(x, masks=m, **kw), _nchw(x),
+                         masks)
+    return remat.run(lambda x: backbone(x, **kw), _nchw(x))
 
 
 class EmbeddingModule(nn.Module):

@@ -26,6 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from embeddingnet_tpu_torch.models import remat
 from embeddingnet_tpu_torch.ops.fused_conv import (BNScaleBias, FastConv3x3,
                                                     FusedBNReluConv3x3)
 
@@ -175,7 +176,10 @@ class BottleneckBlock(nn.Module):
 
 class ResNet(nn.Module):
     """Generic ResNet backbone: NCHW image batch -> final [B, C, H/32, W/32]
-    feature map."""
+    feature map. Inside :func:`~embeddingnet_tpu_torch.models.remat.
+    rematerialize` each block runs under a checkpoint."""
+
+    remat_blocks = True
 
     def __init__(self, stage_sizes: Sequence[int], block_cls,
                  num_filters: int = 64, stride_in_3x3: bool = True,
@@ -208,7 +212,7 @@ class ResNet(nn.Module):
         x = F.relu(self.stem_bn(self.stem_conv(x)))
         x = F.max_pool2d(x, 3, 2, 1)
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            x = remat.run(getattr(self, name), x)
         return x
 
 

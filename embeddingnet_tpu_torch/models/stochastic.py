@@ -13,7 +13,7 @@ would.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -25,18 +25,36 @@ class MaskSource:
     out first, moved to the layer's device; with none given, each mask is
     ``rand < keep`` from ``generator`` (torch's default generator when
     None). Every mask handed out is kept in :attr:`drawn`, so a run can be
-    replayed elsewhere with the same masks."""
+    replayed elsewhere with the same masks.
+
+    ``rows = (lo, hi, global_batch)`` serves one rank of a data-parallel
+    step: the masks (given or drawn) are the global batch's, leading axis
+    ``global_batch``, and a layer gets rows ``[lo, hi)`` of each, so every
+    rank draws what the one-process step draws; :attr:`drawn` keeps the
+    global masks."""
 
     def __init__(self, masks: Optional[Sequence[torch.Tensor]] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 rows: Optional[Tuple[int, int, int]] = None):
         self.masks = None if masks is None else list(masks)
         self.generator = generator
+        self.rows = rows
         self.drawn: List[torch.Tensor] = []
 
     def next(self, shape: Sequence[int], keep: float,
              device: torch.device) -> torch.Tensor:
         """The next keep mask of ``shape`` (a bool tensor on ``device``),
         each entry kept with probability ``keep``."""
+        if self.rows is None:
+            return self._next(tuple(shape), keep, device)
+        lo, hi, global_batch = self.rows
+        if shape[0] != hi - lo:
+            raise ValueError(f"the layer's batch is {shape[0]} rows; this "
+                             f"rank's block is [{lo}, {hi})")
+        full = self._next((global_batch,) + tuple(shape[1:]), keep, device)
+        return full[lo:hi]
+
+    def _next(self, shape, keep, device):
         if self.masks is not None:
             if len(self.drawn) >= len(self.masks):
                 raise ValueError(f"{len(self.masks)} masks given; the "

@@ -38,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from embeddingnet_tpu_torch.models import remat
 from embeddingnet_tpu_torch.models.heads import Dense, lecun_normal_
 from embeddingnet_tpu_torch.models.resnet import Conv2d
 
@@ -118,6 +119,8 @@ class ViT(nn.Module):
     """[B, C, H, W] image batch -> [B, D, H/p, W/p] token grid, the class
     token folded in (D is ``proj_dim`` when set, else ``dim``)."""
 
+    remat_blocks = True
+
     def __init__(self, image_size: Sequence[int], in_channels: int = 3,
                  patch: int = 16, dim: int = 768, depth: int = 12,
                  heads: int = 12, ln_pre: bool = False,
@@ -173,7 +176,7 @@ class ViT(nn.Module):
         if self.ln_pre is not None:
             x = self.ln_pre(x)
         for i in range(self.depth):
-            x = getattr(self, f"block{i + 1}")(x)
+            x = remat.run(getattr(self, f"block{i + 1}"), x)
         x = self.ln_final(x)
         if self.proj is not None:
             x = self.proj(x)

@@ -53,7 +53,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from embeddingnet_tpu_torch.ops import _cuda
+from embeddingnet_tpu_torch.ops import _cuda, batchnorm_context
+from embeddingnet_tpu_torch.parallel import collectives
 
 # Launches of each kernel since the last reset_launch_counts(), counted
 # where the wrapper launches; a run reads them to show that its path went
@@ -756,6 +757,13 @@ class BNScaleBias(nn.BatchNorm2d):
     ``momentum`` in Flax's sense (``ra = momentum*ra + (1-momentum)*batch``;
     torch's own ``momentum`` attribute holds ``1 - momentum``), the running
     variance biased as Flax keeps it.
+
+    In train mode it follows :mod:`~embeddingnet_tpu_torch.ops.
+    batchnorm_context`: with a ``world``, the per-channel sums of ``x`` and
+    ``x^2`` are all-reduced over the ranks first, so the statistics are the
+    global batch's (the ranks hold equal blocks), as JAX's over a data
+    mesh; while ``recomputing`` (a rematerialised forward) the running
+    averages stay as the first forward left them.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5,
@@ -768,12 +776,24 @@ class BNScaleBias(nn.BatchNorm2d):
         acc = torch.promote_types(x.dtype, torch.float32)
         if self.training:
             xf = x.to(acc)
-            mean = xf.mean((0, 2, 3))
-            var = (xf.square().mean((0, 2, 3)) - mean.square()).clamp_min(0)
-            with torch.no_grad():
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
-                self.num_batches_tracked += 1
+            ctx = batchnorm_context.current()
+            if ctx.world is None:
+                mean = xf.mean((0, 2, 3))
+                ex2 = xf.square().mean((0, 2, 3))
+            else:
+                sums = collectives.all_reduce_sum(torch.cat(
+                    [xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3))]),
+                    ctx.world.group)
+                count = xf.numel() // xf.shape[1] * ctx.world.size
+                mean, ex2 = (sums / count).chunk(2)
+            var = (ex2 - mean.square()).clamp_min(0)
+            if not ctx.recomputing:
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                            self.momentum)
+                    self.running_var.lerp_(var.to(self.running_var.dtype),
+                                           self.momentum)
+                    self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean, self.running_var
         scale = torch.rsqrt(var.to(acc) + self.eps) * self.weight.to(acc)

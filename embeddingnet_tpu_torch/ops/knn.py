@@ -1,9 +1,12 @@
 """kNN classification over the encodings DB (port of
 ``embeddingnet_tpu/ops/knn.py``).
 
-A matmul plus ``torch.topk`` on the device that holds the DB: no host
-round trip between encode and classify. Labels are integer class ids;
-callers map them to class names.
+A matmul plus a top-k on the device that holds the DB: no host round trip
+between encode and classify. Labels are integer class ids; callers map
+them to class names. Among equal distances the lower DB row comes first,
+as ``jax.lax.top_k`` orders them (``torch.topk`` leaves the order of ties
+open), so a DB spread over ranks finds the same neighbours
+(:mod:`~embeddingnet_tpu_torch.parallel.sharded_knn`).
 """
 
 from __future__ import annotations
@@ -16,14 +19,40 @@ import torch.nn.functional as F
 from embeddingnet_tpu_torch.ops.distances import pairwise_sq_l2
 
 
-def _vote(neighbor_labels: torch.Tensor, n_classes: int) -> torch.Tensor:
+def topk_lowest_index(x: torch.Tensor, k: int):
+    """The ``k`` largest entries of each row of ``x`` and their positions,
+    ties to the lower position, in the total order of ``jax.lax.top_k``
+    (-0.0 below 0.0, a NaN beyond the infinity of its sign). The values
+    are ordered as integers (a float's bits, the negatives' flipped); for
+    float32 and narrower, one ``torch.topk`` over int64 keys of that order
+    in the high 32 bits and the position, lower first, in the low 32: the
+    keys are distinct, so no tie is left open. float64 leaves no room for
+    the position: a stable sort of its order."""
+    wide = x.dtype == torch.float64
+    bits = x.view(torch.int64) if wide else x.float().view(torch.int32)
+    order = torch.where(bits < 0, bits ^ torch.iinfo(bits.dtype).max, bits)
+    if wide:
+        idx = order.sort(dim=1, descending=True, stable=True).indices[:, :k]
+    else:
+        low = torch.arange(0xFFFFFFFF, 0xFFFFFFFF - x.shape[1], -1,
+                           device=x.device)
+        keys = order.long() * 2 ** 32 + low
+        idx = 0xFFFFFFFF - (keys.topk(k, dim=1).values & 0xFFFFFFFF)
+    return x.gather(1, idx), idx
+
+
+def vote(neighbor_labels: torch.Tensor, n_classes: int) -> torch.Tensor:
     """Majority vote over ``[Q, k]`` neighbour labels, with a rank-weighted
     epsilon so that a count tie goes to the class of the nearest tied
-    neighbour (sklearn's uniform ``KNeighborsClassifier``)."""
+    neighbour (sklearn's uniform ``KNeighborsClassifier``). A label -1 (a
+    padding row of a sharded DB) votes for no class, as JAX's one-hot of -1
+    is zero."""
     k = neighbor_labels.shape[1]
     rank_eps = 1.0 / (torch.arange(k, dtype=torch.float32,
                                    device=neighbor_labels.device) + 2.0)
-    votes = F.one_hot(neighbor_labels.long(), n_classes).float()  # [Q, k, C]
+    labels = neighbor_labels.long()
+    labels = torch.where(labels < 0, n_classes, labels)
+    votes = F.one_hot(labels, n_classes + 1)[..., :n_classes].float()
     counts = (votes * (1.0 + 1e-3 * rank_eps)[None, :, None]).sum(1)
     return counts.argmax(-1)
 
@@ -33,15 +62,15 @@ def knn_classify(db_emb: torch.Tensor, db_labels: torch.Tensor,
                  n_classes: int = 1000) -> Tuple[torch.Tensor, torch.Tensor]:
     """Majority-vote kNN: ``(pred_label [Q], neighbor_idx [Q, k])``."""
     d2 = pairwise_sq_l2(queries, db_emb)                  # [Q, N]
-    _, idx = torch.topk(-d2, k, dim=1)                    # [Q, k]
-    return _vote(db_labels[idx], n_classes), idx
+    _, idx = topk_lowest_index(-d2, k)                    # [Q, k]
+    return vote(db_labels[idx], n_classes), idx
 
 
 def knn_neighbors(db_emb: torch.Tensor, queries: torch.Tensor, *,
                   k: int = 5) -> Tuple[torch.Tensor, torch.Tensor]:
     """``kneighbors``: distances and indices of the k nearest DB rows."""
     d2 = pairwise_sq_l2(queries, db_emb)
-    neg_d2, idx = torch.topk(-d2, k, dim=1)
+    neg_d2, idx = topk_lowest_index(-d2, k)
     return (-neg_d2).clamp_min(0.0).sqrt(), idx
 
 
@@ -66,8 +95,8 @@ def knn_classify_quantized(db_values: torch.Tensor, db_scales: torch.Tensor,
     d2 = (q32.square().sum(1, keepdim=True)
           + (db_scales.square() * v32.square().sum(1))[None, :]
           - 2.0 * db_scales[None, :] * gram)
-    _, idx = torch.topk(-d2, k, dim=1)
-    return _vote(db_labels[idx], n_classes), idx
+    _, idx = topk_lowest_index(-d2, k)
+    return vote(db_labels[idx], n_classes), idx
 
 
 def class_centers(db_emb: torch.Tensor, db_labels: torch.Tensor,

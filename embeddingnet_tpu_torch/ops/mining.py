@@ -35,6 +35,11 @@ Two modes beyond the reference:
   and the per-negative counts ``m`` as weights ``W``,
   ``dL/de = 2 * (rowsum(S) * e - S @ e)``, ``S = W + W^T``.
 
+  Without a grouped P-K layout (``max_positives`` None, or a batch that is
+  not a multiple of ``K``) the generic-label path
+  (:func:`batch_all_rowblock`) counts by one merged sort per anchor row;
+  the gradient is the same analytic form on the dense ``W``.
+
 Passing ``max_positives = K - 1`` asserts the grouped layout on the P-K
 paths: a batch that breaks it poisons loss, gradient and stats with NaN
 (and the triplet counts with -1), as in the JAX package.
@@ -44,13 +49,13 @@ Gumbel noise [B, B, B] on the enumeration path, uniforms [B, B] on the
 dense path and [B, K] on the P-K path (:func:`draws_shape`); without them
 they are drawn from a ``torch.Generator`` (:func:`sample_draws`).
 
-This is eager PyTorch (at B=1024, K=4 a compare tensor is 16.8 MB). The
-generic-label batch-all path (``batch_all_rowblock``) and a fused Triton
-miner are still to port (``ROADMAP.md``).
+This is eager PyTorch (at B=1024, K=4 a compare tensor is 16.8 MB); a
+fused miner is still to write (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -166,21 +171,78 @@ def _structured_w_grad(emb, k_flat, m, denom, poison, k_samples, g_loss):
     return g_loss * 2.0 * (s_row[:, None] * emb - s_e) * poison
 
 
+def batch_all_rowblock(sq: torch.Tensor, pos_mask: torch.Tensor,
+                       neg_mask: torch.Tensor, margin: float):
+    """Per-anchor-row batch-all counting over an [R, B] block of squared
+    distances, for any labels (the core of the generic-label path, on one
+    device and per rank).
+
+    Each row's B negative distances (``+inf`` where not a negative) and B
+    pair thresholds ``t = sq_ap + margin`` (``-inf`` where not a positive
+    pair) are merged and sorted once (stable, negatives first among equal
+    keys: a tie is a zero hinge); cumulative sums over the sorted row give,
+    at every threshold, the count ``k`` and the value sum of the negatives
+    below it, and at every negative the count of thresholds below it; the
+    inverse permutation puts them back in column order.
+
+    Returns ``(pair_sum [R, B], k [R, B], m [R, B])``: the per-pair hinge
+    sums, the per-pair active-triplet counts and the per-negative counts of
+    active thresholds (the weights of the analytic gradient)."""
+    r, b = sq.shape
+    neg_sq = torch.where(neg_mask, sq, float("inf"))
+    t = torch.where(pos_mask, sq + margin, float("-inf"))
+    vals_sorted, order = torch.cat([neg_sq, t], 1).sort(dim=1, stable=True)
+    is_neg = (order < b).to(sq.dtype)
+    # negatives strictly before each rank: count and value prefix sums
+    cum_cnt = is_neg.cumsum(1) - is_neg
+    neg_vals = torch.where((order < b) & torch.isfinite(vals_sorted),
+                           vals_sorted, 0.0)
+    cum_val = neg_vals.cumsum(1) - neg_vals
+    # thresholds strictly before each rank (the -inf invalid ones included)
+    is_t = 1.0 - is_neg
+    cum_t = is_t.cumsum(1) - is_t
+
+    def unsort(x):
+        return torch.empty_like(x).scatter_(1, order, x)
+
+    u_cnt, u_val, u_t = unsort(cum_cnt), unsort(cum_val), unsort(cum_t)
+    k = torch.where(pos_mask, u_cnt[:, b:], 0.0)
+    pair_sum = torch.where(pos_mask, k * t - u_val[:, b:], 0.0)
+    # m[a, n] = valid thresholds of anchor a above sq_an: the valid ones
+    # less those below it (cum_t counts the invalid ones, which sort first)
+    n_pos = pos_mask.sum(1).to(sq.dtype)
+    n_invalid_t = b - n_pos
+    m = (n_pos[:, None] - (u_t[:, :b] - n_invalid_t[:, None])).clamp_min(0.0)
+    m = torch.where(neg_mask, m, 0.0)
+    return pair_sum, k, m
+
+
 def _batch_all_forward(embeddings: torch.Tensor, labels: torch.Tensor,
                        margin: float, max_positives: Optional[int]):
-    """Loss, stats and the backward's residuals
-    ``(emb, k [B, K], m [B, B], denom, poison)`` on the P-K fast path."""
+    """Loss, stats and the backward's residuals: ``(emb, k [B, K], m [B, B],
+    denom, poison)`` on the P-K fast path, ``(emb, w [B, B])`` on the
+    generic-label path (:func:`batch_all_rowblock`)."""
     b = labels.shape[0]
-    if not _pk_is_fast_path(b, max_positives):
-        raise NotImplementedError(
-            "batch_all without a grouped P-K layout (max_positives = "
-            "k_samples - 1, B a multiple of k_samples) takes the generic "
-            "rowblock path, which is not ported yet (see ROADMAP.md, item 3)")
-    k_samples = max_positives + 1
     sq = pairwise_sq_l2(embeddings)
     dist = sq.sqrt()
     pos_mask, neg_mask = _masks(labels)
     n_candidates = (pos_mask.sum(1) * neg_mask.sum(1)).sum()
+    if not _pk_is_fast_path(b, max_positives):
+        if b >= 2048:
+            warnings.warn(
+                f"batch_all_loss at B={b} without max_positives takes the "
+                "generic-label sort path, much slower than the grouped P-K "
+                "compare-reduce: sample P-K batches (GENERATOR.k_samples) "
+                "and pass max_positives=k_samples-1", stacklevel=3)
+        pair_sum, k, m = batch_all_rowblock(sq, pos_mask, neg_mask, margin)
+        active = k.sum()
+        denom = active.clamp_min(1.0)
+        loss = pair_sum.sum() / denom
+        w = (k * pos_mask - m * neg_mask) / denom
+        stats = _stats(dist, pos_mask, neg_mask, active.to(torch.int32),
+                       n_candidates)
+        return loss, stats, (embeddings.float(), w)
+    k_samples = max_positives + 1
 
     fits = _pk_grouped(labels, k_samples)
     poison = torch.where(fits, 1.0, float("nan"))
@@ -206,26 +268,39 @@ class _BatchAllLoss(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, embeddings, labels, margin, max_positives):
-        loss, stats, (emb, k, m, denom, poison) = _batch_all_forward(
-            embeddings, labels, margin, max_positives)
-        ctx.save_for_backward(emb, k, m, denom, poison)
-        ctx.k_samples = max_positives + 1
+        loss, stats, res = _batch_all_forward(embeddings, labels, margin,
+                                              max_positives)
+        ctx.save_for_backward(*res)
+        ctx.k_samples = (max_positives or 0) + 1
         ctx.mark_non_differentiable(*stats)
         return (loss,) + tuple(stats)
 
     @staticmethod
     def backward(ctx, g_loss, *_stat_grads):
-        emb, k, m, denom, poison = ctx.saved_tensors
-        grad = _structured_w_grad(emb, k, m, denom, poison, ctx.k_samples,
-                                  g_loss)
+        res = ctx.saved_tensors
+        if len(res) == 5:
+            emb, k, m, denom, poison = res
+            grad = _structured_w_grad(emb, k, m, denom, poison,
+                                      ctx.k_samples, g_loss)
+        else:
+            grad = _dense_w_grad(*res, g_loss)
         return grad, None, None, None
+
+
+def _dense_w_grad(emb, w, g_loss):
+    """Embedding gradient of ``loss = sum(W * sq)``: with ``S = W + W^T``,
+    ``dL/de = 2 (rowsum(S) e - S e)``."""
+    s = w + w.T
+    return g_loss * 2.0 * (s.sum(1, keepdim=True) * emb - s @ emb)
 
 
 def batch_all_loss(embeddings: torch.Tensor, labels: torch.Tensor, *,
                    margin: float = 0.5, max_positives: Optional[int] = None):
-    """Exact batch-all triplet loss on a grouped P-K batch; returns
-    ``(loss, MiningStats)``. ``max_positives`` is ``k_samples - 1``; without
-    it (the generic-label path) this raises ``NotImplementedError``."""
+    """Exact batch-all triplet loss; returns ``(loss, MiningStats)``.
+    ``max_positives`` (``k_samples - 1``) asserts a grouped P-K batch and
+    takes the compare-reduce path; without it, or when B is not a multiple
+    of ``k_samples``, the generic-label path (:func:`batch_all_rowblock`)
+    runs."""
     loss, *stats = _BatchAllLoss.apply(embeddings.float(), labels, margin,
                                        max_positives)
     return loss, MiningStats(*stats)
@@ -645,9 +720,7 @@ class _ParityLargeLoss(torch.autograd.Function):
             grad = _structured_w_grad(emb, active_f, w_neg, denom, poison,
                                       ctx.k_samples, g_loss)
         else:
-            emb, w = res
-            s = w + w.T
-            grad = g_loss * 2.0 * (s.sum(1, keepdim=True) * emb - s @ emb)
+            grad = _dense_w_grad(*res, g_loss)
         return grad, None, None, None, None, None
 
 

@@ -6,8 +6,17 @@ A checkpoint is the directory ``<weights>/<epoch>/`` holding ``state.pt``
 optimizer, generator, step count, plateau scale, EMA) and ``host.json``
 (``epoch``, ``best``, ``metrics`` and the callbacks' state). It is written
 into a temporary directory beside it and renamed into place with
-``os.replace``, so a crash mid-write leaves no torn checkpoint. Loads use
-``weights_only=True``.
+``os.replace``, so a crash mid-write leaves no torn checkpoint. The state
+is written from a host copy of its tensors (taken before ``save``
+returns). Loads use ``weights_only=True``.
+
+``PERFORMANCE.async_checkpoint`` writes the host copy on a background
+thread while training goes on; the next save, :meth:`CheckpointManager.
+wait`, :meth:`~CheckpointManager.epochs`, ``restore`` and ``close`` wait
+for it, and the files are the synchronous save's byte for byte. Under
+several ranks (``parallel``) rank 0 alone writes, every rank makes the
+same save decisions, and a read waits at a barrier until rank 0's write is
+done.
 """
 
 from __future__ import annotations
@@ -15,36 +24,52 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import warnings
+import threading
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from embeddingnet_tpu_torch.train.state import TrainState
 
 STATE_FILE, HOST_FILE = "state.pt", "host.json"
 
 
+def host_copy(tree):
+    """``tree`` with every tensor copied to the host (a new tensor, so the
+    training may go on changing the original)."""
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_copy(v) for v in tree)
+    return tree
+
+
 class CheckpointManager:
     """Best-only checkpoints under ``<work_dir>/weights/``, at most
     ``max_to_keep`` of them (the oldest go first). ``map_location`` is where
-    restored tensors land (the Trainer's device)."""
+    restored tensors land (the Trainer's device). ``async_save`` writes on
+    a background thread; ``parallel`` (a data-parallel world) lets rank 0
+    alone write."""
 
     def __init__(self, directory: str, max_to_keep: int = 5,
                  monitor: str = "val_loss", mode: str = "min",
-                 async_save: bool = False, map_location=None):
+                 async_save: bool = False, map_location=None,
+                 parallel=None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.monitor = monitor
         self.mode = mode
         self.map_location = map_location
-        if async_save:
-            warnings.warn(
-                "PERFORMANCE.async_checkpoint: the PyTorch port saves "
-                "checkpoints synchronously (see ROADMAP.md, item 16)",
-                UserWarning, stacklevel=2)
+        self.async_save = async_save
+        self.parallel = parallel
+        self.writes = parallel is None or parallel.rank == 0
         self.best: Optional[float] = None
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
 
     def _improved(self, value: float) -> bool:
         if self.best is None:
@@ -63,28 +88,72 @@ class CheckpointManager:
         if raw is None or not self._improved(float(raw)):
             return False
         self.best = float(raw)
+        if not self.writes:
+            return True
         host = {"epoch": epoch, "best": self.best,
                 "metrics": {k: float(v) for k, v in metrics.items()},
                 **(host_state or {})}
+        self._wait_local()
+        tensors = host_copy(state.state_dict())
+        if not self.async_save:
+            self._write(epoch, tensors, host)
+            return True
+        self._thread = threading.Thread(
+            target=self._write_catching, args=(epoch, tensors, host),
+            name=f"checkpoint-{epoch}", daemon=True)
+        self._thread.start()
+        return True
+
+    def _write(self, epoch: int, tensors: dict, host: dict) -> None:
         final = os.path.join(self.directory, str(epoch))
         tmp = os.path.join(self.directory, f".tmp-{epoch}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save(state.state_dict(), os.path.join(tmp, STATE_FILE))
+        torch.save(tensors, os.path.join(tmp, STATE_FILE))
         with open(os.path.join(tmp, HOST_FILE), "w") as f:
             json.dump(host, f)
         if os.path.exists(final):
             shutil.rmtree(final)
         os.replace(tmp, final)
-        for old in self.epochs()[:-self.max_to_keep]:
+        for old in self._complete()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)))
-        return True
 
-    def epochs(self):
-        """The epochs with a complete checkpoint, oldest first."""
+    def _write_catching(self, *args) -> None:
+        try:
+            self._write(*args)
+        except BaseException as e:  # handed to the next wait()
+            self._error = e
+
+    def _wait_local(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise RuntimeError("the background checkpoint write "
+                               "failed") from error
+
+    def wait(self) -> None:
+        """Until this rank's pending write is done; under several ranks,
+        then until every rank got there (so rank 0's files are
+        complete)."""
+        self._wait_local()
+        if self.parallel is not None and self.parallel.size > 1:
+            dist.barrier(group=self.parallel.group)
+
+    def close(self) -> None:
+        self.wait()
+
+    def _complete(self):
         return sorted(int(d) for d in os.listdir(self.directory)
                       if d.isdigit() and os.path.exists(
                           os.path.join(self.directory, d, HOST_FILE)))
+
+    def epochs(self):
+        """The epochs with a complete checkpoint, oldest first (after
+        :meth:`wait`)."""
+        self.wait()
+        return self._complete()
 
     def latest_epoch(self) -> Optional[int]:
         epochs = self.epochs()
@@ -94,6 +163,7 @@ class CheckpointManager:
         """Load a checkpoint into ``state`` in place; ``(state,
         host_state)``. ``epoch=None`` -> latest."""
         epoch = epoch if epoch is not None else self.latest_epoch()
+        self.wait()
         path = os.path.join(self.directory, str(epoch))
         if epoch is None or not os.path.exists(
                 os.path.join(path, HOST_FILE)):

@@ -25,8 +25,23 @@ every backbone of the port's registry (``simple``, ``simple2``, the
 ResNets, EfficientNet-B0..B7, MobileNet v1/v2, the ViTs). What the port
 lacks raises ``NotImplementedError`` at construction, before anything is
 written, naming its ``ROADMAP.md`` item: the other backbones and
-pretrained backbone weights (item 12), more than one device (item 13) and
-bf16 master weights (item 16).
+pretrained backbone weights (item 12), and a ``MESH.model`` axis or a
+one-process mesh over several cards (item 13).
+
+Data parallelism: under an initialised ``torch.distributed`` process
+group (``torchrun --nproc_per_node=N tools/train_torch.py``, one process
+per card) each rank feeds its block of every global batch
+(:class:`~embeddingnet_tpu_torch.data.samplers.ProcessShardSampler`) to
+the data-parallel step (:mod:`~embeddingnet_tpu_torch.train.steps`), so
+the ranks train one model bit for bit alike; the val epoch splits its
+batches the same way, the recall eval searches the DB spread over the
+ranks (:mod:`~embeddingnet_tpu_torch.parallel.sharded_knn`), the epoch's
+metrics are rank 0's (broadcast, so the plateau, early-stop and
+checkpoint decisions agree), rank 0 alone prints, logs and writes
+checkpoints, and every rank loads them. ``PERFORMANCE.remat``
+rematerialises the triplet step's backbone blocks; ``params_dtype:
+bfloat16`` keeps parameters, BatchNorm statistics and the optimizer state
+in bf16; ``async_checkpoint`` writes checkpoints on a background thread.
 """
 
 from __future__ import annotations
@@ -41,6 +56,7 @@ import torch
 
 from embeddingnet_tpu_torch.data.pipeline import BatchLoader, DecodeCache
 from embeddingnet_tpu_torch.data.samplers import (PairSampler, PKSampler,
+                                                  ProcessShardSampler,
                                                   SimpleSampler,
                                                   TripletSampler)
 from embeddingnet_tpu_torch.models.registry import (ArcFaceModule,
@@ -51,6 +67,8 @@ from embeddingnet_tpu_torch.models.registry import (ArcFaceModule,
                                                     list_backbones,
                                                     transfer_backbone_params)
 from embeddingnet_tpu_torch.ops.augment import augment_from_params
+from embeddingnet_tpu_torch.parallel import collectives
+from embeddingnet_tpu_torch.parallel.collectives import DataParallel
 from embeddingnet_tpu_torch.train import callbacks as cb
 from embeddingnet_tpu_torch.train import checkpoint as ckpt
 from embeddingnet_tpu_torch.train import optim, steps
@@ -66,14 +84,25 @@ class Trainer:
                  log_fn: Callable = print):
         self.params = params
         self.data_loader = data_loader
-        self.log = log_fn
         self.mode = params.model.mode
         self.device = torch.device(device)
+        # a process group makes this process one rank of a data-parallel
+        # run (torchrun); without one it trains alone
+        self.parallel = (DataParallel.current()
+                         if torch.distributed.is_available()
+                         and torch.distributed.is_initialized() else None)
+        self._rank0 = self.parallel is None or self.parallel.rank == 0
+        self.log = log_fn if self._rank0 else (lambda *a, **k: None)
         self._check_supported()
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(f"Trainer: device {device!r} asked for, "
                                    f"but CUDA is not available")
+            if self.device.index is None:
+                # the rank's card (torchrun's LOCAL_RANK, set by
+                # parallel.mesh.maybe_initialize_distributed)
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
             # f32 matmuls stay f32: the mining's distances cancel badly in
             # TF32 (as EmbeddingNet sets it)
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -83,16 +112,23 @@ class Trainer:
         self.compute_dtype = (torch.bfloat16
                               if perf.compute_dtype == "bfloat16"
                               else torch.float32)
-        if perf.remat:
-            warnings.warn("PERFORMANCE.remat is not ported to PyTorch; the "
-                          "step keeps its activations", UserWarning,
-                          stacklevel=2)
+        if perf.remat and self.mode != "triplet":
+            warnings.warn(f"PERFORMANCE.remat: the {self.mode} step keeps "
+                          f"its activations (JAX rematerialises the triplet "
+                          f"step alone)", UserWarning, stacklevel=2)
         cache_mb = perf.decode_cache_mb
         self._decode_cache = DecodeCache(cache_mb) if cache_mb > 0 else None
         self.augment_fn = augment_from_params(params)
         self._build_module()
+        if perf.params_dtype == "bfloat16":
+            # bf16 master weights, as JAX casts its variables (parameters
+            # and BatchNorm statistics) before the optimizer is built; the
+            # optimizer state follows the parameters' dtype
+            self.module.to(torch.bfloat16)
         self._build_optimizer()
         self._build_steps()
+        if self.parallel is not None:
+            collectives.check_replicated(self.module, self.parallel.group)
 
         self.history = cb.History()
         self.plateau = cb.ReduceLROnPlateau(
@@ -102,8 +138,10 @@ class Trainer:
             monitor=self._monitor(),
             patience=params.train.early_stopping_patience)
         self.ckpt_mgr = ckpt.CheckpointManager(
-            self.paths["weights"], monitor=self._monitor(), mode=cb.monitor_mode(self._monitor()),
-            async_save=perf.async_checkpoint, map_location=self.device)
+            self.paths["weights"], monitor=self._monitor(),
+            mode=cb.monitor_mode(self._monitor()),
+            async_save=perf.async_checkpoint, map_location=self.device,
+            parallel=self.parallel)
         self.start_epoch = 0
         # per fitted epoch: wall seconds of the epoch and of its parts (the
         # train epoch's wait for batches among them), and the checkpoint's
@@ -114,7 +152,8 @@ class Trainer:
         self.metrics_logger = MetricsLogger(
             self.paths["tensorboard"],
             tensorboard=params.general.tensorboard_callback,
-            wandb_enabled=params.general.wandb_callback)
+            wandb_enabled=params.general.wandb_callback) if self._rank0 \
+            else None
 
     # -- construction ------------------------------------------------------
 
@@ -132,19 +171,32 @@ class Trainer:
                 f"MODEL.backbone_weights {p.model.backbone_weights!r}: "
                 f"pretrained weights are not ported to PyTorch yet (see "
                 f"ROADMAP.md, item 12); set it to null")
-        n_cards = (torch.cuda.device_count()
-                   if self.device.type == "cuda" else 1)
-        data = n_cards // p.mesh.model if p.mesh.data == -1 else p.mesh.data
-        if p.mesh.model > 1 or data > 1:
+        if p.mesh.model > 1:
             raise NotImplementedError(
-                f"MESH data={p.mesh.data}, model={p.mesh.model} over "
-                f"{n_cards} device(s): the PyTorch port trains on one device "
-                f"(see ROADMAP.md, item 13); set MESH.data: 1 or expose one "
-                f"card (CUDA_VISIBLE_DEVICES)")
-        if p.performance.params_dtype == "bfloat16":
-            raise NotImplementedError(
-                "PERFORMANCE.params_dtype: bfloat16 (bf16 master weights) is "
-                "not ported to PyTorch yet (see ROADMAP.md, item 16)")
+                f"MESH.model={p.mesh.model}: the PyTorch port has no model "
+                f"axis; parameter sharding (parallel/tp.py) waits for a "
+                f"config that sets it (see ROADMAP.md, item 13)")
+        world = self.parallel.size if self.parallel is not None else 1
+        if p.mesh.data not in (-1, world):
+            if self.parallel is None:
+                raise NotImplementedError(
+                    f"MESH.data={p.mesh.data} in one process: the PyTorch "
+                    f"port runs one process per card and has no one-process "
+                    f"mesh over several cards (see ROADMAP.md, item 13); "
+                    f"launch {p.mesh.data} ranks with torchrun "
+                    f"--nproc_per_node={p.mesh.data}, or set MESH.data: -1")
+            if p.mesh.data == 1:
+                raise ValueError(
+                    "a multi-process launch needs a data axis over every "
+                    "rank: set MESH.data: -1 (all ranks)")
+            raise ValueError(f"MESH.data={p.mesh.data} on a world of "
+                             f"{world} ranks: set MESH.data: -1 or {world}")
+        g = p.generator
+        batch = g.k_classes * g.k_samples if self.mode == "triplet" \
+            else g.batch_size
+        if world > 1 and batch % world:
+            raise ValueError(f"global batch {batch} must divide by the "
+                             f"world size {world}")
 
     def _monitor(self) -> str:
         # TRAIN.monitor overrides; else val_loss when validating, else
@@ -244,7 +296,7 @@ class Trainer:
             self.train_step = steps.make_siamese_train_step(
                 self.module, self.optimizer,
                 augment_fn=self.augment_fn, reg_rules=reg_rules,
-                compute_dtype=self.compute_dtype)
+                compute_dtype=self.compute_dtype, parallel=self.parallel)
             self.eval_step = steps.make_siamese_eval_step(
                 self.module, compute_dtype=self.compute_dtype)
             return
@@ -252,7 +304,8 @@ class Trainer:
             self.train_step = steps.make_arcface_train_step(
                 self.module, self.optimizer,
                 n_classes=self.data_loader.n_classes, margin=g.margin,
-                augment_fn=self.augment_fn, compute_dtype=self.compute_dtype)
+                augment_fn=self.augment_fn, compute_dtype=self.compute_dtype,
+                parallel=self.parallel)
             self.eval_step = None
             return
         self.train_step = steps.make_triplet_train_step(
@@ -262,7 +315,8 @@ class Trainer:
             # P-K batches bound the positives per anchor, which arms the
             # grouped paths; _check_pk_layout guards the layout.
             # k_samples=1 has no positives: claim nothing
-            max_positives=g.k_samples - 1 if g.k_samples >= 2 else None)
+            max_positives=g.k_samples - 1 if g.k_samples >= 2 else None,
+            remat=self.params.performance.remat, parallel=self.parallel)
         self.eval_step = steps.make_triplet_eval_step(
             self.module, margin=g.margin, compute_dtype=self.compute_dtype)
 
@@ -288,6 +342,7 @@ class Trainer:
                                 self.data_loader.class_names,
                                 k_classes=g.k_classes,
                                 k_samples=g.k_samples, seed=seed)
+        sampler = self._wrap_process_shard(sampler, pk_check=True)
         return BatchLoader(sampler, self.params.model.input_shape,
                            n_batches=g.n_batches,
                            fast_decode=self.params.performance.fast_decode,
@@ -310,9 +365,22 @@ class Trainer:
             sampler = TripletSampler(self.data_loader.val_data,
                                      self.data_loader.class_names,
                                      batch_size=g.batch_size, seed=seed)
+        sampler = self._wrap_process_shard(sampler)
         return BatchLoader(sampler, self.params.model.input_shape,
                            n_batches=g.n_batches_val,
                            cache=self._decode_cache)
+
+    def _wrap_process_shard(self, sampler, pk_check: bool = False):
+        """Under several ranks every rank draws the identical global batch
+        (same seeds) and keeps its block of rows; the P-K layout guard then
+        runs here, on the global labels (the miner asserts the global
+        layout). One process: the sampler as it is."""
+        if self.parallel is None:
+            return sampler
+        lo, hi = self.parallel.rows(sampler.batch_size)
+        check = (self._validate_pk_labels
+                 if pk_check and self._pk_armed() else None)
+        return ProcessShardSampler(sampler, lo, hi, global_check=check)
 
     # -- resume ------------------------------------------------------------
 
@@ -376,7 +444,8 @@ class Trainer:
     def _check_pk_layout(self, loader):
         """Host-side guard of the grouped P-K layout that the armed miner
         asserts, on every batch (O(B) on the host-side labels)."""
-        armed = self._pk_armed()
+        # under several ranks ProcessShardSampler checks the global labels
+        armed = self._pk_armed() and self.parallel is None
         for batch in loader:
             if armed:
                 self._validate_pk_labels(batch[1])
@@ -447,6 +516,8 @@ class Trainer:
         out = {k: float(v) / max(count, 1) for k, v in (totals or {}).items()}
         # the read above waited for the last step
         elapsed = time.perf_counter() - t0
+        if self.parallel is not None:
+            images_seen *= self.parallel.size   # the global batches'
         out["images_per_sec"] = images_seen / max(elapsed, 1e-9)
         return out
 
@@ -468,6 +539,12 @@ class Trainer:
             count += 1
             if count % 32 == 0:
                 float(totals["loss"])
+        if totals is not None and self.parallel is not None:
+            # each rank's mean over its equal block of every batch: the
+            # global mean is their mean
+            totals = {k: v / self.parallel.size
+                      for k, v in steps._global(self.parallel,
+                                                totals).items()}
         return {f"val_{k}": float(v) / max(count, 1)
                 for k, v in (totals or {}).items()}
 
@@ -506,9 +583,10 @@ class Trainer:
                     rec["recall_eval_s"] = time.perf_counter() - t_recall
                 val_metrics.update(rec)
             t_ckpt = time.perf_counter()
-            metrics = {**train_metrics, **val_metrics}
+            metrics = self._agreed({**train_metrics, **val_metrics})
             self.history.append(metrics)
-            self.metrics_logger.log(epoch, metrics)
+            if self.metrics_logger is not None:
+                self.metrics_logger.log(epoch, metrics)
 
             self.state.plateau_scale = self.plateau.update(metrics)
             # the early stop's decision is made before the save, so that a
@@ -525,12 +603,35 @@ class Trainer:
                 "data_wait_s": self._data_wait_s, "val_s": t_recall - t_val,
                 "recall_s": t_ckpt - t_recall, "checkpoint_s": t_end - t_ckpt,
                 "checkpoint_bytes": self._checkpoint_bytes(epoch)
-                if saved else 0})
+                if saved and self._rank0 and not self.ckpt_mgr.async_save
+                else saved and self._rank0})
             self.log(f"epoch {epoch}: " + " ".join(
                 f"{k}={v:.4f}" for k, v in metrics.items()))
             if stop:
                 break
+        # an async save may still be running: its size once written (0 for
+        # a checkpoint that max_to_keep has removed since)
+        self.ckpt_mgr.wait()
+        for t in self.timings:
+            if isinstance(t["checkpoint_bytes"], bool):
+                t["checkpoint_bytes"] = (
+                    self._checkpoint_bytes(t["epoch"])
+                    if t["checkpoint_bytes"] and os.path.isdir(os.path.join(
+                        self.ckpt_mgr.directory, str(t["epoch"]))) else 0)
         return self.history
+
+    def _agreed(self, metrics: dict) -> dict:
+        """The epoch's metrics as every rank uses them: rank 0's, broadcast
+        (the train and val metrics are global already; the host timings
+        differ by rank), so that no rank decides alone."""
+        if self.parallel is None:
+            return metrics
+        box = [metrics]
+        torch.distributed.broadcast_object_list(
+            box, src=torch.distributed.get_global_rank(
+                self.parallel.group, 0) if self.parallel.group is not None
+            else 0, group=self.parallel.group)
+        return box[0]
 
     def _profiler(self):
         from torch.profiler import ProfilerActivity, profile
@@ -597,22 +698,53 @@ class Trainer:
         classes = sorted({*db_labels, *val_labels})
         cid = {c: i for i, c in enumerate(classes)}
 
-        db_emb = encode_paths(db_paths, "db")
         q_emb = encode_paths(val_paths, "val")
-        if db_emb is None or q_emb is None:
-            return {}
         k5 = min(5, len(db_labels))
         db_ids = torch.as_tensor([cid[l] for l in db_labels],
                                  device=self.device)
-        pred, _ = knn_ops.knn_classify(db_emb, db_ids, q_emb, k=1,
-                                       n_classes=len(classes))
-        _, idx5 = knn_ops.knn_neighbors(db_emb, q_emb, k=k5)
-        pred, idx5 = pred.tolist(), idx5.tolist()
+        if self.parallel is not None:
+            if q_emb is None or not db_paths:
+                return {}
+            idx5 = self._sharded_neighbors(encode_paths, db_paths, q_emb,
+                                           db_ids, k5, len(classes))
+            pred = db_ids[idx5[:, 0]]      # the nearest neighbour: top-1
+            pred, idx5 = pred.tolist(), idx5.tolist()
+        else:
+            db_emb = encode_paths(db_paths, "db")
+            if db_emb is None or q_emb is None:
+                return {}
+            pred, _ = knn_ops.knn_classify(db_emb, db_ids, q_emb, k=1,
+                                           n_classes=len(classes))
+            _, idx5 = knn_ops.knn_neighbors(db_emb, q_emb, k=k5)
+            pred, idx5 = pred.tolist(), idx5.tolist()
         top1 = np.mean([classes[pred[i]] == val_labels[i]
                         for i in range(len(val_labels))])
         top5 = np.mean([val_labels[i] in {db_labels[j] for j in idx5[i]}
                         for i in range(len(val_labels))])
         return {"val_recall1": float(top1), "val_recall5": float(top5)}
+
+    def _sharded_neighbors(self, encode_paths, db_paths, q_emb, db_ids, k,
+                           n_classes):
+        """The recall's k nearest DB rows by the sharded kNN: the DB padded
+        to a multiple of the world with far rows labelled -1 (which never
+        reach the top-k of a DB of k real rows or more), each rank encoding
+        its block of it; every rank encodes the queries."""
+        from embeddingnet_tpu_torch.parallel.sharded_knn import sharded_knn
+        dp = self.parallel
+        n = len(db_paths)
+        lo, hi = dp.rows(n + (-n) % dp.size)
+        own = (encode_paths(db_paths[lo:min(hi, n)], f"db{dp.rank}")
+               if lo < n else None)
+        dim = q_emb.shape[1]
+        far = torch.full((max(0, hi - max(lo, n)), dim), 1e6,
+                         device=self.device)
+        db_local = far if own is None else torch.cat([own, far])
+        labels = torch.cat([db_ids, torch.full(((-n) % dp.size,), -1,
+                                               dtype=db_ids.dtype,
+                                               device=self.device)])
+        _, _, idx = sharded_knn(dp, k=k, n_classes=n_classes)(
+            db_local, labels[lo:hi], q_emb)
+        return idx
 
     def _recall_encoder(self) -> torch.nn.Module:
         """The encoder in eval mode with :meth:`encoder_variables`: the live
@@ -702,9 +834,14 @@ class Trainer:
                 break
         if best is not None:
             module.load_state_dict(best)
-        torch.save({k: v.cpu() for k, v in module.state_dict().items()},
-                   os.path.join(self.paths["pretraining_weights"],
-                                "backbone.pt"))
+        if self._rank0:
+            torch.save({k: v.cpu() for k, v in module.state_dict().items()},
+                       os.path.join(self.paths["pretraining_weights"],
+                                    "backbone.pt"))
+        if self.parallel is not None:
+            # every rank ran the whole pretraining; rank 0's result is the
+            # one all keep (the card's kernels need not agree bit for bit)
+            collectives.broadcast_module(module, self.parallel.group)
         self._finish_pretrain(module)
         return state
 

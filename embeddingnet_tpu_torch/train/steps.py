@@ -28,6 +28,23 @@ as ``drop_draws``; the eval steps draw none.
 
 The eval steps run the encoder in eval mode (BatchNorm on its running
 statistics) on ``/255`` of the uint8 batch, without augmentation.
+
+Data parallelism: the triplet, siamese and arcface train steps take
+``parallel`` (a :class:`~embeddingnet_tpu_torch.parallel.collectives.
+DataParallel` world, one rank per process) and are then called with this
+rank's block of the global batch's rows. Each rank draws the global
+batch's augmentation draws, masks and mining draws from a generator seeded
+alike on every rank, and keeps its rows of the per-image ones; BatchNorm
+takes global statistics; the triplet miner sees the global batch
+(batch-all and batch-hard row-sharded, :mod:`~embeddingnet_tpu_torch.
+parallel.sharded`; the other modes on the gathered embeddings); each rank
+back-propagates its share of the global loss (the gathered and sharded
+losses over the world size, a per-example mean as this rank's sum over the
+global batch), the L2 penalty on rank 0 alone, and the gradients are
+summed over ranks (:func:`~embeddingnet_tpu_torch.parallel.collectives.
+all_reduce_grads`) before the update. So one step equals the one-process
+step on the global batch up to the order of the sums, and the ranks stay
+bit-identical.
 """
 
 from __future__ import annotations
@@ -36,14 +53,17 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from embeddingnet_tpu_torch.models import remat as _remat
 from embeddingnet_tpu_torch.models.stochastic import MaskSource
-from embeddingnet_tpu_torch.ops import mining
+from embeddingnet_tpu_torch.ops import batchnorm_context, mining
 from embeddingnet_tpu_torch.ops.augment import Augment, Draws
 from embeddingnet_tpu_torch.ops.losses import (accuracy, arcface_loss,
                                                contrastive_loss, one_hot,
                                                softmax_cross_entropy,
                                                triplet_hinge)
 from embeddingnet_tpu_torch.ops.preprocess import preprocess
+from embeddingnet_tpu_torch.parallel import collectives, sharded
+from embeddingnet_tpu_torch.parallel.collectives import DataParallel
 from embeddingnet_tpu_torch.train.optim import (OptimizerSpec, l2_penalty,
                                                 update_param_ema)
 from embeddingnet_tpu_torch.train.state import TrainState
@@ -51,22 +71,46 @@ from embeddingnet_tpu_torch.train.state import TrainState
 
 def _preprocess(images: torch.Tensor, dtype: torch.dtype,
                 augment_fn: Optional[Augment], generator: torch.Generator,
-                draws: Optional[List[Draws]]) -> torch.Tensor:
+                draws: Optional[List[Draws]],
+                rows: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """uint8 (or float 0..255) BGR batch -> augmented, ``/255`` batch in
     ``dtype`` (the JAX ``_preprocess``): augmentation runs on f32 images in
     0..255, the division after it, as the reference orders them. Without
     augmentation this is :func:`preprocess` (T2 for uint8 to bf16); with
     it, the f32 divide, as JAX skips its bf16 shortcut then. The draws come
     from ``generator`` unless ``draws`` are given; the augmentation runs
-    inside a ``record_function("augment")`` range for the profiler."""
+    inside a ``record_function("augment")`` range for the profiler. With
+    ``rows = (lo, hi, global_batch)`` the draws (given or drawn) are the
+    global batch's and ``images`` its rows ``[lo, hi)``."""
     if augment_fn is None:
         return preprocess(images, dtype)
     with torch.profiler.record_function("augment"):
         x = images.float()
         if draws is None:
-            draws = augment_fn.sample(x.shape, generator, x.device)
+            shape = x.shape if rows is None else (rows[2],) + x.shape[1:]
+            draws = augment_fn.sample(shape, generator, x.device)
+        if rows is not None:
+            draws = [{k: v[rows[0]:rows[1]] for k, v in d.items()}
+                     for d in draws]
         x = augment_fn.apply(x, draws)
     return (x / 255.0).to(dtype)
+
+
+def _rows(parallel: Optional[DataParallel], local_batch: int):
+    """``(lo, hi, global_batch)`` of this rank, or None off a world."""
+    if parallel is None:
+        return None
+    lo, hi = parallel.rows(local_batch * parallel.size)
+    return lo, hi, local_batch * parallel.size
+
+
+def _share(parallel: Optional[DataParallel], local_mean: torch.Tensor,
+           rows) -> torch.Tensor:
+    """This rank's share of a per-example mean over the global batch: its
+    rows' sum over the global batch size."""
+    if parallel is None:
+        return local_mean
+    return local_mean * ((rows[1] - rows[0]) / rows[2])
 
 
 def apply_update(state: TrainState, optimizer: OptimizerSpec) -> None:
@@ -85,10 +129,13 @@ def apply_update(state: TrainState, optimizer: OptimizerSpec) -> None:
 
 def _backward_and_update(state: TrainState, module: torch.nn.Module,
                          optimizer: OptimizerSpec, loss: torch.Tensor,
-                         reg_rules: Sequence, device: torch.device) -> None:
-    """Differentiate ``loss + l2_penalty`` and apply the update."""
+                         reg_rules: Sequence, device: torch.device,
+                         parallel: Optional[DataParallel] = None) -> None:
+    """Differentiate ``loss + l2_penalty`` and apply the update. Under
+    ``parallel`` ``loss`` is this rank's share, the penalty enters on rank
+    0 alone and the gradients are summed over ranks first."""
     total = loss
-    if reg_rules:
+    if reg_rules and (parallel is None or parallel.rank == 0):
         total = total + l2_penalty(module.named_parameters(),
                                    reg_rules).to(device)
     state.optimizer.zero_grad(set_to_none=True)
@@ -98,6 +145,9 @@ def _backward_and_update(state: TrainState, module: torch.nn.Module,
         # (the classifier head) takes a zero gradient, not none
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if parallel is not None:
+        with torch.profiler.record_function("all_reduce_grads"):
+            collectives.all_reduce_grads(module.parameters(), parallel.group)
     apply_update(state, optimizer)
 
 
@@ -108,13 +158,41 @@ def _on_device(module: torch.nn.Module, *tensors):
 
 
 def _forward(module: torch.nn.Module, x, generator: torch.Generator,
-             drop_draws: Optional[Sequence[torch.Tensor]]):
+             drop_draws: Optional[Sequence[torch.Tensor]], rows=None):
     """The train-mode forward, its masks ``drop_draws`` when given, else
-    drawn from ``generator``; given masks must all be used."""
-    masks = MaskSource(drop_draws, generator)
+    drawn from ``generator`` (the global batch's, this rank's ``rows``);
+    given masks must all be used."""
+    masks = MaskSource(drop_draws, generator, rows=rows)
     out = module(x, masks)
     masks.check_used()
     return out
+
+
+def _triplet_loss(parallel, emb, labels, margin, mode, generator,
+                  mine_draws, max_positives):
+    """``(loss, stats, objective)``: the global batch's mined loss, its
+    stats and what this rank back-propagates."""
+    if parallel is None:
+        loss, stats = mining.mined_triplet_loss(
+            emb, labels, margin=margin, mode=mode, rng=generator,
+            draws=mine_draws, max_positives=max_positives)
+        return loss, stats, loss
+    if mode == "batch_all":
+        fn = sharded.sharded_batch_all_loss(parallel, margin=margin,
+                                            max_positives=max_positives)
+        loss, stats = fn(emb, labels)
+    elif mode == "batch_hard":
+        loss, stats = sharded.sharded_batch_hard_loss(
+            parallel, margin=margin)(emb, labels)
+    else:
+        # the reference's modes mine the gathered global batch on every
+        # rank, with the global draws, as GSPMD runs them in JAX
+        loss, stats = mining.mined_triplet_loss(
+            collectives.all_gather_rows(emb, parallel.group),
+            collectives.gather_rows(labels, parallel.group), margin=margin,
+            mode=mode, rng=generator, draws=mine_draws,
+            max_positives=max_positives)
+    return loss, stats, loss / parallel.size
 
 
 def make_triplet_train_step(module: torch.nn.Module,
@@ -123,7 +201,9 @@ def make_triplet_train_step(module: torch.nn.Module,
                             augment_fn: Optional[Augment] = None,
                             reg_rules: Sequence = (),
                             compute_dtype: torch.dtype = torch.float32,
-                            max_positives: Optional[int] = None):
+                            max_positives: Optional[int] = None,
+                            remat: bool = False,
+                            parallel: Optional[DataParallel] = None):
     """Online-mining triplet step over P-K batches; returns
     ``step(state, images_u8, labels, aug_draws=None, mine_draws=None) ->
     (state, metrics)``.
@@ -148,7 +228,14 @@ def make_triplet_train_step(module: torch.nn.Module,
     ``drop_draws`` (the masks, in layer order) and ``mine_draws`` override
     them.
     The mining runs inside a ``record_function("mining")`` range for the
-    profiler."""
+    profiler.
+
+    ``remat`` (``PERFORMANCE.remat``) runs the backbone's blocks under
+    checkpoints (:mod:`~embeddingnet_tpu_torch.models.remat`): the same
+    numbers, less memory, one more forward of time. ``parallel``: the
+    data-parallel step (the module docstring); ``images`` and ``labels``
+    are this rank's rows, the given draws the global batch's, and the
+    metrics the global batch's on every rank."""
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
              aug_draws: Optional[List[Draws]] = None,
@@ -159,15 +246,19 @@ def make_triplet_train_step(module: torch.nn.Module,
             raise ValueError("the state was created for another module")
         module.train()
         device, (images, labels) = _on_device(module, images, labels)
-        x = _preprocess(images, compute_dtype, augment_fn, state.generator,
-                        aug_draws)
-        emb = _forward(module, x, state.generator, drop_draws).float()
-        with torch.profiler.record_function("mining"):
-            loss, stats = mining.mined_triplet_loss(
-                emb, labels, margin=margin, mode=mode, rng=state.generator,
-                draws=mine_draws, max_positives=max_positives)
-        _backward_and_update(state, module, optimizer, loss, reg_rules,
-                             device)
+        rows = _rows(parallel, images.shape[0])
+        with batchnorm_context.global_statistics(parallel), \
+                _remat.rematerialize(remat):
+            x = _preprocess(images, compute_dtype, augment_fn,
+                            state.generator, aug_draws, rows)
+            emb = _forward(module, x, state.generator, drop_draws,
+                           rows).float()
+            with torch.profiler.record_function("mining"):
+                loss, stats, objective = _triplet_loss(
+                    parallel, emb, labels, margin, mode, state.generator,
+                    mine_draws, max_positives)
+            _backward_and_update(state, module, optimizer, objective,
+                                 reg_rules, device, parallel)
         metrics = {
             "loss": loss.detach(),
             "n_triplets": stats.n_triplets,
@@ -185,7 +276,8 @@ def make_siamese_train_step(module: torch.nn.Module,
                             contrastive_margin: float = 1.0,
                             augment_fn: Optional[Augment] = None,
                             reg_rules: Sequence = (),
-                            compute_dtype: torch.dtype = torch.float32):
+                            compute_dtype: torch.dtype = torch.float32,
+                            parallel: Optional[DataParallel] = None):
     """Siamese pair step; returns ``step(state, images_1, images_2,
     targets, aug_draws=None) -> (state, metrics)``.
 
@@ -198,7 +290,8 @@ def make_siamese_train_step(module: torch.nn.Module,
     ``state.generator``, the first stream's first, then the masks of both
     streams' forwards, the first's first; ``aug_draws`` is a pair of the
     preset's draws that overrides the former, ``drop_draws`` the masks in
-    that order."""
+    that order. ``parallel``: the data-parallel step (the module
+    docstring), on this rank's pairs."""
 
     def step(state: TrainState, images_1, images_2, targets,
              aug_draws: Optional[Tuple[List[Draws], List[Draws]]] = None,
@@ -209,21 +302,35 @@ def make_siamese_train_step(module: torch.nn.Module,
         module.train()
         device, (images_1, images_2, targets) = _on_device(
             module, images_1, images_2, targets)
+        rows = _rows(parallel, images_1.shape[0])
         draws_1, draws_2 = aug_draws if aug_draws is not None else (None,
                                                                     None)
-        x1 = _preprocess(images_1, compute_dtype, augment_fn,
-                         state.generator, draws_1)
-        x2 = _preprocess(images_2, compute_dtype, augment_fn,
-                         state.generator, draws_2)
-        d, _, _ = _forward(module, (x1, x2), state.generator, drop_draws)
-        d = d.float()
-        loss = contrastive_loss(targets, d, contrastive_margin)
-        _backward_and_update(state, module, optimizer, loss, reg_rules,
-                             device)
-        return state, {"loss": loss.detach(),
-                       "accuracy": accuracy(targets, d.detach())}
+        with batchnorm_context.global_statistics(parallel):
+            x1 = _preprocess(images_1, compute_dtype, augment_fn,
+                             state.generator, draws_1, rows)
+            x2 = _preprocess(images_2, compute_dtype, augment_fn,
+                             state.generator, draws_2, rows)
+            d, _, _ = _forward(module, (x1, x2), state.generator,
+                               drop_draws, rows)
+            d = d.float()
+            share = _share(parallel, contrastive_loss(
+                targets, d, contrastive_margin), rows)
+            _backward_and_update(state, module, optimizer, share, reg_rules,
+                                 device, parallel)
+        acc = _share(parallel, accuracy(targets, d.detach()), rows)
+        return state, _global(parallel, {"loss": share.detach(),
+                                         "accuracy": acc})
 
     return step
+
+
+def _global(parallel: Optional[DataParallel], metrics: dict) -> dict:
+    """The ranks' shares of the metrics summed (one all-reduce)."""
+    if parallel is None:
+        return metrics
+    summed = collectives.reduce_sum(torch.stack(list(metrics.values())),
+                                    parallel.group)
+    return dict(zip(metrics, summed.unbind()))
 
 
 def make_siamese_eval_step(module: torch.nn.Module, *,
@@ -252,14 +359,17 @@ def make_arcface_train_step(module: torch.nn.Module,
                             optimizer: OptimizerSpec, *, n_classes: int,
                             margin: float = 0.5, scale: float = 64.0,
                             augment_fn: Optional[Augment] = None,
-                            compute_dtype: torch.dtype = torch.float32):
+                            compute_dtype: torch.dtype = torch.float32,
+                            parallel: Optional[DataParallel] = None):
     """ArcFace step; returns ``step(state, images_u8, labels,
     aug_draws=None) -> (state, {"loss"})``. ``module`` is an
     :class:`~embeddingnet_tpu_torch.models.registry.ArcFaceModule` with
     ``n_classes`` class weights; the loss takes its embeddings and class
     weights in f32. The augmentation's draws, then the module's masks,
     come from ``state.generator`` unless ``aug_draws`` and ``drop_draws``
-    give them."""
+    give them. ``parallel``: the data-parallel step (the module
+    docstring), on this rank's rows; the loss is a mean over the global
+    batch, so each rank back-propagates its rows' sum over it."""
 
     def step(state: TrainState, images, labels,
              aug_draws: Optional[List[Draws]] = None,
@@ -269,16 +379,21 @@ def make_arcface_train_step(module: torch.nn.Module,
             raise ValueError("the state was created for another module")
         module.train()
         device, (images, labels) = _on_device(module, images, labels)
-        x = _preprocess(images, compute_dtype, augment_fn, state.generator,
-                        aug_draws)
-        emb, weights = _forward(module, x, state.generator, drop_draws)
-        if weights.shape[0] != n_classes:
-            raise ValueError(f"the module has {weights.shape[0]} class "
-                             f"weights, the step {n_classes} classes")
-        loss = arcface_loss(emb.float(), labels, weights.float(),
-                            margin=margin, scale=scale)
-        _backward_and_update(state, module, optimizer, loss, (), device)
-        return state, {"loss": loss.detach()}
+        rows = _rows(parallel, images.shape[0])
+        with batchnorm_context.global_statistics(parallel):
+            x = _preprocess(images, compute_dtype, augment_fn,
+                            state.generator, aug_draws, rows)
+            emb, weights = _forward(module, x, state.generator, drop_draws,
+                                    rows)
+            if weights.shape[0] != n_classes:
+                raise ValueError(f"the module has {weights.shape[0]} class "
+                                 f"weights, the step {n_classes} classes")
+            share = _share(parallel, arcface_loss(
+                emb.float(), labels, weights.float(), margin=margin,
+                scale=scale), rows)
+            _backward_and_update(state, module, optimizer, share, (), device,
+                                 parallel)
+        return state, _global(parallel, {"loss": share.detach()})
 
     return step
 

@@ -192,7 +192,8 @@ def assert_within_one_bf16_ulp(got, want):
 
 def triplet_steps_against_jax(jmodule, variables, module, batches, masks,
                               holder, *, context=None, reg_rules=(),
-                              lr=0.05, mode="batch_hard", margin=0.5):
+                              lr=0.05, mode="batch_hard", margin=0.5,
+                              remat=False):
     """SGD triplet steps of the JAX package (float64) and of the port
     (float32) on ``batches``, each port step starting from the JAX state
     before it (reloaded into ``module``, so that float32 rounding does not
@@ -200,8 +201,9 @@ def triplet_steps_against_jax(jmodule, variables, module, batches, masks,
     layer order: the port's step takes them as ``drop_draws``, the JAX
     module through a test-local patch of its stochastic layers that reads
     ``holder["masks"][holder["i"]]`` (traced inputs, one jit for every
-    step) inside ``context``. Returns, per step, ``(port loss, JAX loss,
-    port state_dict, JAX state as the port's state_dict)``."""
+    step) inside ``context``. ``remat`` rematerialises both steps. Returns,
+    per step, ``(port loss, JAX loss, port state_dict, JAX state as the
+    port's state_dict)``."""
     import contextlib
 
     import jax.numpy as jnp
@@ -219,7 +221,8 @@ def triplet_steps_against_jax(jmodule, variables, module, batches, masks,
         state = JTrainState.create(jax.tree.map(
             lambda a: np.asarray(a, np.float64), variables), tx)
         jstep = jmk(jmodule, tx, margin=margin, mode=mode,
-                    reg_rules=reg_rules, compute_dtype=jnp.float64)
+                    reg_rules=reg_rules, compute_dtype=jnp.float64,
+                    remat=remat)
 
         def run(state, images, labels, masks):
             holder["masks"], holder["i"] = masks, 0
@@ -238,7 +241,8 @@ def triplet_steps_against_jax(jmodule, variables, module, batches, masks,
     spec = optim.get_optimizer("sgd", lr)
     tstate = TrainState.create(module, spec)
     step = steps.make_triplet_train_step(module, spec, margin=margin,
-                                         mode=mode, reg_rules=reg_rules)
+                                         mode=mode, reg_rules=reg_rules,
+                                         remat=remat)
     out = []
     for (images, labels), step_masks, (before, after, jloss) in zip(
             batches, masks, trajectory):

@@ -17,7 +17,11 @@ machine does not need). Inputs come from numpy with a seed; errors are
 taken against the plain version in f32 with TF32 off, to bf16 output
 rounding (2e-2, the JAX package's bound for these kernels in bf16); the
 f32 weight gradients to 1e-3 of their largest entry (the same bf16
-products summed in f32 in another order)."""
+products summed in f32 in another order). Also: the kernels' A/B tool's
+``device_ms`` raises on a read that saw no kernel, and the data-parallel
+step in an NCCL group of one rank matches the CPU's one-process step."""
+
+import os
 
 import numpy as np
 import pytest
@@ -715,3 +719,76 @@ def test_depthwise_family_on_the_card_matches_the_cpu(card, name, size,
         got = copy.deepcopy(cpu).to(card).eval()(x.float().to(card))
     assert _rel(got, want) < DEPTHWISE_CARD_TOL
     assert fc.LAUNCHES == _launched()
+
+
+def test_device_ms_raises_on_an_empty_read(card):
+    """A profiler read that saw no CUDA kernel is an error naming the
+    function, not a device time of 0."""
+    import runpy
+    tool = runpy.run_path(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "conv3x3_kernels_ab_torch.py"))
+
+    def launches_nothing():
+        return None
+    with pytest.raises(RuntimeError, match="launches_nothing"):
+        tool["device_ms"](launches_nothing, iters=3)
+    x = torch.ones(1 << 20, device=card)
+    assert tool["device_ms"](lambda: x.mul(2.0), iters=3) > 0.0
+
+
+def test_nccl_world1_step_matches_the_cpu_step(card):
+    """The data-parallel step in an NCCL group of one rank (the
+    collectives run) against the one-process step on the CPU, float64
+    modules (the miner in f32, as the step casts), batch_all and
+    batch_hard: the loss, every gradient and the running statistics to
+    DEPTHWISE_CARD_TOL of the largest entry."""
+    import copy
+    import socket
+    import torch.distributed as dist
+    from embeddingnet_tpu_torch.models.heads import EmbeddingHead
+    from embeddingnet_tpu_torch.models.registry import EmbeddingModule
+    from embeddingnet_tpu_torch.models.resnet import resnet18
+    from embeddingnet_tpu_torch.parallel.collectives import DataParallel
+    from embeddingnet_tpu_torch.train.optim import get_optimizer
+    from embeddingnet_tpu_torch.train.state import TrainState
+    from embeddingnet_tpu_torch.train.steps import make_triplet_train_step
+    base = EmbeddingModule("resnet18", encodings_len=16)
+    base.backbone = resnet18(num_filters=16)
+    base.head = EmbeddingHead(base.backbone.out_channels, 16)
+    base.reset_parameters(torch.Generator().manual_seed(0))
+    base.double()
+    rng = np.random.default_rng(1)
+    images = torch.from_numpy(rng.integers(0, 256, (32, 32, 32, 3),
+                                           dtype=np.uint8))
+    labels = torch.arange(8).repeat_interleave(4)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        for mode in ("batch_all", "batch_hard"):
+            out = []
+            for device, dp in ((card, DataParallel.current()),
+                               ("cpu", None)):
+                module = copy.deepcopy(base).to(device)
+                spec = get_optimizer("sgd", 0.05)
+                state = TrainState.create(module, spec)
+                step = make_triplet_train_step(module, spec, mode=mode,
+                                               max_positives=3, parallel=dp)
+                _, m = step(state, images, labels)
+                out.append((m["loss"].cpu(), {
+                    n: p.grad.cpu() for n, p in module.named_parameters()},
+                    {k: v.cpu() for k, v in module.state_dict().items()}))
+            (l_gpu, g_gpu, s_gpu), (l_cpu, g_cpu, s_cpu) = out
+            assert _rel(l_gpu, l_cpu) < DEPTHWISE_CARD_TOL, mode
+            for n, g in g_cpu.items():
+                err = (g_gpu[n] - g).abs().max().item() / max(
+                    g.abs().max().item(), 1e-30)
+                assert err < DEPTHWISE_CARD_TOL, (mode, n, err)
+            for k, v in s_cpu.items():
+                if "running_" in k:
+                    assert _rel(s_gpu[k], v) < DEPTHWISE_CARD_TOL, (mode, k)
+    finally:
+        dist.destroy_process_group()

@@ -6,14 +6,16 @@ encode plus kNN vote, the HTTP server's ``/healthz``, the dataset index of
 a folder and of a CSV, a small CPU triplet train step with the ``default``
 augmentation, a ViT encode and an ArcFace step, an encode on each
 EfficientNet/MobileNet/simple backbone, a ``simple2`` step with its Dropout
-and a ``.pt2`` export, and the T1 A/B tool run; with cv2 allowed (it
+and a ``.pt2`` export, the T1 A/B tool run, and an encode and a
+data-parallel step (remat on) in a world-1 gloo group; with cv2 allowed (it
 decodes), a ``Trainer`` fits one epoch on the CPU and ``encode_dataset``
 equals ``encode``, and so do a siamese ``Trainer``
 (radam) and a triplet one whose warm-up switches its mining mode, after
 every mining mode ran on each of its paths and rms_prop took a step. No
 file of the port (its package, ``chip_smoke.py``, every
 ``tools/*_torch.py``) imports the JAX package or JAX itself, not even
-inside a function."""
+inside a function, nor does the data-parallel tests' worker module (a
+spawned rank imports it)."""
 
 import os
 import re
@@ -42,6 +44,7 @@ MODULES = [
     "embeddingnet_tpu_torch.ops.knn",
     "embeddingnet_tpu_torch.ops.losses",
     "embeddingnet_tpu_torch.ops._cuda",
+    "embeddingnet_tpu_torch.ops.batchnorm_context",
     "embeddingnet_tpu_torch.ops.fused_conv",
     "embeddingnet_tpu_torch.models.heads",
     "embeddingnet_tpu_torch.models.resnet",
@@ -51,8 +54,14 @@ MODULES = [
     "embeddingnet_tpu_torch.models.simple",
     "embeddingnet_tpu_torch.models.vit",
     "embeddingnet_tpu_torch.models.registry",
+    "embeddingnet_tpu_torch.models.remat",
     "embeddingnet_tpu_torch.models.convert",
     "embeddingnet_tpu_torch.models.api",
+    "embeddingnet_tpu_torch.parallel",
+    "embeddingnet_tpu_torch.parallel.mesh",
+    "embeddingnet_tpu_torch.parallel.collectives",
+    "embeddingnet_tpu_torch.parallel.sharded",
+    "embeddingnet_tpu_torch.parallel.sharded_knn",
     "embeddingnet_tpu_torch.serving",
     "embeddingnet_tpu_torch.train",
     "embeddingnet_tpu_torch.train.optim",
@@ -207,6 +216,32 @@ with tempfile.TemporaryDirectory() as tmp:
     program = torch.export.load(snet.save_exported(tmp)).module()
     assert program(torch.zeros(1, 32, 32, 3)).shape == (1, 8)
 
+# a world-1 gloo group: an encode, and a data-parallel step (remat on)
+# equal to the one-process step
+import copy, tempfile
+import torch.distributed as dist
+from embeddingnet_tpu_torch.parallel.collectives import DataParallel
+with tempfile.TemporaryDirectory() as tmp:
+    dist.init_process_group("gloo", init_method=f"file://{{tmp}}/store",
+                            rank=0, world_size=1)
+    try:
+        assert net.encode(imgs).shape == (6, 16)
+        outs = []
+        for dp in (DataParallel.current(), None):
+            m = EmbeddingModule("resnet18", encodings_len=16)
+            m.reset_parameters(torch.Generator().manual_seed(0))
+            sp = get_optimizer("sgd", 1e-2)
+            st = TrainState.create(m, sp)
+            stp = make_triplet_train_step(m, sp, mode="batch_all",
+                                          max_positives=3, remat=True,
+                                          parallel=dp)
+            _, met = stp(st, torch.from_numpy(imgs[np.arange(8) % 6]),
+                         labels)
+            outs.append(met["loss"])
+        torch.testing.assert_close(outs[0], outs[1])
+    finally:
+        dist.destroy_process_group()
+
 # the T1 A/B tool, plain version
 import os, runpy
 os.environ["FC_BATCH"] = "2"
@@ -282,8 +317,6 @@ for b, k in ((32, 4), (264, 4), (264, None)):
     emb = torch.randn(b, 8, generator=g, requires_grad=True)
     labels = torch.arange(b // 4).repeat_interleave(4)
     for mode in mining.ALL_MODES:
-        if mode == "batch_all" and k is None:
-            continue
         loss, stats = mining.mined_triplet_loss(
             emb, labels, margin=0.5, mode=mode, rng=g,
             max_positives=None if k is None else k - 1)
@@ -378,6 +411,10 @@ def test_port_files_never_import_the_jax_package():
                 "serve_torch.py"):
         assert root / "tools" / cli in tools
     files += [root / "chip_smoke.py"] + tools
+    assert root / "embeddingnet_tpu_torch" / "parallel" / "sharded.py" in \
+        files
+    # the data-parallel tests' worker module, which spawned ranks import
+    files.append(root / "tests" / "test_torch_port_ddp.py")
     assert len(files) > 20
     offenders = [str(f.relative_to(root)) for f in files
                  if _JAX_PACKAGE_IMPORT.search(f.read_text())

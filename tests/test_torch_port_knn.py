@@ -69,6 +69,34 @@ def test_knn_vote_tie_goes_to_nearest():
     assert int(tp[0]) == int(jp[0]) == 1
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+def test_topk_lowest_index_breaks_ties_as_jax(dtype):
+    """Rows full of equal values (-0.0 beside 0.0, NaNs of both signs,
+    infinities, negatives): the same values and positions as
+    ``jax.lax.top_k`` (the lower position first among equals, its total
+    order) and, in the rows without -0.0 or NaN, as a stable descending
+    sort."""
+    import jax
+    rng = np.random.default_rng(1)
+    x = (rng.integers(-3, 3, (6, 40)) * 0.5).astype(np.float32)
+    x[0, :4] = -0.0
+    x[0, 20:23] = np.array([0x7FC00000, 0xFFC00000, 0x7FC00000],
+                           np.uint32).view(np.float32)
+    x[1, 3:6] = np.inf
+    x[2, 10:] = -np.inf
+    x[3] = 1.5
+    t = torch.from_numpy(x).to(getattr(torch, dtype))
+    for k in (1, 7, 40):
+        vals, idx = tknn.topk_lowest_index(t, k)
+        jv, ji = jax.lax.top_k(jnp.asarray(t.double().numpy(), jnp.float32),
+                               k)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(vals.double().numpy(), np.asarray(jv))
+        sv, si = t[1:].sort(dim=1, descending=True, stable=True)
+        assert torch.equal(idx[1:], si[:, :k])
+        assert torch.equal(vals[1:], sv[:, :k])
+
+
 def test_knn_neighbors(data):
     db, q, _ = data
     jd, ji = jknn.knn_neighbors(jnp.asarray(db), jnp.asarray(q), k=5)

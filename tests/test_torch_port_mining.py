@@ -142,8 +142,11 @@ def test_mined_triplet_loss_dispatch():
             e, lab, margin=0.5, mode=mode,
             draws=None if mode == "hardest" else draws)
         assert got.item() == want.item()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmining.batch_all_loss(e, lab, margin=0.5)      # generic labels
+    # without max_positives batch_all takes the generic-label path (held
+    # to the JAX package in tests/test_torch_port_parallel.py)
+    generic, _ = tmining.batch_all_loss(e, lab, margin=0.5)
+    oracle, _ = tmining.batch_all_loss_reference(e, lab, margin=0.5)
+    torch.testing.assert_close(generic, oracle, rtol=1e-6, atol=0)
     with pytest.raises(ValueError, match="unknown mining mode"):
         tmining.mined_triplet_loss(e, lab, mode="nope")
 

@@ -260,8 +260,7 @@ def test_resume_without_a_checkpoint_raises(tiny_dataset, tmp_path):
     ({"MODEL": {"backbone_weights": "imagenet"}}, 12),
     ({"MESH": {"model": 2}}, 13),
     ({"MESH": {"data": 2}}, 13),
-    ({"PERFORMANCE": {"params_dtype": "bfloat16"}}, 16),
-], ids=["backbone_weights", "mesh_model", "mesh_data", "bf16_params"])
+], ids=["backbone_weights", "mesh_model", "mesh_data"])
 def test_unported_settings_raise_at_construction(tiny_dataset, tmp_path,
                                                  sections, item):
     cfg = _cfg(tiny_dataset, tmp_path, **sections)
@@ -274,12 +273,15 @@ def test_unported_settings_raise_at_construction(tiny_dataset, tmp_path,
 @pytest.mark.parametrize("sections", [
     {"MODEL": {"mode": "arcface"}},
     {"SOFTMAX_PRETRAINING": {"n_epochs": 1}},
-], ids=["arcface", "softmax_pretraining"])
+    {"PERFORMANCE": {"params_dtype": "bfloat16", "remat": True,
+                     "async_checkpoint": True}},
+], ids=["arcface", "softmax_pretraining", "bf16_params_remat_async"])
 def test_ported_settings_construct_and_write_nothing_until_fit(
         tiny_dataset, tmp_path, sections):
-    """The arcface mode and the softmax pretraining, which raised before
-    they were ported, construct; the Trainer writes nothing before it
-    trains (the work-dir tree and an empty metrics log)."""
+    """The arcface mode, the softmax pretraining, bf16 master weights,
+    remat and async checkpoints, which raised or warned before they were
+    ported, construct; the Trainer writes nothing before it trains (the
+    work-dir tree and an empty metrics log)."""
     trainer = _trainer(_cfg(tiny_dataset, tmp_path, **sections))
     assert trainer.mode == sections.get("MODEL", {}).get("mode", "triplet")
     assert (trainer.params.softmax is not None) == (
@@ -378,8 +380,13 @@ def test_checkpoint_manager_keeps_and_falls_back(tmp_path):
     top = ckpt.CheckpointManager(str(tmp_path / "r"), monitor="val_recall1",
                                  mode="max")
     assert not top.save(0, state, {"loss": 2.0})
-    with pytest.warns(UserWarning, match="item 16"):
-        ckpt.CheckpointManager(str(tmp_path / "a"), async_save=True)
+    # an async manager keeps the same decisions and the same files
+    # (byte for byte: tests/test_torch_port_remat.py)
+    lazy = ckpt.CheckpointManager(str(tmp_path / "a"), max_to_keep=2,
+                                  async_save=True)
+    for epoch in range(4):
+        assert lazy.save(epoch, state, {"val_loss": 4.0 - epoch})
+    assert lazy.epochs() == [2, 3] and lazy.best == 1.0
 
 
 def test_batch_loader_backends_and_decode_cache(tiny_dataset):

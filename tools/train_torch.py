@@ -1,17 +1,22 @@
 #!/usr/bin/env python
 """Train CLI of the PyTorch port: ``python tools/train_torch.py
-<config.yml> [--device cuda] [--resume_from EPOCH|latest]``.
+<config.yml> [--device cuda] [--resume_from EPOCH|latest]``, or on N cards
+``torchrun --nproc_per_node=N tools/train_torch.py <config.yml>``.
 
 Fits the config's triplet, siamese or arcface model with
 :class:`embeddingnet_tpu_torch.train.loop.Trainer` on one device (``cuda``
 unless ``--device cpu``), after the softmax pretraining phase when the
-config has a ``SOFTMAX_PRETRAINING`` section. Every config of the repo that
-runs on one card fits as it stands, on any backbone of the port's registry
-(``simple``, ``simple2``, the ResNets, EfficientNet-B0..B7, MobileNet v1/v2,
-the ViTs): ``configs/resnet50_batchall_1024.yml``,
+config has a ``SOFTMAX_PRETRAINING`` section. Under torchrun each process
+is one rank on the card ``LOCAL_RANK`` (NCCL; ``--device cpu`` gives gloo
+ranks on the CPU), the process group joined before any other use of CUDA,
+and the ranks train one model data-parallel (``MESH.data: -1``, or the
+world size); rank 0 prints and writes. Every config of the repo fits as
+it stands, on any backbone of the port's registry (``simple``,
+``simple2``, the ResNets, EfficientNet-B0..B7, MobileNet v1/v2, the
+ViTs): ``configs/resnet50_batchall_1024.yml``,
 ``siamese_resnet18_pairs.yml``, ``efficientnetb3_batchhard_1024.yml``,
-``road_signs_tpu.yml`` and the four ArcFace-on-ViT configs (the sharded
-``batch4096_sharded.yml`` needs several cards). It trains in the
+``road_signs_tpu.yml``, ``batch4096_sharded.yml`` and the four
+ArcFace-on-ViT configs. It trains in the
 work-dir tree ``<work_dir>/<project_name>/{weights,encodings,plots,
 tf_log,...}``; ``--resume_from`` restores the whole train state of a
 checkpoint epoch. Then it loads the best epoch, plots the history
@@ -45,12 +50,28 @@ def main(argv=None):
     and best-epoch restore, and the exported :class:`EmbeddingNet`."""
     args = parse_args(argv)
     import torch
+    from embeddingnet_tpu_torch.parallel.mesh import (
+        maybe_initialize_distributed, world)
+    joined = torch.distributed.is_initialized()
+    # before any other use of CUDA: a torchrun rank takes its own card
+    device = maybe_initialize_distributed(args.device) or args.device
+    try:
+        return _run(args, device, world().rank == 0)
+    finally:
+        if not joined and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, device, rank0):
+    import torch
     from embeddingnet_tpu_torch.config import parse_params
     from embeddingnet_tpu_torch.data import ENDataLoader
     from embeddingnet_tpu_torch.models.api import EmbeddingNet
     from embeddingnet_tpu_torch.train.loop import Trainer
 
-    print("LOAD PARAMETERS")
+    say = print if rank0 else (lambda *a, **k: None)
+
+    say("LOAD PARAMETERS")
     params = parse_params(args.config)
     if params.train.plot_history:
         # plots come after the whole fit: fail now, not after it
@@ -60,29 +81,32 @@ def main(argv=None):
             raise ImportError(
                 "TRAIN.plot_history is set but matplotlib is not installed: "
                 "install it or set TRAIN.plot_history to False") from e
-    print("CREATE DATALOADER")
+    say("CREATE DATALOADER")
     data_loader = ENDataLoader(**{
         k: params.dataloader[k] for k in params.dataloader.keys()})
-    print(f"DATALOADER CREATED! classes={data_loader.n_classes}")
+    say(f"DATALOADER CREATED! classes={data_loader.n_classes}")
 
-    print("CREATE MODEL AND TRAINER")
-    trainer = Trainer(params, data_loader, device=args.device)
+    say("CREATE MODEL AND TRAINER")
+    trainer = Trainer(params, data_loader, device=device)
     if args.resume_from is not None:
         epoch = None if args.resume_from == "latest" else int(
             args.resume_from)
         trainer.resume(epoch)
     if params.softmax is not None:
-        print("SOFTMAX PRETRAINING")
+        say("SOFTMAX PRETRAINING")
         trainer.pretrain_softmax()
 
     history = trainer.fit()
     # export the best-monitored epoch, not wherever early stopping halted
     trainer.restore_best()
+    if not rank0:
+        # the ranks hold one model: rank 0 exports it
+        return trainer, None
     if params.train.plot_history:
         from embeddingnet_tpu_torch.utils.viz import plot_grapths
         plot_grapths(history, trainer.paths["plots"])
 
-    net = EmbeddingNet(params, device=args.device,
+    net = EmbeddingNet(params, device=device,
                        fast_conv=params.performance.pallas_conv,
                        dtype=trainer.compute_dtype)
     # the encoder of any mode (the siamese and arcface ones have no
