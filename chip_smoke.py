@@ -4,7 +4,9 @@ T1 A/B tool, the triplet training step with and without augmentation, a
 short flagship fit through the Trainer and its CLI, the step under every
 mining mode, and a siamese fit, each through the hand-written kernels;
 then the ViT/ArcFace path, which reaches T2 alone; then the EfficientNet
-step and fit (T2 alone) and the inference tools (K3).
+step and fit (T2 alone) and the inference tools (K3); then the
+data-parallel step, remat and bf16 master weights; then the rest of the
+backbone zoo and pretrained weights (the SE-ResNet-50 step through K1-K4).
 
     python3 chip_smoke.py
 
@@ -174,6 +176,28 @@ step and fit (T2 alone) and the inference tools (K3).
     torchrun run resumed from epoch 0 ending bit for bit where the straight
     run ended; (d) one flagship step with bf16 master weights: every tensor
     and the optimizer's moments bf16, the loss finite.
+15. Zoo phase: (a) ``configs/resnet50_batchall_1024.yml`` with
+    ``backbone_name: seresnet50`` and ``backbone_weights: 'imagenet'``,
+    which resolves through ``$EMBEDDINGNET_WEIGHTS_DIR`` to a ``.npz`` of
+    a seeded port model's backbone: the Trainer built on the card (the
+    backbone equal to the file bit for bit, the head to its fresh
+    initialisation), then its step (B=1,024, bf16, the ``default``
+    augmentation, ``pallas_conv`` on) on colour-cell P-K batches: 3
+    warm-up and 10 timed steps with the ResNet-50 step's exact launches
+    of K1-as-dgrad, K2, K3 and K4, a falling loss, CUDA-event median,
+    images/s, peak memory, then 2 under ``torch.profiler`` (device time,
+    busy share); (b) one name per zoo family at its smallest input
+    (SE-ResNet-18, SE-ResNeXt-50, SENet-154, DenseNet-121 and VGG-16 at
+    32 px, the Inceptions at 75, Xception at 71, NASNet-Mobile at 32 and
+    33) on the card against the CPU from one state_dict in float64 train
+    mode: the embeddings, the batch-hard loss and every gradient to 1e-5;
+    (c) ``configs/vit_arcface_smoke.yml`` on DenseNet-121 from a weights
+    preset (loaded into the arcface module's encoder), fitted 2 epochs of
+    4 steps on 256 PNGs at 96 px (cuts printed), every kernel at 0
+    launches, a second Trainer's ``resume(0)`` bit for bit; (d) each of
+    the 20 names this slice ported, an eval forward in bf16 at B=32 at
+    its native input (224 px; the Inceptions and Xception 299, NASNet-Large
+    331): ms a forward and peak memory.
 
 The last line of standard output is the result,
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -184,8 +208,10 @@ the A/B tool's run for T1; phase 11's siamese fit for K1's forward) and
 its launches over phase 9's fit (``fit_launches``), phase 11's
 (``siamese_fit_launches``), phase 12's (``vit_fit_launches``), phase 13's
 road-signs fit (``road_signs_fit_launches``), inference tools
-(``inference_launches``) and phase 14's runs (``phase14_launches``: (a)'s
-timed sharded steps, (b)'s remat step, (c)'s fit), its
+(``inference_launches``), phase 14's runs (``phase14_launches``: (a)'s
+timed sharded steps, (b)'s remat step, (c)'s fit) and phase 15's
+(``phase15_launches``: (a)'s timed SE-ResNet-50 steps, (c)'s fit, (d)'s
+forwards), its
 worst error, and ``ms`` / ``plain_ms`` /
 ``bound_ms`` / ``library_ms``, the event time of the kernel, its plain
 version, the card's bound and the library call, summed over the calls one
@@ -3354,6 +3380,352 @@ def data_parallel_phase(smi, tmp):
             "sharded_fit": fit_launches}
 
 
+# -- phase 15: the rest of the backbone zoo and pretrained weights ----------
+
+# (a) the flagship config with backbone_name seresnet50 (the SE block sits
+# after bn3, so each block's bn1 -> relu -> conv2 stays fused: the
+# ResNet-50 step's launches), from MODEL.backbone_weights 'imagenet', which
+# resolves through $EMBEDDINGNET_WEIGHTS_DIR to a .npz of a seeded port
+# model's backbone; the Trainer's own step on colour-cell P-K batches
+ZOO_BACKBONE = "seresnet50"
+ZOO_SETTINGS = [("MODEL", "backbone_name", ZOO_BACKBONE),
+                ("MODEL", "backbone_weights", "imagenet")]
+ZOO_CUTS = [
+    ("DATALOADER", "dataset_path", None, "phase 9's PNGs (the steps are fed "
+                                         "colour-cell batches on the card)"),
+    ("PERFORMANCE", "pallas_conv", True, "so the kernels run"),
+    ("TRAIN", "plot_history", False, "the card's machine has no "
+                                     "matplotlib"),
+    ("GENERAL", "work_dir", None, "a temp dir"),
+]
+ZOO_WARMUP, ZOO_TIMED, ZOO_PROFILED = 3, 10, 2
+# (b) one name per family at its smallest input, card against CPU from one
+# state_dict in float64 train mode (as phase 13 (b), CARD_TOL): the
+# embeddings, the batch-hard loss and every gradient. No float32 check: at
+# random weights SENet-154's 50 blocks amplify float32 rounding past 1e-5
+# (tests/test_torch_port_zoo_resnet.py)
+ZOO_CARD_FAMILIES = (("seresnet18", 32), ("seresnext50", 32),
+                     ("senet154", 32), ("densenet121", 32), ("vgg16", 32),
+                     ("inceptionv3", 75), ("inceptionresnetv2", 75),
+                     ("xception", 71), ("nasnetmobile", 32),
+                     ("nasnetmobile", 33))
+ZOO_CARD_BATCH = 8
+# (c) an arcface fit from a weights preset: configs/vit_arcface_smoke.yml on
+# a zoo backbone, cut to a small dataset
+ZOO_FIT_BACKBONE = "densenet121"
+ZOO_FIT_CLASSES, ZOO_FIT_PER_CLASS = 32, 8
+ZOO_FIT_SETTINGS = [("MODEL", "backbone_name", ZOO_FIT_BACKBONE),
+                    ("MODEL", "backbone_weights", "imagenet")]
+ZOO_FIT_CUTS = [
+    ("DATALOADER", "dataset_path", None, "no data on the machine"),
+    ("TRAIN", "n_epochs", 2, "run time"),
+    ("GENERATOR", "n_batches", 4, "run time"),
+    ("GENERATOR", "batch_size", 32, "the cut dataset"),
+    ("TRAIN", "eval_recall_every", 1, "so recall runs every epoch"),
+    ("TRAIN", "plot_history", False, "the card's machine has no "
+                                     "matplotlib"),
+    ("GENERAL", "work_dir", None, "a temp dir"),
+]
+# (d) each name this slice ported, an eval forward in bf16 at its native
+# input (Keras' default size), B=32
+ZOO_NATIVE = {"inceptionv3": 299, "inceptionresnetv2": 299, "xception": 299,
+              "nasnetlarge": 331}
+ZOO_NAMES = ("seresnet18", "seresnet34", "seresnet50", "seresnet101",
+             "seresnet152", "resnext50", "resnext101", "seresnext50",
+             "seresnext101", "senet154", "inceptionv3", "inceptionresnetv2",
+             "xception", "nasnetmobile", "nasnetlarge", "densenet121",
+             "densenet169", "densenet201", "vgg16", "vgg19")
+ZOO_EVAL_BATCH = 32
+
+
+def _write_weights(root, name, seed, **kw):
+    """``<root>/<name>_imagenet.npz``: the backbone of a port model drawn
+    from ``seed`` (its BatchNorm statistics drawn too), as the converters
+    write a preset; returns the file's arrays."""
+    from embeddingnet_tpu_torch.models import pretrained
+    source = EmbeddingModule(name, **kw)
+    source.reset_parameters(torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in source.backbone.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0, 0.05, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    flat = {k: v for k, v in pretrained.flatten_params(source).items()
+            if k.split("/")[1] == "backbone"}
+    os.makedirs(root, exist_ok=True)
+    np.savez(os.path.join(root, f"{name}_imagenet.npz"), **flat)
+    return flat
+
+
+def _check_loaded(label, module, flat, fresh):
+    """Every backbone tensor of ``module`` equals the file's; every other
+    one ``fresh``'s (the module as built, before the load)."""
+    from embeddingnet_tpu_torch.models import pretrained
+    got = pretrained.flatten_params(module)
+    want = pretrained.flatten_params(fresh)
+    n_file = n_fresh = 0
+    for key, value in got.items():
+        ref = flat.get(key)
+        if ref is None:
+            ref, n_fresh = want[key], n_fresh + 1
+        else:
+            n_file += 1
+        if not np.array_equal(value, ref):
+            source = "the file" if key in flat else "its fresh value"
+            raise AssertionError(f"{label}: {key} differs from {source}")
+    if n_file != len(flat):
+        raise AssertionError(f"{label}: {len(flat) - n_file} of the file's "
+                             f"arrays have no place in the module")
+    print(f"{label}: loaded {n_file} arrays of the file bit for bit; "
+          f"{n_fresh} others (the head) keep the fresh initialisation")
+
+
+def _event_steps(state, step, batches):
+    """Runs the steps; (per-step ms by CUDA events, metrics as floats)."""
+    times, metrics = [], []
+    for images, labels in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, images, labels)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return times, metrics
+
+
+def zoo_step_phase(smi, tmp):
+    """Phase 15 (a): the flagship config on SE-ResNet-50 through the
+    Trainer, from a weights preset: the load checked, then the Trainer's
+    step on colour-cell batches with exact launches, a falling loss, CUDA
+    event and profiler times, peak memory. Returns the timed steps'
+    launches."""
+    from embeddingnet_tpu_torch.config import parse_params
+    from embeddingnet_tpu_torch.data import ENDataLoader
+    from embeddingnet_tpu_torch.models import pretrained
+    from embeddingnet_tpu_torch.train.loop import Trainer
+    t0 = time.perf_counter()
+    weights = os.path.join(tmp, "weights")
+    path = _fit_config(tmp, cuts=ZOO_CUTS, settings=ZOO_SETTINGS,
+                       label="zoo step", work="zoo_work",
+                       name="zoo_config.yml")
+    params = parse_params(path)
+    m, g = params.model, params.generator
+    flat = _write_weights(weights, m.backbone_name, SEED + 20,
+                          encodings_len=m.encodings_len)
+    os.environ[pretrained.WEIGHTS_DIR_ENV] = weights
+    loader = ENDataLoader(**{k: params.dataloader[k]
+                             for k in params.dataloader.keys()})
+    trainer = Trainer(params, loader, device=DEVICE, log_fn=lambda *a: None)
+    fresh = trainer._new_encoder()
+    fresh.reset_parameters(torch.Generator().manual_seed(
+        params.general.seed))
+    _check_loaded("zoo step", trainer.module, flat, fresh)
+    batch = g.k_classes * g.k_samples
+    batches = _b3_batches(np.random.default_rng(SEED + 21),
+                          ZOO_WARMUP + ZOO_TIMED + ZOO_PROFILED, batch,
+                          m.input_shape[0])
+    state, step = trainer.state, trainer.train_step
+    _event_steps(state, step, batches[:ZOO_WARMUP])
+    print(f"zoo step: {m.backbone_name} from {m.backbone_weights!r} "
+          f"({sum(p.numel() for p in trainer.module.parameters()) / 1e6:.2f}"
+          f" M parameters), {params.performance.compute_dtype}, B={batch}, "
+          f"{g.negatives_selection_mode}, augmentation {g.augmentations!r}; "
+          f"built, loaded and {ZOO_WARMUP} warm-up steps in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- the SE-ResNet-50 step's path: every launch count from here to the
+    # reading
+    fc.reset_launch_counts()
+    pre.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    timed = batches[ZOO_WARMUP:ZOO_WARMUP + ZOO_TIMED]
+    times, metrics = _event_steps(state, step, timed)
+    launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    # ---- end of the SE-ResNet-50 step's path ----
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(times))
+    print(f"zoo step: {ZOO_TIMED} steps, CUDA events: median {med:.2f} ms "
+          f"(min {min(times):.2f}, max {max(times):.2f}), "
+          f"{batch / med * 1e3:.0f} img/s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB [{smi}]")
+    _check_training("zoo step", metrics, launches, EXPECTED_AUG_PER_STEP,
+                    ZOO_TIMED)
+    busy, dev_ms, ours, top, _, augment = _device_busy(
+        state, step, batches[ZOO_WARMUP + ZOO_TIMED:])
+    print(f"zoo step: torch.profiler over {ZOO_PROFILED} steps: "
+          f"{dev_ms:.2f} ms of device time per step, busy {busy:.3f} of the "
+          f"profiled wall, {dev_ms / med:.3f} of the event median; the "
+          f"augmentation {augment['ms']:.2f} ms, the port's kernels "
+          f"{sum(ours.values()) * 1e-3 / ZOO_PROFILED:.2f} ms per step "
+          f"[{smi}]")
+    for name, us in top:
+        print(f"  profile top: {us / ZOO_PROFILED / 1e3:8.3f} ms/step  "
+              f"{name[:90]}")
+    del trainer, state, step, batches, fresh
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zoo_card_check():
+    """Phase 15 (b): each zoo family at its smallest input, on the card
+    against the CPU from one state_dict, float64 train mode."""
+    import copy
+    from embeddingnet_tpu_torch.ops.mining import mined_triplet_loss
+    rng = np.random.default_rng(SEED + 22)
+    labels = torch.arange(ZOO_CARD_BATCH // 4).repeat_interleave(4)
+    for name, size in ZOO_CARD_FAMILIES:
+        t0 = time.perf_counter()
+        cpu = EmbeddingModule(name, encodings_len=64, classifier=False)
+        cpu.reset_parameters(torch.Generator().manual_seed(SEED))
+        images = torch.from_numpy(rng.uniform(
+            0, 1, (ZOO_CARD_BATCH, size, size, 3)))
+        out = {}
+        for where in ("cpu", "card"):
+            device = "cpu" if where == "cpu" else DEVICE
+            module = copy.deepcopy(cpu).double().train().to(device)
+            emb = module(images.to(device))
+            loss, _ = mined_triplet_loss(emb, labels.to(device),
+                                         margin=MARGIN, mode="batch_hard")
+            loss.backward()
+            out[where] = (emb.detach().cpu(), loss.item(), {
+                n: p.grad.cpu() for n, p in module.named_parameters()})
+            del module
+        (e_cpu, l_cpu, g_cpu), (e_card, l_card, g_card) = (
+            out["cpu"], out["card"])
+        zero = _zero_in_exact_arithmetic(g_cpu)
+        top = max(g.abs().max().item() for g in g_cpu.values())
+        worst = {"embeddings": ((e_card - e_cpu).abs().max()
+                                / e_cpu.abs().max()).item(),
+                 "loss": abs(l_card - l_cpu) / abs(l_cpu)}
+        for n, grad in g_cpu.items():
+            scale = top if n in zero else grad.abs().max().item()
+            worst[n] = (g_card[n] - grad).abs().max().item() / scale
+        key = max(worst, key=worst.get)
+        print(f"zoo card check {name} at {size} px, B={ZOO_CARD_BATCH}: "
+              f"float64 embeddings {worst['embeddings']:.2e}, loss "
+              f"{l_card:.6f} against {l_cpu:.6f} ({worst['loss']:.2e}); "
+              f"worst of {len(g_cpu)} gradients ({len(zero)} zero in exact "
+              f"arithmetic) and the rest: {key} {worst[key]:.2e}; tolerance "
+              f"{CARD_TOL:g}; {time.perf_counter() - t0:.1f} s")
+        if not all(np.isfinite(list(worst.values()))) or \
+                worst[key] > CARD_TOL:
+            raise AssertionError(f"zoo card check {name}: {key} off by "
+                                 f"{worst[key]:.2e}")
+    torch.cuda.empty_cache()
+
+
+def zoo_fit_phase(smi, tmp):
+    """Phase 15 (c): configs/vit_arcface_smoke.yml on a zoo backbone from a
+    weights preset, fitted through the Trainer in arcface mode (the file
+    loads into the encoder), every kernel at 0 launches, then a second
+    Trainer's resume bit for bit. Returns the fit's launches."""
+    from embeddingnet_tpu_torch.config import parse_params
+    from embeddingnet_tpu_torch.data import ENDataLoader
+    from embeddingnet_tpu_torch.models import pretrained
+    from embeddingnet_tpu_torch.train.loop import Trainer
+    root = os.path.join(tmp, "zoo_fit")
+    t0 = time.perf_counter()
+    _write_fit_dataset(os.path.join(root, "dataset"), ZOO_FIT_CLASSES,
+                       ZOO_FIT_PER_CLASS, VIT_FIT_SIZE)
+    path = _fit_config(root, source=VIT_SMOKE_CONFIG, cuts=ZOO_FIT_CUTS,
+                       settings=ZOO_FIT_SETTINGS, label="zoo fit")
+    params = parse_params(path)
+    m = params.model
+    weights = os.path.join(root, "weights")
+    flat = _write_weights(weights, m.backbone_name, SEED + 23,
+                          encodings_len=m.encodings_len,
+                          embeddings_normalization=False, classifier=False)
+    os.environ[pretrained.WEIGHTS_DIR_ENV] = weights
+    loader = ENDataLoader(**{k: params.dataloader[k]
+                             for k in params.dataloader.keys()})
+    logs = []
+    trainer = Trainer(params, loader, device=DEVICE, log_fn=logs.append)
+    if trainer.mode != "arcface":
+        raise AssertionError(f"zoo fit: mode {trainer.mode}")
+    fresh = trainer._new_encoder()
+    fresh.reset_parameters(torch.Generator().manual_seed(
+        params.general.seed))
+    _check_loaded("zoo fit", trainer.encoder, flat, fresh)
+    if not any("loaded backbone weights" in str(line) for line in logs):
+        raise AssertionError("zoo fit: the Trainer logged no load")
+    print(f"zoo fit: {m.backbone_name} in arcface mode, the file loaded "
+          f"into the encoder; set up in {time.perf_counter() - t0:.1f} s")
+
+    # ---- the zoo fit's path: every launch count from here to the reading
+    fc.reset_launch_counts()
+    pre.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = trainer.fit().history
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    # ---- end of the zoo fit's path ----
+    for e, timing in enumerate(trainer.timings):
+        print(f"zoo fit: epoch {e}: loss {history['loss'][e]:.4f}, recall@1 "
+              f"{history['val_recall1'][e]:.4f}, {timing['epoch_s']:.2f} s, "
+              f"images_per_sec {history['images_per_sec'][e]:.0f} [{smi}]")
+    print(f"zoo fit: {fit_s:.1f} s; launches {launches}")
+    if not np.all(np.isfinite(history["loss"])):
+        raise AssertionError("zoo fit: loss not finite")
+    if not all(0 <= v <= 1 for v in history["val_recall1"]):
+        raise AssertionError(f"zoo fit: recall {history['val_recall1']}")
+    if any(launches.values()):
+        raise AssertionError(f"zoo fit: a kernel launched: {launches}")
+    _resume_check("zoo fit", params, loader, trainer)
+    del trainer, fresh
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zoo_eval_phase(smi):
+    """Phase 15 (d): each name this slice ported, an eval forward in bf16
+    at its native input, B=ZOO_EVAL_BATCH: CUDA-event ms and peak memory.
+    Returns the launches over the timed forwards."""
+    fc.reset_launch_counts()
+    pre.reset_launch_counts()
+    for name in ZOO_NAMES:
+        size = ZOO_NATIVE.get(name, 224)
+        t0 = time.perf_counter()
+        with torch.device(DEVICE):
+            module = EmbeddingModule(name, dtype=torch.bfloat16,
+                                     classifier=False)
+        module.reset_parameters(torch.Generator(DEVICE).manual_seed(SEED))
+        module.eval()
+        x = torch.rand(ZOO_EVAL_BATCH, size, size, 3, device=DEVICE)
+        build_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: module(x), iters=5, warmup=2)
+            out = module(x)
+        peak = torch.cuda.max_memory_allocated()
+        if out.shape != (ZOO_EVAL_BATCH, 256) or not torch.isfinite(
+                out.float()).all():
+            raise AssertionError(f"zoo eval {name}: {tuple(out.shape)}")
+        print(f"zoo eval {name} at {size} px, bf16, B={ZOO_EVAL_BATCH}: "
+              f"{ms:.2f} ms a forward ({ZOO_EVAL_BATCH / ms * 1e3:.0f} "
+              f"img/s), peak memory {peak / 2 ** 30:.2f} GiB, "
+              f"{sum(p.numel() for p in module.parameters()) / 1e6:.1f} M "
+              f"parameters, built in {build_s:.1f} s [{smi}]")
+        del module, x, out
+        torch.cuda.empty_cache()
+    return {**fc.LAUNCHES, **pre.LAUNCHES}
+
+
+def zoo_phase(smi, tmp):
+    """Phase 15: (a)-(d). Returns the launches of its runs, by kernel."""
+    t0 = time.perf_counter()
+    step_launches = zoo_step_phase(smi, tmp)
+    zoo_card_check()
+    fit_launches = zoo_fit_phase(smi, tmp)
+    eval_launches = zoo_eval_phase(smi)
+    print(f"zoo: phase 15 in {time.perf_counter() - t0:.1f} s")
+    return {"seresnet50_step": step_launches, "zoo_fit": fit_launches,
+            "zoo_eval": eval_launches}
+
+
 def main():
     smi = check_card()
     # f32 references in full f32: cuDNN's convs default to TF32
@@ -3382,6 +3754,7 @@ def main():
         vit_launches = vit_phase(smi, tmp)
         road_launches, inference_launches = depthwise_phase(smi, tmp)
         dp_launches = data_parallel_phase(smi, tmp)
+        zoo_launches = zoo_phase(smi, tmp)
     finally:
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3425,6 +3798,8 @@ def main():
                  "inference_launches": inference_launches[name],
                  "phase14_launches": {run: counts[name] for run, counts
                                       in dp_launches.items()},
+                 "phase15_launches": {run: counts[name] for run, counts
+                                      in zoo_launches.items()},
                  "max_abs_err": rec["max_abs_err"], **sums, "per": per}
         if name in LIBRARY_RATIO:
             entry["library_ratio"] = sums["ms"] / sums["library_ms"]

@@ -91,17 +91,17 @@ class SameConv2d(Conv2d):
     """:class:`~embeddingnet_tpu_torch.models.resnet.Conv2d` with TF
     ``"SAME"`` padding: the conv's own padding where both sides of an axis
     take the same, else an explicit ``F.pad`` first (stride 2 on an even
-    size). Square kernels and strides."""
+    size). ``kernel`` and ``stride`` are an int or an (h, w) pair."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel: int,
-                 stride: int = 1, **kwargs):
+    def __init__(self, in_channels: int, out_channels: int, kernel,
+                 stride=1, **kwargs):
         super().__init__(in_channels, out_channels, kernel, stride, 0,
                          **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k, s = self.kernel_size[0], self.stride[0]
-        (top, bottom), (left, right) = (same_padding(n, k, s)
-                                        for n in x.shape[2:])
+        (top, bottom), (left, right) = (
+            same_padding(n, k, s) for n, k, s in zip(
+                x.shape[2:], self.kernel_size, self.stride))
         dtype = self.compute_dtype or torch.promote_types(x.dtype,
                                                           self.weight.dtype)
         x = x.to(dtype)

@@ -12,14 +12,17 @@ class-weight matrix; :class:`SoftmaxModule` a backbone and the softmax
 pretraining head, whose backbone :func:`transfer_backbone_params` hands
 to an encoder.
 
-Ported: ``simple`` and ``simple2`` (which carry their own embedding head),
-the ResNets (18-152), EfficientNet-B0..B7, MobileNet v1 (``mobilenet``)
-and v2 (``mobilenetv2``), and the ViTs (``vit-*``, ``clip-vit-*``); every
-other backbone name of the JAX registry (DenseNet, VGG, Inception,
-Xception, NASNet, the SE/ResNeXt/SENet-154 ResNets) raises
-``NotImplementedError`` naming ``ROADMAP.md``. A ViT and the simple CNNs
-are built for one image size (the position embedding, the Dense head), so
-modules take ``input_shape`` [H, W, C], which the other families ignore.
+Every backbone name of the JAX registry is ported: ``simple`` and
+``simple2`` (which carry their own embedding head), the ResNets (18-152,
+the SE and ResNeXt variants, SENet-154), EfficientNet-B0..B7, MobileNet v1
+(``mobilenet``) and v2 (``mobilenetv2``), InceptionV3, Inception-ResNet-v2,
+Xception, NASNet (mobile, large), DenseNet-121/169/201, VGG-16/19 and the
+ViTs (``vit-*``, ``clip-vit-*``). A ViT and the simple CNNs are built for
+one image size (the position embedding, the Dense head), so modules take
+``input_shape`` [H, W, C], which the other families ignore.
+:func:`get_backbone` is the reference's factory, with its pretrained
+weights from a local file (:mod:`~embeddingnet_tpu_torch.models.
+pretrained`).
 
 The stochastic backbones (EfficientNet's drop-connect, ``simple2``'s
 Dropout) take their train-mode masks from the ``masks``
@@ -34,12 +37,17 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn as nn
 
+from embeddingnet_tpu_torch.models import densenet as _densenet
 from embeddingnet_tpu_torch.models import efficientnet as _efn
-from embeddingnet_tpu_torch.models import remat
+from embeddingnet_tpu_torch.models import inception as _inception
 from embeddingnet_tpu_torch.models import mobilenet as _mobilenet
+from embeddingnet_tpu_torch.models import nasnet as _nasnet
+from embeddingnet_tpu_torch.models import remat
 from embeddingnet_tpu_torch.models import resnet as _resnet
 from embeddingnet_tpu_torch.models import simple as _simple
+from embeddingnet_tpu_torch.models import vgg as _vgg
 from embeddingnet_tpu_torch.models import vit as _vit
+from embeddingnet_tpu_torch.models import xception as _xception
 from embeddingnet_tpu_torch.models.heads import (ClassificationHead, Dense,
                                                  EmbeddingHead, SiameseL1Head,
                                                  SoftmaxHead, init_keras_,
@@ -47,20 +55,34 @@ from embeddingnet_tpu_torch.models.heads import (ClassificationHead, Dense,
                                                  siamese_l2_distance)
 from embeddingnet_tpu_torch.models.stochastic import MaskSource
 
-_RESNETS = {
-    "resnet18": _resnet.resnet18,
-    "resnet34": _resnet.resnet34,
-    "resnet50": _resnet.resnet50,
-    "resnet101": _resnet.resnet101,
-    "resnet152": _resnet.resnet152,
-}
+_RESNETS = {name: getattr(_resnet, name) for name in (
+    "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+    "seresnet18", "seresnet34", "seresnet50", "seresnet101", "seresnet152",
+    "resnext50", "resnext101", "seresnext50", "seresnext101", "senet154")}
 _MOBILENETS = {"mobilenet": _mobilenet.MobileNetV1,
                "mobilenetv2": _mobilenet.MobileNetV2}
+# the other zoo families, in the JAX registry's order; each builder takes
+# bn_momentum and dtype
+_ZOO = {
+    "inceptionv3": _inception.inceptionv3,
+    "inceptionresnetv2": _inception.inceptionresnetv2,
+    "xception": _xception.xception,
+    "nasnetmobile": _nasnet.nasnetmobile,
+    "nasnetlarge": _nasnet.nasnetlarge,
+    "densenet121": _densenet.densenet121,
+    "densenet169": _densenet.densenet169,
+    "densenet201": _densenet.densenet201,
+    "vgg16": _vgg.vgg16,
+    "vgg19": _vgg.vgg19,
+}
 
 
 def list_backbones():
+    """The JAX registry's names, in its order, then the ViTs (``vit-b32``
+    and ``vit-l16`` beside JAX's four, which its ``build_vit`` builds
+    too)."""
     return (["simple", "simple2"] + sorted(_RESNETS) + sorted(_efn.SCALINGS)
-            + sorted(_MOBILENETS) + sorted(_vit._VARIANTS))
+            + sorted(_MOBILENETS) + list(_ZOO) + sorted(_vit._VARIANTS))
 
 
 def _build_backbone(name: str, dtype: Optional[torch.dtype],
@@ -73,8 +95,10 @@ def _build_backbone(name: str, dtype: Optional[torch.dtype],
     whether it carries its own embedding head (``simple``, ``simple2``;
     ``embedding_head=False`` builds their conv stack alone). ``fast_conv``
     enables the small-spatial 3x3 conv kernels (``PERFORMANCE.pallas_conv``)
-    of the ResNets; the other families, whose convs are depthwise, 1x1,
-    5x5, biased or absent, ignore it, as in JAX."""
+    of the ResNets but SENet-154; the other families, whose convs are
+    grouped, depthwise, 1x1, 5x5, biased or absent, ignore it, as in JAX.
+    ``bn_momentum`` reaches every family with BatchNorm (NASNet's module
+    default, 0.9997, is never used through here, as in JAX)."""
     if name == "simple":
         return _simple.SimpleCNN(
             encodings_len, embeddings_normalization, dtype=dtype,
@@ -85,23 +109,22 @@ def _build_backbone(name: str, dtype: Optional[torch.dtype],
             dtype=dtype, input_shape=input_shape,
             embedding_head=embedding_head), True
     if name in _RESNETS:
+        kw = {} if name == "senet154" else {"fast_conv": fast_conv}
         return _RESNETS[name](bn_momentum=bn_momentum, dtype=dtype,
-                              fast_conv=fast_conv), False
+                              **kw), False
     if name in _efn.SCALINGS:
         return _efn.build_efficientnet(name, bn_momentum=bn_momentum,
                                        dtype=dtype), False
     if name in _MOBILENETS:
         return _MOBILENETS[name](bn_momentum=bn_momentum, dtype=dtype), False
+    if name in _ZOO:
+        return _ZOO[name](bn_momentum=bn_momentum, dtype=dtype), False
     if name.startswith("vit") or name.startswith("clip-vit"):
         if input_shape is None:
             raise ValueError(f"backbone {name!r} needs input_shape: its "
                              f"position embedding is sized by the image")
         return _vit.build_vit(name, input_shape, dtype=dtype), False
-    raise NotImplementedError(
-        f"backbone {name!r} is not ported to PyTorch yet (see ROADMAP.md, "
-        f"item 12: DenseNet, VGG, Inception, Xception, NASNet and the "
-        f"SE/ResNeXt/SENet-154 ResNets wait there); ported: "
-        f"{list_backbones()}")
+    raise ValueError(f"unknown backbone {name!r}; valid: {list_backbones()}")
 
 
 def _run_backbone(backbone: nn.Module, x: torch.Tensor,
@@ -193,8 +216,11 @@ def _reset_backbone(backbone: nn.Module, generator: torch.Generator) -> None:
     """Each family's JAX initialisers: ViT :meth:`ViT.reset_parameters`;
     EfficientNet and MobileNet the untruncated fan-out normal
     (:func:`~embeddingnet_tpu_torch.models.efficientnet.init_fan_out_`);
-    the simple CNNs glorot-uniform; the ResNets He-normal. BatchNorm 1/0
-    with running statistics 0/1."""
+    the simple CNNs glorot-uniform; the ResNets and SENet-154 He-normal
+    convs (their squeeze-excitation Dense layers ``lecun_normal``); VGG,
+    DenseNet, Xception, the Inceptions and NASNet Flax's default,
+    ``lecun_normal``, on every conv, biases zero. BatchNorm 1/0 with
+    running statistics 0/1."""
     if isinstance(backbone, _vit.ViT):
         backbone.reset_parameters(generator)
         return
@@ -208,7 +234,12 @@ def _reset_backbone(backbone: nn.Module, generator: torch.Generator) -> None:
     for m in backbone.modules():
         if isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
-    _resnet.init_he_(backbone, generator)
+    if isinstance(backbone, (_resnet.ResNet, _resnet.SENet154)):
+        _resnet.init_he_(backbone, generator)
+        return
+    for m in backbone.modules():
+        if isinstance(m, nn.Conv2d):
+            lecun_normal_(m, generator)
 
 
 class SiameseModule(nn.Module):
@@ -360,6 +391,35 @@ def transfer_backbone_params(source: nn.Module, target: nn.Module,
         tgt[name].copy_(src[name])
 
 
+def get_backbone(input_shape, encodings_len=4096, backbone_name="simple",
+                 embeddings_normalization=True, backbone_weights=None,
+                 freeze_backbone=False, dtype=None, generator=None,
+                 device="cuda", **kwargs):
+    """Reference-compatible factory (the JAX ``get_backbone``, after
+    ``backbones.py:12-18``): ``(module, backbone)``, the
+    :class:`EmbeddingModule` and its backbone over shared parameters (the
+    reference's ``(base_model, backbone_model)``), on ``device``.
+
+    The module is initialised from ``generator`` (seed 0 when None), then
+    ``backbone_weights``, a local file or a named preset found through
+    ``$EMBEDDINGNET_WEIGHTS_DIR``, is loaded into it (:func:`~embeddingnet_
+    tpu_torch.models.pretrained.load_into`); an unresolvable preset raises
+    ``FileNotFoundError``. ``freeze_backbone`` and other keyword arguments
+    are accepted and ignored, as in JAX: freezing is the optimizer's mask
+    (:func:`backbone_param_mask`)."""
+    from embeddingnet_tpu_torch.models import pretrained
+    path = pretrained.resolve_weights(backbone_weights, backbone_name)
+    module = EmbeddingModule(backbone_name, encodings_len,
+                             embeddings_normalization, dtype=dtype,
+                             input_shape=input_shape)
+    module.reset_parameters(generator if generator is not None
+                            else torch.Generator().manual_seed(0))
+    if path is not None:
+        pretrained.load_into(module, path)
+    module.to(device)
+    return module, module.backbone
+
+
 def backbone_param_mask(module: nn.Module, freeze_backbone
                         ) -> Dict[str, bool]:
     """``{parameter name: trainable}`` for ``MODEL.freeze_backbone`` (the
@@ -370,9 +430,11 @@ def backbone_param_mask(module: nn.Module, freeze_backbone
       the head and the classifier train;
     * ``"except_last_2"``: the backbone's last two top-level submodules
       stay trainable. "Last" is in the JAX parameter tree's order, whose
-      keys are sorted (``jax.jit`` hands back dicts with sorted keys), so
-      for the ResNets these are ``stem_bn`` and ``stem_conv``, as in the
-      JAX package.
+      keys are sorted once a tree map has run over it (``jax.jit``, the
+      weights file's ``load_into``, the bf16 cast), so for the ResNets
+      these are ``stem_bn`` and ``stem_conv``, and counter-numbered names
+      sort as strings (``conv93`` after ``conv100``), as in the JAX
+      package (``ROADMAP.md``, F11).
     """
     names = [n for n, _ in module.named_parameters()]
     if not freeze_backbone:

@@ -21,12 +21,13 @@ and hands its backbone to the encoder.
 It runs on the device it is given (``cuda`` unless the caller asks for
 ``cpu``) and never falls back: not to the CPU when there is no card, nor
 to cuDNN when a kernel of ``PERFORMANCE.pallas_conv`` fails. It builds
-every backbone of the port's registry (``simple``, ``simple2``, the
-ResNets, EfficientNet-B0..B7, MobileNet v1/v2, the ViTs). What the port
-lacks raises ``NotImplementedError`` at construction, before anything is
-written, naming its ``ROADMAP.md`` item: the other backbones and
-pretrained backbone weights (item 12), and a ``MESH.model`` axis or a
-one-process mesh over several cards (item 13).
+every backbone of the port's registry, and loads ``MODEL.backbone_weights``
+(a local file, or a named preset in ``$EMBEDDINGNET_WEIGHTS_DIR``) into the
+fresh module as the JAX Trainer does: the encoder's backbone and head keys
+that the file holds, into the encoder of the siamese and arcface modules.
+What the port lacks raises ``NotImplementedError`` at construction, before
+anything is written, naming its ``ROADMAP.md`` item: a ``MESH.model`` axis
+or a one-process mesh over several cards (item 13).
 
 Data parallelism: under an initialised ``torch.distributed`` process
 group (``torchrun --nproc_per_node=N tools/train_torch.py``, one process
@@ -59,6 +60,7 @@ from embeddingnet_tpu_torch.data.samplers import (PairSampler, PKSampler,
                                                   ProcessShardSampler,
                                                   SimpleSampler,
                                                   TripletSampler)
+from embeddingnet_tpu_torch.models import pretrained
 from embeddingnet_tpu_torch.models.registry import (ArcFaceModule,
                                                     EmbeddingModule,
                                                     SiameseModule,
@@ -159,18 +161,15 @@ class Trainer:
 
     def _check_supported(self):
         """Raise ``NotImplementedError`` for what the port cannot run yet,
-        before anything is built or written."""
+        and resolve ``MODEL.backbone_weights`` (``FileNotFoundError`` for
+        a preset with no file), before anything is built or written."""
         p = self.params
         if p.model.backbone_name not in list_backbones():
-            raise NotImplementedError(
+            raise ValueError(
                 f"MODEL.backbone_name {p.model.backbone_name!r} is not a "
-                f"backbone the PyTorch port builds (see ROADMAP.md, item 12, "
-                f"for those still to port); it builds {list_backbones()}")
-        if p.model.backbone_weights is not None:
-            raise NotImplementedError(
-                f"MODEL.backbone_weights {p.model.backbone_weights!r}: "
-                f"pretrained weights are not ported to PyTorch yet (see "
-                f"ROADMAP.md, item 12); set it to null")
+                f"backbone name; valid: {list_backbones()}")
+        self._weights_path = pretrained.resolve_weights(
+            p.model.backbone_weights, p.model.backbone_name)
         if p.mesh.model > 1:
             raise NotImplementedError(
                 f"MESH.model={p.mesh.model}: the PyTorch port has no model "
@@ -235,6 +234,12 @@ class Trainer:
         self.module.reset_parameters(
             torch.Generator().manual_seed(self.params.general.seed))
         self.module.to(self.device)
+        if self._weights_path is not None:
+            # the file's keys are a standalone encoder's, which the siamese
+            # and arcface modules nest under ``encoder``; loaded before any
+            # bf16 cast of the master weights, as JAX casts after loading
+            pretrained.load_into(self.encoder, self._weights_path)
+            self.log(f"loaded backbone weights from {self._weights_path}")
         self._view = None
 
     def _new_encoder(self) -> EmbeddingModule:

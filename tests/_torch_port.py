@@ -20,9 +20,9 @@ def numpy_tree(tree):
 
 
 def randomize_bn(variables, seed=0):
-    """Copy of ``variables`` (numpy) whose BatchNorm gammas, betas, running
-    means and variances are random, so that eval-mode normalisation
-    matters in a parity test."""
+    """Copy of ``variables`` (numpy) whose BatchNorm gammas (where the
+    BatchNorm has a scale), betas, running means and variances are random,
+    so that eval-mode normalisation matters in a parity test."""
     rng = np.random.default_rng(seed)
     out = numpy_tree(variables)
 
@@ -31,8 +31,10 @@ def randomize_bn(variables, seed=0):
             if not isinstance(value, dict):
                 continue
             if key in stats and "mean" in stats[key]:
-                n = value["scale"].shape
-                value["scale"] = rng.uniform(0.8, 1.2, n).astype(np.float32)
+                n = value["bias"].shape
+                if "scale" in value:
+                    value["scale"] = rng.uniform(0.8, 1.2, n).astype(
+                        np.float32)
                 value["bias"] = rng.normal(0, 0.05, n).astype(np.float32)
                 stats[key]["mean"] = rng.normal(0, 0.05, n).astype(
                     np.float32)
@@ -41,8 +43,85 @@ def randomize_bn(variables, seed=0):
             else:
                 visit(value, stats.get(key, {}))
 
-    visit(out["params"], out["batch_stats"])
+    visit(out["params"], out.get("batch_stats", {}))
     return out
+
+
+def port_variables(module, seed=0):
+    """The port's ``module`` initialised as JAX initialises it (from
+    ``seed``), its BatchNorms then randomised (:func:`randomize_bn`) and
+    loaded back: its variables as the JAX package's numpy tree. Building
+    the reference's variables from the port spares a JAX ``init`` of the
+    large graphs; the converters' tests hold the tree to JAX's."""
+    import torch
+    from embeddingnet_tpu_torch.models.convert import (flax_to_torch,
+                                                       torch_to_flax)
+    from embeddingnet_tpu_torch.models import registry
+    generator = torch.Generator().manual_seed(seed)
+    if isinstance(module, (registry.EmbeddingModule, registry.SiameseModule,
+                           registry.ArcFaceModule, registry.SoftmaxModule)):
+        module.reset_parameters(generator)
+    else:
+        registry._reset_backbone(module, generator)
+    variables = randomize_bn(torch_to_flax(module), seed)
+    module.load_state_dict(flax_to_torch(variables, module))
+    return variables
+
+
+def biases_moved(variables, seed=5, positive=False):
+    """``variables`` with every conv and Dense bias moved off its zero
+    start (normal, standard deviation 0.1; its absolute value with
+    ``positive``), so that a parameter's comparison after a step is
+    relative to more than its own update."""
+    rng = np.random.default_rng(seed)
+
+    def visit(node):
+        for value in node.values():
+            if isinstance(value, dict):
+                if "kernel" in value and "bias" in value:
+                    shift = rng.normal(0, 0.1, value["bias"].shape)
+                    value["bias"] = (value["bias"] + (
+                        np.abs(shift) if positive else shift)).astype(
+                        np.float32)
+                visit(value)
+    visit(variables["params"])
+    return variables
+
+
+def tree_shapes(tree):
+    """``{"params/a/kernel": shape}`` of a variables tree (arrays or
+    ``jax.ShapeDtypeStruct``s)."""
+    return {"/".join(str(getattr(k, "key", k)) for k in path): tuple(
+        leaf.shape) for path, leaf in jax.tree_util.tree_leaves_with_path(
+        tree)}
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+def zoo_eval_reference(name, seed, size, batch, dim):
+    """``(port module, its variables, JAX's variable shapes, input, JAX's
+    eval embeddings)`` for backbone ``name``: the port's embedding module
+    (eval mode) initialised by :func:`port_variables`, the shapes of
+    JAX's ``init`` by ``jax.eval_shape`` (no JAX init is run), and one
+    jitted JAX eval forward on a seeded ``[batch, size, size, 3]`` input."""
+    import jax.numpy as jnp
+    from embeddingnet_tpu.models.registry import EmbeddingModule as JModule
+    from embeddingnet_tpu_torch.models import registry
+    module = registry.EmbeddingModule(name, encodings_len=dim).eval()
+    variables = port_variables(module, seed=seed)
+    jmodule = JModule(backbone_name=name, encodings_len=dim)
+    x = np.random.default_rng(seed).uniform(
+        size=(batch, size, size, 3)).astype(np.float32)
+    shapes = jax.eval_shape(lambda: jmodule.init(
+        jax.random.PRNGKey(0), jnp.asarray(x), method="init_all"))
+    want = np.asarray(jax.jit(lambda v, x: jmodule.apply(
+        v, x, train=False))(variables, jnp.asarray(x)))
+    return module, variables, shapes, x, want
 
 
 def jax_init(module, x, **kw):
@@ -193,11 +272,13 @@ def assert_within_one_bf16_ulp(got, want):
 def triplet_steps_against_jax(jmodule, variables, module, batches, masks,
                               holder, *, context=None, reg_rules=(),
                               lr=0.05, mode="batch_hard", margin=0.5,
-                              remat=False):
+                              remat=False, port_float64=False):
     """SGD triplet steps of the JAX package (float64) and of the port
-    (float32) on ``batches``, each port step starting from the JAX state
-    before it (reloaded into ``module``, so that float32 rounding does not
-    compound over the steps). ``masks[i]`` are step i's keep masks in
+    (float32, or float64 with ``port_float64``: the deep models, whose
+    float32 train-mode BatchNorm amplifies rounding past the tolerances)
+    on ``batches``, each port step starting from the JAX state before it
+    (reloaded into ``module``, so that float32 rounding does not compound
+    over the steps). ``masks[i]`` are step i's keep masks in
     layer order: the port's step takes them as ``drop_draws``, the JAX
     module through a test-local patch of its stochastic layers that reads
     ``holder["masks"][holder["i"]]`` (traced inputs, one jit for every
@@ -238,11 +319,14 @@ def triplet_steps_against_jax(jmodule, variables, module, batches, masks,
                      "batch_stats": numpy_tree(state.batch_stats)}
             trajectory.append((before, after, float(metrics["loss"])))
 
+    if port_float64:
+        module.double()
     spec = optim.get_optimizer("sgd", lr)
     tstate = TrainState.create(module, spec)
-    step = steps.make_triplet_train_step(module, spec, margin=margin,
-                                         mode=mode, reg_rules=reg_rules,
-                                         remat=remat)
+    step = steps.make_triplet_train_step(
+        module, spec, margin=margin, mode=mode, reg_rules=reg_rules,
+        remat=remat, compute_dtype=(torch.float64 if port_float64
+                                    else torch.float32))
     out = []
     for (images, labels), step_masks, (before, after, jloss) in zip(
             batches, masks, trajectory):

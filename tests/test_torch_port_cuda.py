@@ -19,7 +19,10 @@ rounding (2e-2, the JAX package's bound for these kernels in bf16); the
 f32 weight gradients to 1e-3 of their largest entry (the same bf16
 products summed in f32 in another order). Also: the kernels' A/B tool's
 ``device_ms`` raises on a read that saw no kernel, and the data-parallel
-step in an NCCL group of one rank matches the CPU's one-process step."""
+step in an NCCL group of one rank matches the CPU's one-process step; a
+squeeze-excitation bottleneck with ``fast_conv`` (K3, K1-as-dgrad, K4),
+TF's ``"SAME"`` max pool and a reduced NASNet (its ``adjust`` and
+``correct_pad``) on the card against the CPU."""
 
 import os
 
@@ -792,3 +795,106 @@ def test_nccl_world1_step_matches_the_cpu_step(card):
                     assert _rel(s_gpu[k], v) < DEPTHWISE_CARD_TOL, (mode, k)
     finally:
         dist.destroy_process_group()
+
+
+# The SE block's kernel path against its cuDNN path on the card: relative
+# L2 of their difference, per tensor, over the cuDNN path's norm. The
+# readings ``test_se_bottleneck_on_the_card_matches_the_cpu`` prints on an
+# H100 run 2.9e-4 (the output) to 4.3e-3 (conv1's weight gradient), while
+# each path is 4-8% off the f32 CPU: the limit is 2.3 times the largest.
+SE_PATH_GAP = 1e-2
+
+
+def test_se_bottleneck_on_the_card_matches_the_cpu(card):
+    """A squeeze-excitation bottleneck block with ``fast_conv`` at a fused
+    shape (4x4, 128 wide) in train mode, from one state_dict whose weights
+    and inputs are bf16 values: bf16 on the card through K3 forward and
+    K1-as-dgrad and K4 backward, and through cuDNN alone, and f32 on the
+    CPU. The kernel path's output and every gradient within SE_PATH_GAP
+    of the cuDNN path's. Against the CPU, a looser check: the output
+    within 2e-2 relative L2, every gradient no further from the CPU's
+    than 1.5 times the cuDNN path's plus 2e-2 (chip_smoke.py's
+    GRAD_FACTOR), since each flows back through a train-mode BatchNorm,
+    whose backward subtracts the gradient's batch mean, and bf16 rounding
+    lands 4-8% off in norm on either path. Prints its readings as one
+    JSON line."""
+    import json
+    from functools import partial
+    from embeddingnet_tpu_torch.models import resnet
+    rng = np.random.default_rng(30)
+    bf16_values = lambda a: torch.from_numpy(  # noqa: E731
+        a.astype(np.float32)).bfloat16().float()
+    x = bf16_values(rng.normal(size=(32, 512, 4, 4)))
+    cot = bf16_values(rng.normal(size=(32, 512, 4, 4)))
+    state = None
+    results = {}
+    for label, device, dtype, fast in (
+            ("cpu", "cpu", None, True), ("cudnn", card, torch.bfloat16, False),
+            ("kernels", card, torch.bfloat16, True)):
+        norm = partial(resnet.BatchNorm, eps=1.001e-5, momentum=0.9,
+                       compute_dtype=dtype)
+        block = resnet.BottleneckBlock(512, 128, norm, use_se=True,
+                                       fast_conv=fast, dtype=dtype)
+        assert isinstance(block.conv2, fc.FusedBNReluConv3x3) == fast
+        if state is None:
+            resnet.init_he_(block, torch.Generator().manual_seed(0))
+            with torch.no_grad():
+                for p in block.parameters():
+                    p.copy_(p.bfloat16())
+            state = block.state_dict()
+        block.load_state_dict(state)
+        block.to(device).train()
+        xd = x.to(device).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        fc.reset_launch_counts()
+        y = block(xd)
+        (y.float() * cot.to(device)).sum().backward()
+        launches = dict(fc.LAUNCHES)
+        results[label] = {"output": y.detach().float().cpu(),
+                          "input grad": xd.grad.float().cpu(),
+                          **{n: p.grad.float().cpu()
+                             for n, p in block.named_parameters()}}
+    assert launches == _launched(conv3x3_small_bn_relu=1, conv3x3_dgrad=1,
+                                 conv3x3_wgrad_bn_relu=1)
+
+    def rel(got, want):
+        return ((got - want).norm() / want.norm()).item()
+
+    readings = {name: {"cudnn_vs_cpu": rel(results["cudnn"][name], want),
+                       "kernels_vs_cpu": rel(results["kernels"][name], want),
+                       "kernels_vs_cudnn": rel(results["kernels"][name],
+                                               results["cudnn"][name])}
+                for name, want in results["cpu"].items()}
+    print(json.dumps({"se_bottleneck_readings": readings}))
+    for name, r in readings.items():
+        assert r["kernels_vs_cudnn"] < SE_PATH_GAP, (name, r)
+        assert r["kernels_vs_cpu"] <= 1.5 * r["cudnn_vs_cpu"] + 2e-2, (
+            name, r)
+    assert readings["output"]["kernels_vs_cpu"] < 2e-2, readings["output"]
+
+
+@pytest.mark.parametrize("n", [33, 34])
+def test_same_max_pool_and_nasnet_adjust_on_the_card(card, n):
+    """TF's ``"SAME"`` max pool (-inf on the high side) equal on the card
+    and the CPU; a reduced NASNet (every cell's ``adjust``, the strided
+    separable convs behind ``correct_pad``) in f32 eval mode, TF32 off, on
+    the card against the CPU to 1e-5 of the largest entry, on an odd and
+    an even input."""
+    import copy
+    from embeddingnet_tpu_torch.models import compact, nasnet
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.normal(size=(4, 16, n, n)).astype(np.float32))
+    want = compact.max_pool_same(x, 3, 2)
+    got = compact.max_pool_same(x.to(card), 3, 2).cpu()
+    assert torch.equal(got, want) and got.shape[-1] == (n + 1) // 2
+    model = nasnet.NASNet(penultimate_filters=192, num_blocks=1,
+                          stem_block_filters=8)
+    from embeddingnet_tpu_torch.models.registry import _reset_backbone
+    _reset_backbone(model, torch.Generator().manual_seed(0))
+    images = torch.from_numpy(rng.uniform(size=(8, 3, n, n)).astype(
+        np.float32))
+    with torch.no_grad():
+        want = model.eval()(images)
+        got = copy.deepcopy(model).to(card).eval()(images.to(card)).cpu()
+    assert _rel(got, want) < 1e-5
+    assert fc.LAUNCHES == _launched()

@@ -1,19 +1,23 @@
 """The port runs where neither JAX nor the JAX package's host dependencies
 are installed: in a fresh interpreter with ``jax``, ``flax``, ``optax``,
-``orbax``, ``yaml``, ``cv2``, ``sklearn``, ``pandas``, ``matplotlib`` and
-``triton`` blocked, every module of the port imports, and a small CPU
+``orbax``, ``yaml``, ``cv2``, ``sklearn``, ``pandas``, ``matplotlib``,
+``triton``, ``msgpack`` and ``tensorflow`` blocked, every module of the
+port imports, and a small CPU
 encode plus kNN vote, the HTTP server's ``/healthz``, the dataset index of
 a folder and of a CSV, a small CPU triplet train step with the ``default``
 augmentation, a ViT encode and an ArcFace step, an encode on each
 EfficientNet/MobileNet/simple backbone, a ``simple2`` step with its Dropout
-and a ``.pt2`` export, the T1 A/B tool run, and an encode and a
+and a ``.pt2`` export, a NASNet loaded from a weights preset by
+``get_backbone`` and ``tools/convert_weights_torch.py``'s refusal of a
+Keras source, the T1 A/B tool run, and an encode and a
 data-parallel step (remat on) in a world-1 gloo group; with cv2 allowed (it
 decodes), a ``Trainer`` fits one epoch on the CPU and ``encode_dataset``
 equals ``encode``, and so do a siamese ``Trainer``
 (radam) and a triplet one whose warm-up switches its mining mode, after
 every mining mode ran on each of its paths and rms_prop took a step. No
 file of the port (its package, ``chip_smoke.py``, every
-``tools/*_torch.py``) imports the JAX package or JAX itself, not even
+``tools/*_torch.py``) imports the JAX package, JAX, Flax, msgpack or
+TensorFlow, not even
 inside a function, nor does the data-parallel tests' worker module (a
 spawned rank imports it)."""
 
@@ -53,6 +57,13 @@ MODULES = [
     "embeddingnet_tpu_torch.models.mobilenet",
     "embeddingnet_tpu_torch.models.simple",
     "embeddingnet_tpu_torch.models.vit",
+    "embeddingnet_tpu_torch.models.compact",
+    "embeddingnet_tpu_torch.models.vgg",
+    "embeddingnet_tpu_torch.models.densenet",
+    "embeddingnet_tpu_torch.models.xception",
+    "embeddingnet_tpu_torch.models.inception",
+    "embeddingnet_tpu_torch.models.nasnet",
+    "embeddingnet_tpu_torch.models.pretrained",
     "embeddingnet_tpu_torch.models.registry",
     "embeddingnet_tpu_torch.models.remat",
     "embeddingnet_tpu_torch.models.convert",
@@ -79,7 +90,7 @@ MODULES = [
 SCRIPT = f"""
 import importlib, sys
 for name in ("jax", "flax", "optax", "orbax", "yaml", "cv2", "sklearn",
-             "pandas", "matplotlib", "triton"):
+             "pandas", "matplotlib", "triton", "msgpack", "tensorflow"):
     sys.modules[name] = None          # import of it raises ImportError
 for name in {MODULES!r}:
     importlib.import_module(name)
@@ -242,6 +253,33 @@ with tempfile.TemporaryDirectory() as tmp:
     finally:
         dist.destroy_process_group()
 
+# the zoo: a weights file of the port's written, converted by the tool,
+# and loaded through get_backbone's preset lookup on a zoo backbone
+import os, runpy, tempfile
+from embeddingnet_tpu_torch.models import pretrained
+from embeddingnet_tpu_torch.models.registry import get_backbone
+with tempfile.TemporaryDirectory() as tmp:
+    zoo = EmbeddingModule("nasnetmobile", encodings_len=8)
+    zoo.reset_parameters(torch.Generator().manual_seed(1))
+    np.savez(f"{{tmp}}/nasnetmobile_imagenet.npz",
+             **pretrained.flatten_params(zoo))
+    os.environ[pretrained.WEIGHTS_DIR_ENV] = tmp
+    loaded, _ = get_backbone((32, 32, 3), encodings_len=8,
+                             backbone_name="nasnetmobile",
+                             backbone_weights="imagenet", device="cpu")
+    assert torch.equal(loaded.backbone.stem_conv1.weight,
+                       zoo.backbone.stem_conv1.weight)
+    zemb = loaded.eval()(torch.rand(2, 33, 33, 3))
+    assert zemb.shape == (2, 8) and torch.isfinite(zemb).all()
+    tool = runpy.run_path("tools/convert_weights_torch.py")
+    try:
+        tool["main"](["--backbone", "resnet18", "--source", "keras",
+                      "--input", f"{{tmp}}/model.h5", "--out", tmp])
+    except SystemExit as e:
+        assert "convert_weights.py" in str(e)
+    else:
+        raise AssertionError("--source keras ran without TensorFlow")
+
 # the T1 A/B tool, plain version
 import os, runpy
 os.environ["FC_BATCH"] = "2"
@@ -391,7 +429,8 @@ def test_slice_imports_without_jax_and_host_deps():
 
 
 # An import of JAX or Flax itself.
-_JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
+_JAX_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|optax|msgpack|tensorflow)\b", re.M)
 # An import of the JAX package, at the top of a file or inside a function.
 _JAX_PACKAGE_IMPORT = re.compile(
     r"^\s*(from\s+embeddingnet_tpu(\.|\s+import\b)|"
@@ -408,7 +447,7 @@ def test_port_files_never_import_the_jax_package():
     files = sorted((root / "embeddingnet_tpu_torch").rglob("*.py"))
     tools = sorted((root / "tools").glob("*_torch.py"))
     for cli in ("train_torch.py", "test_torch.py", "evaluate_torch.py",
-                "serve_torch.py"):
+                "serve_torch.py", "convert_weights_torch.py"):
         assert root / "tools" / cli in tools
     files += [root / "chip_smoke.py"] + tools
     assert root / "embeddingnet_tpu_torch" / "parallel" / "sharded.py" in \
@@ -431,6 +470,7 @@ def test_port_files_never_import_the_jax_package():
     assert not _JAX_PACKAGE_IMPORT.search(
         "from embeddingnet_tpu_torch.config import parse_params")
     for line in ("import jax", "    from jax import numpy",
-                 "import flax.linen as nn"):
+                 "import flax.linen as nn", "    import msgpack",
+                 "import tensorflow as tf"):
         assert _JAX_IMPORT.search(line), line
     assert not _JAX_IMPORT.search("import jaxlib_free_module")

@@ -152,10 +152,27 @@ def test_converter_rejects_missing_and_extra_keys(small_bottleneck):
 
 
 def test_unported_backbone_names_roadmap():
-    # EfficientNet, the first name this test held, is ported now
-    for name in ("densenet121", "seresnet50", "xception"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            EmbeddingModule(name)
+    """No backbone is left to port: every name of the JAX registry is in
+    the port's, in JAX's order, and builds (on the meta device: shapes
+    only) an embedding module whose forward at the family's smallest
+    input gives the embedding; an unknown name raises as in JAX."""
+    from embeddingnet_tpu.models.registry import list_backbones as jax_list
+    from embeddingnet_tpu_torch.models.registry import list_backbones
+    names = jax_list()
+    assert list_backbones()[:len(names) - 4] == names[:-4]
+    assert set(names) <= set(list_backbones())
+    assert set(list_backbones()) - set(names) == {"vit-b32", "vit-l16"}
+    smallest = {"inceptionv3": 75, "inceptionresnetv2": 75, "xception": 71,
+                "simple": 72}
+    for name in list_backbones():
+        size = smallest.get(name, 224 if "vit" in name else 32)
+        with torch.device("meta"):
+            module = EmbeddingModule(name, encodings_len=16,
+                                     input_shape=(size, size, 3)).eval()
+            out = module(torch.empty(2, size, size, 3))
+        assert out.shape == (2, 16), name
+    with pytest.raises(ValueError, match="unknown backbone"):
+        EmbeddingModule("resnet19")
 
 
 def test_fresh_init_statistics():

@@ -256,16 +256,22 @@ def test_resume_without_a_checkpoint_raises(tiny_dataset, tmp_path):
         trainer.resume(3)
 
 
-@pytest.mark.parametrize("sections,item", [
-    ({"MODEL": {"backbone_weights": "imagenet"}}, 12),
-    ({"MESH": {"model": 2}}, 13),
-    ({"MESH": {"data": 2}}, 13),
+@pytest.mark.parametrize("sections,error,match", [
+    ({"MODEL": {"backbone_weights": "imagenet"}}, FileNotFoundError,
+     r"'imagenet' is a named preset; this framework performs no downloads"),
+    ({"MESH": {"model": 2}}, NotImplementedError, r"ROADMAP\.md, item 13\b"),
+    ({"MESH": {"data": 2}}, NotImplementedError, r"ROADMAP\.md, item 13\b"),
 ], ids=["backbone_weights", "mesh_model", "mesh_data"])
 def test_unported_settings_raise_at_construction(tiny_dataset, tmp_path,
-                                                 sections, item):
+                                                 monkeypatch, sections,
+                                                 error, match):
+    """What the port cannot run raises before anything is written, and so
+    does a weights preset with no file (JAX's ``FileNotFoundError``:
+    without ``$EMBEDDINGNET_WEIGHTS_DIR``, 'imagenet' resolves to
+    nothing)."""
+    monkeypatch.delenv("EMBEDDINGNET_WEIGHTS_DIR", raising=False)
     cfg = _cfg(tiny_dataset, tmp_path, **sections)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md, item "
-                                                  rf"{item}\b"):
+    with pytest.raises(error, match=match):
         _trainer(cfg)
     assert not (tmp_path / "run").exists()      # nothing was written
 

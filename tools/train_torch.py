@@ -11,9 +11,10 @@ is one rank on the card ``LOCAL_RANK`` (NCCL; ``--device cpu`` gives gloo
 ranks on the CPU), the process group joined before any other use of CUDA,
 and the ranks train one model data-parallel (``MESH.data: -1``, or the
 world size); rank 0 prints and writes. Every config of the repo fits as
-it stands, on any backbone of the port's registry (``simple``,
-``simple2``, the ResNets, EfficientNet-B0..B7, MobileNet v1/v2, the
-ViTs): ``configs/resnet50_batchall_1024.yml``,
+it stands, on any backbone name of the JAX registry, from
+``MODEL.backbone_weights`` when it names a local file or a preset in
+``$EMBEDDINGNET_WEIGHTS_DIR`` (``tools/convert_weights_torch.py`` writes
+one): ``configs/resnet50_batchall_1024.yml``,
 ``siamese_resnet18_pairs.yml``, ``efficientnetb3_batchhard_1024.yml``,
 ``road_signs_tpu.yml``, ``batch4096_sharded.yml`` and the four
 ArcFace-on-ViT configs. It trains in the
