@@ -6,7 +6,9 @@ mining mode, and a siamese fit, each through the hand-written kernels;
 then the ViT/ArcFace path, which reaches T2 alone; then the EfficientNet
 step and fit (T2 alone) and the inference tools (K3); then the
 data-parallel step, remat and bf16 master weights; then the rest of the
-backbone zoo and pretrained weights (the SE-ResNet-50 step through K1-K4).
+backbone zoo and pretrained weights (the SE-ResNet-50 step through K1-K4);
+then the native decoder, tensor parallelism on two ranks of the card (the
+flagship through K1-K4), the GPipe block and the quickstart twin.
 
     python3 chip_smoke.py
 
@@ -15,7 +17,11 @@ backbone zoo and pretrained weights (the SE-ResNet-50 step through K1-K4).
 2. Builds the kernels: every ``embeddingnet_tpu_torch/csrc/*.cu`` with
    ``nvcc`` (one process per source, in parallel), and the Triton kernel T2
    at its first launch; prints ptxas's registers and spills for each
-   kernel instance, and fails if any instance spills.
+   kernel instance, and fails if any instance spills. Beside them it
+   builds the native decoder (``csrc/enloader.cpp``, ``g++``); where the
+   libjpeg/libpng headers are missing it prints ``native_decoder:
+   unavailable: <the compiler's message>``, the decoder's documented
+   behaviour (``BatchLoader``'s ``auto`` is then cv2).
 3. Kernel phase: each kernel against its plain PyTorch version on the same
    inputs, in f32 with TF32 off, at the shapes ResNet-50 at 64x64 gives it
    (the forward K3/K1 at B = 3, 32, 256 and 1024, K1 at 8x8 too; the
@@ -198,6 +204,25 @@ backbone zoo and pretrained weights (the SE-ResNet-50 step through K1-K4).
     the 20 names this slice ported, an eval forward in bf16 at B=32 at
     its native input (224 px; the Inceptions and Xception 299, NASNet-Large
     331): ms a forward and peak memory.
+16. Phase 16: (a) the native decoder on phase 9's 10,240 PNGs and 512
+    seeded JPEGs (256 px, quality 90) to 64 px: img/s natively (exact and
+    fast) and with cv2 on 8 threads, the exact path's largest difference
+    from cv2 (at most 1 level), the fast path's mean and p99; then phase
+    9's fit and phase 13 (d)'s ``encode_dataset`` on it beside their cv2
+    numbers. Without the libraries: the ``unavailable`` line, cv2's rate,
+    and ``auto`` asserted to resolve to cv2. (b) Tensor parallelism over
+    two gloo ranks of the card (``torchrun --nproc_per_node=2``, NCCL
+    refuses two ranks on one device): ``configs/vit_arcface.yml``
+    (ViT-B/16, 224 px, B=256, ArcFace, bf16, TF32 off) at ``MESH.model:
+    2``, its first step against the one-process step from the same weights
+    and batch (loss, gradient, parameters after it, each within the
+    limits printed), then 3 timed steps and each rank's peak; and
+    ``configs/resnet50_batchall_1024.yml`` at ``MESH.model: 2`` with
+    ``pallas_conv`` through the Trainer, 2 steps: each rank's launches
+    exactly phase 8's per step, equal on both. (c) GPipe over the two
+    ranks: ViT-B/16's 12 blocks, 2 stages, 4 microbatches, B=32, bf16,
+    output and each stage's gradient against the blocks in order. (d)
+    ``examples/quickstart_torch.py`` on the card, end to end.
 
 The last line of standard output is the result,
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -211,7 +236,8 @@ road-signs fit (``road_signs_fit_launches``), inference tools
 (``inference_launches``), phase 14's runs (``phase14_launches``: (a)'s
 timed sharded steps, (b)'s remat step, (c)'s fit) and phase 15's
 (``phase15_launches``: (a)'s timed SE-ResNet-50 steps, (c)'s fit, (d)'s
-forwards), its
+forwards) and phase 16's (``phase16_launches``: each rank of (b)'s
+ResNet run, and (a)'s native fit where the decoder builds), its
 worst error, and ``ms`` / ``plain_ms`` /
 ``bound_ms`` / ``library_ms``, the event time of the kernel, its plain
 version, the card's bound and the library call, summed over the calls one
@@ -249,6 +275,7 @@ from embeddingnet_tpu_torch.ops import augment as aug
 from embeddingnet_tpu_torch.ops import fused_conv as fc
 from embeddingnet_tpu_torch.ops import preprocess as pre
 from embeddingnet_tpu_torch.ops.knn import knn_classify
+from embeddingnet_tpu_torch.parallel.tp import shard_module
 from embeddingnet_tpu_torch.serving import InferenceEngine
 from embeddingnet_tpu_torch.train.optim import (get_optimizer,
                                                 step_decay_schedule)
@@ -259,6 +286,9 @@ SEED = 0
 DEVICE = "cuda"
 SM90_SRC = "embeddingnet_tpu_torch/csrc/conv3x3_sm90.cu"
 JAX_CONV = "embeddingnet_tpu/ops/fused_conv.py"
+# phase 9's fit and phase 13 (d)'s encode as they decoded (phase 16 (a)
+# prints the native decoder's beside them)
+CV2_NUMBERS = {}
 # name -> (route, source, the TPU kernel it replaces)
 KERNELS = {
     "conv3x3_small_bn_relu": ("cuda", SM90_SRC, f"{JAX_CONV}:556"),
@@ -609,12 +639,35 @@ def check_card():
 
 
 def build():
+    """Every kernel's library (one nvcc per source, in parallel) and, on a
+    thread beside them, the native decoder (g++): where the libjpeg/libpng
+    headers are missing, its ``unavailable`` line, the documented
+    behaviour; any other build failure raises."""
+    import threading
+    from embeddingnet_tpu_torch.data import native_loader
     t0 = time.perf_counter()
+    native = {}
+
+    def build_native():
+        try:
+            native["ok"] = native_loader.available()
+        except BaseException as e:      # raised below, in this thread
+            native["error"] = e
+    thread = threading.Thread(target=build_native)
+    thread.start()
     paths = _cuda.build()
     for source in _cuda.SOURCES:
         _cuda.library(source.stem)
+    thread.join()
+    if "error" in native:
+        raise native["error"]
     print(f"build: {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.1f} s")
+    if native["ok"]:
+        print(f"build: native decoder {native_loader.library_path().name}")
+    else:
+        print(f"native_decoder: unavailable: "
+              f"{native_loader.unavailable_reason()}")
     spills = []
     for path in paths:
         log = path.with_suffix(".log")
@@ -1657,6 +1710,9 @@ def fit_phase(smi, step_images_per_s, tmp):
     launches = {**fc.LAUNCHES, **pre.LAUNCHES}
     # ---- end of the fit's path ----
     peak = torch.cuda.max_memory_allocated()
+    CV2_NUMBERS["fit"] = {"epoch_s": [t["epoch_s"] for t in trainer.timings],
+                          "images_per_sec": list(history["images_per_sec"]),
+                          "backend": trainer._train_loader().backend}
     for timing, ips in zip(trainer.timings, history["images_per_sec"]):
         print(f"fit: epoch {timing['epoch']}: {timing['epoch_s']:.2f} s "
               f"(train {timing['train_s']:.2f}, val epoch "
@@ -2031,13 +2087,15 @@ def siamese_phase(smi, tmp):
     return launches
 
 
-def _arcface_from_config(path, label, batch=None):
+def _arcface_from_config(path, label, batch=None, tp=None, parallel=None):
     """The ArcFace module, train state and step that the Trainer builds
     for the config at ``path`` (its backbone, widths, margin, optimizer,
     schedule, EMA, augmentation and compute dtype), over VIT_CLASSES
     classes, random weights drawn on the card from SEED; ``batch``
     overrides the config's. Prints what it takes as ``set`` lines and what
-    it leaves as ``reduced`` lines."""
+    it leaves as ``reduced`` lines. ``tp`` splits the module over a model
+    group before the state is built, ``parallel`` is the step's data
+    group."""
     from embeddingnet_tpu_torch.config import parse_params
     from embeddingnet_tpu_torch.models.registry import ArcFaceModule
     from embeddingnet_tpu_torch.train.steps import make_arcface_train_step
@@ -2063,6 +2121,7 @@ def _arcface_from_config(path, label, batch=None):
                            n_classes=VIT_CLASSES, dtype=dtype,
                            input_shape=m.input_shape).to(DEVICE)
     module.reset_parameters(torch.Generator(DEVICE).manual_seed(SEED))
+    shard_module(module, tp)
     kw = {"weight_decay": t.weight_decay} if t.optimizer == "adamw" else {}
     spec = get_optimizer(t.optimizer, step_decay_schedule(
         t.learning_rate, t.decay_factor, t.step_size, g.n_batches,
@@ -2072,7 +2131,8 @@ def _arcface_from_config(path, label, batch=None):
         ema_decay=perf.ema_decay)
     step = make_arcface_train_step(
         module, spec, n_classes=VIT_CLASSES, margin=g.margin,
-        augment_fn=aug.get_aug(g.augmentations), compute_dtype=dtype)
+        augment_fn=aug.get_aug(g.augmentations), compute_dtype=dtype,
+        parallel=parallel)
     n_params = sum(p.numel() for p in module.parameters())
     flops = _vit_flops(m.backbone_name, m.input_shape, m.encodings_len,
                        VIT_CLASSES)
@@ -2868,6 +2928,8 @@ def inference_phase(smi, tmp):
         want = net.module(x).float()
     launches = {**fc.LAUNCHES, **pre.LAUNCHES}
     # ---- end of the inference path ----
+    CV2_NUMBERS["encode"] = {"img_s": len(paths) / encode_s,
+                             "n": len(paths)}
     print(f"inference: encode_dataset of {len(paths)} PNGs in "
           f"{encode_s:.2f} s, {len(paths) / encode_s:.0f} img/s (cv2 decode "
           f"on 8 threads included), shape {list(emb.shape)} [{smi}]; "
@@ -3726,6 +3788,510 @@ def zoo_phase(smi, tmp):
             "zoo_eval": eval_launches}
 
 
+# -- phase 16: the native decoder, tensor parallelism, the pipeline, the
+# quickstart twin ------------------------------------------------------------
+
+TP_CHILD_FLAG = "--tp-child"
+# (a): phase 9's PNGs plus these JPEGs, decoded to the flagship's 64 px
+DECODE_JPEGS, DECODE_JPEG_SIZE, DECODE_QUALITY, DECODE_SIZE = 512, 256, 90, 64
+# the exact native path against cv2: the bilinear's rounding (F1)
+DECODE_MAX_DIFF = 1
+# (b): configs/vit_arcface.yml with MESH.model 2 on 2 gloo ranks of the one
+# card, against the one-process step from the same weights and batch
+TP_VIT_BATCH, TP_TIMED = 256, 3
+# bf16 on both sides, the TP side summing partial products of bf16 matmuls
+# (each rounded to bf16) where one process rounds the whole product once:
+# the loss to TP_LOSS_RTOL; the gradient, all parameters together, to
+# TP_GRAD_REL in relative L2; the parameters after the step (Adam's first
+# update is lr * sign(g) at the warm-up's lr0) differ by 2 * lr0 where the
+# signs differ, on at most TP_FLIP_MAX of the entries
+TP_LOSS_RTOL, TP_GRAD_REL, TP_FLIP_MAX = 2e-2, 5e-2, 2e-2
+TP_RESNET_CUTS = [
+    ("DATALOADER", "dataset_path", None, "phase 9's PNGs"),
+    ("GENERATOR", "n_batches", 2, "run time: 2 steps"),
+    ("TRAIN", "n_epochs", 1, "run time"),
+    ("PERFORMANCE", "pallas_conv", True, "so the kernels run"),
+    ("TRAIN", "plot_history", False, "the card's machine has no "
+                                     "matplotlib"),
+    ("GENERAL", "work_dir", None, "a temp dir"),
+]
+TP_RESNET_SETTINGS = [("MESH", "model", 2), ("MESH", "data", -1)]
+# (c): ViT-B/16's blocks, 2 stages, bf16, against the blocks in order on
+# the whole batch: output and each stage's gradient to PIPE_TOL of the
+# tensor's largest entry (bf16 products of microbatches of 8 rows against
+# those of 32)
+PIPE_BATCH, PIPE_MICRO, PIPE_TOL = 32, 4, 2e-2
+QUICKSTART = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "examples", "quickstart_torch.py")
+
+
+def _write_jpegs(root, n=DECODE_JPEGS, size=DECODE_JPEG_SIZE):
+    """``n`` seeded JPEGs (quality DECODE_QUALITY) of colour cells with
+    noise at ``size`` px, written with cv2."""
+    import cv2
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(SEED + 60)
+    images = cell_images(rng, rng.integers(0, 64, n), size=size)
+    paths = []
+    for i, img in enumerate(images):
+        path = os.path.join(root, f"{i}.jpg")
+        if not cv2.imwrite(path, img, [cv2.IMWRITE_JPEG_QUALITY,
+                                       DECODE_QUALITY]):
+            raise OSError(f"cv2 could not write {path}")
+        paths.append(path)
+    return paths
+
+
+def _cv2_decode(paths, size, threads=8):
+    """cv2 on ``threads`` threads, as ``BatchLoader(backend="python")``
+    decodes: ``(images, seconds)``."""
+    from concurrent.futures import ThreadPoolExecutor
+    from embeddingnet_tpu_torch.data.images import get_image
+    out = np.zeros((len(paths), size, size, 3), np.uint8)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as pool:
+        for i, im in enumerate(pool.map(
+                lambda p: get_image(p, (size, size, 3)), paths)):
+            out[i] = im
+    return out, time.perf_counter() - t0
+
+
+def decoder_phase(smi, tmp):
+    """(a) The native decoder: its rates and differences against cv2 on
+    phase 9's PNGs and DECODE_JPEGS JPEGs, then phase 9's fit and phase 13
+    (d)'s encode_dataset on it, beside their cv2 numbers. Where the decoder
+    cannot be built (no libjpeg/libpng headers), the documented behaviour:
+    an ``unavailable`` line, ``auto`` resolved to cv2. Returns the native
+    fit's launches (None without the decoder)."""
+    from embeddingnet_tpu_torch.data import native_loader
+    from embeddingnet_tpu_torch.data.pipeline import BatchLoader
+    pngs = sorted(os.path.join(d, f) for d, _, fs in os.walk(
+        os.path.join(tmp, "dataset")) for f in fs if f.endswith(".png"))
+    jpegs = _write_jpegs(os.path.join(tmp, "jpegs"))
+    paths = pngs + jpegs
+    cv2_images, cv2_s = _cv2_decode(paths, DECODE_SIZE)
+    print(f"decoder: cv2 on 8 threads: {len(pngs)} PNGs at 64 px and "
+          f"{len(jpegs)} JPEGs at {DECODE_JPEG_SIZE} px (quality "
+          f"{DECODE_QUALITY}) to {DECODE_SIZE} px in {cv2_s:.2f} s, "
+          f"{len(paths) / cv2_s:.0f} img/s [{smi}]")
+    resolved = BatchLoader([], (DECODE_SIZE, DECODE_SIZE, 3)).backend
+    if not native_loader.available():
+        print(f"native_decoder: unavailable: "
+              f"{native_loader.unavailable_reason()}")
+        if resolved != "python":
+            raise AssertionError(f"decoder: auto resolved to {resolved} "
+                                 f"without the native decoder")
+        print("decoder: BatchLoader's auto resolves to cv2 (python), as "
+              "the JAX loader's does without its decoder; the fit and "
+              "encode of phases 9 and 13 decoded with cv2")
+        return None
+    if resolved != "native":
+        raise AssertionError(f"decoder: auto resolved to {resolved} on "
+                             f"{os.cpu_count()} cores")
+    rates = {}
+    for fast in (False, True):
+        native_loader.decode_batch(paths[:64], DECODE_SIZE, DECODE_SIZE)
+        t0 = time.perf_counter()
+        got = native_loader.decode_batch(paths, DECODE_SIZE, DECODE_SIZE,
+                                         n_threads=8, fast=fast)
+        rates[fast] = (got, len(paths) / (time.perf_counter() - t0))
+    exact, fast = rates[False][0], rates[True][0]
+    worst = int(np.abs(exact.astype(int) - cv2_images.astype(int)).max())
+    diff = np.abs(fast[len(pngs):].astype(int)
+                  - exact[len(pngs):].astype(int))
+    print(f"decoder: native exact {rates[False][1]:.0f} img/s, fast "
+          f"{rates[True][1]:.0f} img/s (8 threads), cv2 "
+          f"{len(paths) / cv2_s:.0f} img/s [{smi}]; exact against cv2: "
+          f"largest difference {worst} gray level(s) (at most "
+          f"{DECODE_MAX_DIFF}); fast against exact on the JPEGs: mean "
+          f"{diff.mean():.3f}, p99 {np.percentile(diff, 99):.0f} levels")
+    if worst > DECODE_MAX_DIFF:
+        raise AssertionError(f"decoder: exact path {worst} levels from cv2")
+    if not np.array_equal(fast[:len(pngs)], exact[:len(pngs)]):
+        raise AssertionError("decoder: the fast path changed a PNG")
+    return _native_fit(smi, tmp)
+
+
+def _native_fit(smi, tmp):
+    """Phase 9's fit config again, its loaders on the native decoder, and
+    phase 13 (d)'s encode_dataset on its export; prints both beside the
+    cv2 numbers. Returns the fit's launches."""
+    from embeddingnet_tpu_torch.config import parse_params
+    from embeddingnet_tpu_torch.data import ENDataLoader
+    from embeddingnet_tpu_torch.train.loop import Trainer
+    path = _fit_config(tmp, label="native fit", work="native_work",
+                       name="native.yml")
+    params = parse_params(path)
+    loader = ENDataLoader(**{k: params.dataloader[k]
+                             for k in params.dataloader.keys()})
+    trainer = Trainer(params, loader, device=DEVICE)
+    backend = trainer._train_loader().backend
+    fc.reset_launch_counts()
+    pre.reset_launch_counts()
+    history = trainer.fit().history
+    torch.cuda.synchronize()
+    launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    cv2_fit = CV2_NUMBERS.get("fit", {})
+    print(f"native fit: loaders on {backend}; epoch walls "
+          + ", ".join(f"{t['epoch_s']:.2f}" for t in trainer.timings)
+          + " s, images_per_sec " + ", ".join(
+              f"{v:.0f}" for v in history["images_per_sec"])
+          + f"; phase 9 on {cv2_fit.get('backend')}: epoch walls "
+          + ", ".join(f"{v:.2f}" for v in cv2_fit.get("epoch_s", []))
+          + " s, images_per_sec " + ", ".join(
+              f"{v:.0f}" for v in cv2_fit.get("images_per_sec", []))
+          + f" [{smi}]")
+    if backend != "native" or not np.all(np.isfinite(history["loss"])):
+        raise AssertionError(f"native fit: {backend}, {history['loss']}")
+    net = EmbeddingNet(params, device=DEVICE,
+                       fast_conv=params.performance.pallas_conv,
+                       dtype=trainer.compute_dtype)
+    net.load_encoder_state(trainer.encoder_variables())
+    paths = loader.flat("train")[0] + loader.flat("val")[0]
+    net.encode_dataset(paths[:DB_BATCH], batch_size=DB_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = net.encode_dataset(paths, batch_size=DB_BATCH)
+    rate = len(paths) / (time.perf_counter() - t0)
+    print(f"native fit: encode_dataset of {len(paths)} PNGs at {rate:.0f} "
+          f"img/s on the native decoder; phase 13 (d) "
+          f"{CV2_NUMBERS.get('encode', {}).get('img_s', float('nan')):.0f} "
+          f"img/s [{smi}]")
+    if not np.isfinite(emb).all():
+        raise AssertionError("native fit: encodings not finite")
+    return launches
+
+
+def _tp_torchrun(kind, out, *args, nproc=2, timeout=600):
+    """``torchrun --nproc_per_node=nproc chip_smoke.py --tp-child KIND OUT
+    ARGS`` on gloo ranks that share the card; each rank writes
+    ``OUT.rank<r>.json`` (and rank 0 ``OUT.pt`` where the kind has
+    tensors). Returns the ranks' JSON and the seconds the launch took."""
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           f"--nproc_per_node={nproc}", "--master_port", str(_free_port()),
+           os.path.abspath(__file__), TP_CHILD_FLAG, kind, out, *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout)
+    took = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith(("[rank", "tp ", "pipeline")):
+            print(f"  [torchrun] {line[:300]}")
+    if proc.returncode:
+        print(proc.stdout[-3000:])
+        print(proc.stderr[-6000:])
+        raise AssertionError(f"torchrun --tp-child {kind} exited "
+                             f"{proc.returncode}")
+    runs = []
+    for r in range(nproc):
+        with open(f"{out}.rank{r}.json") as f:
+            runs.append(json.load(f))
+    return runs, took
+
+
+def _tp_child(argv):
+    """A rank of phase 16's two-rank runs (``--tp-child KIND OUT
+    [ARGS]``): gloo on the shared card, a (1, 2) grid, TF32 off."""
+    import torch.distributed as dist
+    from embeddingnet_tpu_torch.parallel import mesh
+    kind, out, args = argv[0], argv[1], argv[2:]
+    mesh.maybe_initialize_distributed(DEVICE, backend="gloo")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    grid = mesh.build_grid(1, 2)
+    try:
+        result = {"vit": _tp_vit_child, "resnet": _tp_resnet_child,
+                  "pipeline": _pipeline_child}[kind](grid, out, *args)
+        result["rank"] = dist.get_rank()
+        with open(f"{out}.rank{dist.get_rank()}.json", "w") as f:
+            json.dump(result, f)
+    finally:
+        mesh.reset_grid()
+        dist.destroy_process_group()
+
+
+def _grads(module, tp=None):
+    """Every parameter's gradient as a whole f32 host tensor (the slices of
+    a split module gathered over ``tp``)."""
+    from embeddingnet_tpu_torch.parallel.collectives import gather_slices
+    shards = getattr(module, "tp_shards", None) or {}
+    return {n: (gather_slices(p.grad, *shards[n], tp) if n in shards
+                else p.grad).float().cpu()
+            for n, p in module.named_parameters()}
+
+
+def _tp_vit_step(label, tp=None, parallel=None):
+    """configs/vit_arcface.yml's ArcFace step (its module from SEED, split
+    over ``tp``) on one batch of TP_VIT_BATCH: the loss, the whole
+    gradients and parameters after it, then TP_TIMED timed steps (ms each)
+    and the peak memory."""
+    from embeddingnet_tpu_torch.parallel.tp import gather_module_state
+    module, state, step, batch, shape, _, _ = _arcface_from_config(
+        VIT_CONFIG, label, batch=TP_VIT_BATCH, tp=tp, parallel=parallel)
+    batches = _vit_batches(shape, batch, 1 + TP_TIMED, SEED + 40)
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = step(state, *batches[0])
+    loss = metrics["loss"].item()
+    grads = _grads(module, tp)
+    after = {k: v.float().cpu()
+             for k, v in gather_module_state(module).items()}
+    times = []
+    for images, labels in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, images, labels)
+        metrics["loss"].item()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    return {"loss": loss, "grads": grads, "after": after, "times": times,
+            "peak": peak}
+
+
+def _tp_vit_child(grid, out):
+    import torch.distributed as dist
+    from embeddingnet_tpu_torch.parallel.collectives import (DataParallel,
+                                                             ModelParallel)
+    run = _tp_vit_step(f"tp rank {dist.get_rank()}",
+                       ModelParallel.current(), DataParallel.current())
+    if dist.get_rank() == 0:
+        torch.save({k: run[k] for k in ("loss", "grads", "after")},
+                   out + ".pt")
+    return {"loss": run["loss"], "times_ms": run["times"],
+            "peak": run["peak"], "grid": list(grid[:4])}
+
+
+def _tp_resnet_child(grid, out, cfg):
+    """The flagship config at MESH.model 2 through the Trainer: its train
+    epoch of 2 steps, the launches of each kernel over it."""
+    from embeddingnet_tpu_torch.config import parse_params
+    from embeddingnet_tpu_torch.data import ENDataLoader
+    from embeddingnet_tpu_torch.train.loop import Trainer
+    params = parse_params(cfg)
+    loader = ENDataLoader(**{k: params.dataloader[k]
+                             for k in params.dataloader.keys()})
+    trainer = Trainer(params, loader, device=DEVICE,
+                      log_fn=lambda *a, **k: None)
+    trainer._current_epoch = 0
+    fc.reset_launch_counts()
+    pre.reset_launch_counts()
+    metrics = trainer._run_train_epoch()
+    torch.cuda.synchronize()
+    return {"launches": {**fc.LAUNCHES, **pre.LAUNCHES},
+            "loss": metrics["loss"], "grid": list(grid[:2]),
+            "split": sorted(getattr(trainer.module, "tp_shards", None)
+                            or {}), "data": trainer.parallel.size,
+            "images_per_sec": metrics["images_per_sec"]}
+
+
+def _vit_b16_blocks():
+    """ViT-B/16's 12 encoder blocks (224 px, bf16 compute), random weights
+    from SEED on the card."""
+    from embeddingnet_tpu_torch.models.vit import build_vit
+    vit = build_vit("vit-b16", (224, 224, 3), dtype=torch.bfloat16)
+    vit.reset_parameters(torch.Generator().manual_seed(SEED))
+    vit.to(DEVICE)
+    return [getattr(vit, f"block{i + 1}") for i in range(vit.depth)]
+
+
+def _pipeline_child(grid, out):
+    """(c) ViT-B/16's blocks through 2 stages against the blocks applied in
+    order on the whole batch, on this rank: the output, this stage's
+    gradient of ``sum(y ** 2)``, and both runs' times."""
+    import torch.distributed as dist
+    from embeddingnet_tpu_torch.parallel import pp
+    blocks = _vit_b16_blocks()
+    x = torch.randn((PIPE_BATCH, 197, 768),
+                    generator=torch.Generator().manual_seed(SEED + 70)
+                    ).to(DEVICE, torch.bfloat16)
+    stacked = pp.stack_stage_params(
+        [{k: v.detach() for k, v in b.named_parameters()} for b in blocks],
+        grid.model)
+    params = pp.place_stage_params(stacked, grid, device=DEVICE)
+    for v in params.values():
+        v.requires_grad_(True)
+
+    def block_apply(p, h):
+        return torch.func.functional_call(blocks[0], p, (h,))
+
+    def pipeline():
+        y = pp.pipeline_blocks_forward(block_apply, params, x, grid,
+                                       n_micro=PIPE_MICRO)
+        names = list(params)
+        g = torch.autograd.grad((y.float() ** 2).sum(),
+                                [params[n] for n in names])
+        return y, dict(zip(names, g))
+
+    def sequential():
+        y = x
+        for b in blocks:
+            y = b(y)
+        loss = (y.float() ** 2).sum()
+        return y, torch.autograd.grad(loss, [p for b in blocks
+                                             for p in b.parameters()])
+
+    y, grads = pipeline()
+    want_y, want_g = sequential()
+    names = [n for n, _ in blocks[0].named_parameters()]
+    per = len(blocks) // grid.model
+    stage = grid.m
+    worst = {"out": float((y.float() - want_y.float()).abs().max()
+                          / want_y.float().abs().max())}
+    for i in range(per):
+        for j, n in enumerate(names):
+            ref = want_g[(stage * per + i) * len(names) + j].float()
+            gap = float((grads[n][i].float() - ref).abs().max()
+                        / ref.abs().max().clamp_min(1e-30))
+            worst[n] = max(worst.get(n, 0.0), gap)
+    times = {}
+    for label, fn in (("pipeline", pipeline), ("sequential", sequential)):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[label] = (time.perf_counter() - t0) * 1e3
+    return {"worst": worst, "times_ms": times, "stage": stage}
+
+
+def tp_vit_phase(smi, tmp):
+    """(b) ViT-B/16 ArcFace (configs/vit_arcface.yml) at MESH.model 2 on
+    two gloo ranks of the card against the one-process step."""
+    from embeddingnet_tpu_torch.config import parse_params
+    t0 = time.perf_counter()
+    one = _tp_vit_step("tp one-process")
+    cfg = parse_params(VIT_CONFIG)
+    t, g = cfg.train, cfg.generator
+    lr0 = step_decay_schedule(t.learning_rate, t.decay_factor, t.step_size,
+                              g.n_batches, warmup_epochs=t.warmup_epochs)(0)
+    torch.cuda.empty_cache()
+    print(f"tp one-process: ViT-B/16 ArcFace step B={TP_VIT_BATCH}: loss "
+          f"{one['loss']:.6f}, timed steps "
+          + ", ".join(f"{t:.1f}" for t in one["times"])
+          + f" ms, peak {one['peak'] / 2 ** 30:.2f} GiB [{smi}]")
+    out = os.path.join(tmp, "tp_vit")
+    runs, took = _tp_torchrun("vit", out)
+    tp = torch.load(out + ".pt", weights_only=True)
+    for run in runs:
+        print(f"tp: rank {run['rank']} (grid {run['grid']}): timed steps "
+              + ", ".join(f"{t:.1f}" for t in run["times_ms"])
+              + f" ms, peak {run['peak'] / 2 ** 30:.2f} GiB [{smi}]")
+    loss_gap = abs(tp["loss"] - one["loss"]) / abs(one["loss"])
+    num = sum(float((tp["grads"][n] - g).square().sum())
+              for n, g in one["grads"].items())
+    den = sum(float(g.square().sum()) for g in one["grads"].values())
+    grad_rel = (num / den) ** 0.5
+    worst = max(one["grads"], key=lambda n: float(
+        (tp["grads"][n] - one["grads"][n]).norm()
+        / one["grads"][n].norm().clamp_min(1e-30)))
+    total = sum(v.numel() for v in one["after"].values())
+    flips = sum(int(((tp["after"][n] - v).abs() > lr0).sum())
+                for n, v in one["after"].items())
+    moved = max(float((tp["after"][n] - v).abs().max())
+                for n, v in one["after"].items())
+    print(f"tp: 2 ranks of MESH.model 2 (gloo, one card) in {took:.1f} s "
+          f"(process start included): first-step loss {tp['loss']:.6f} "
+          f"against one process {one['loss']:.6f} (relative {loss_gap:.2e}"
+          f", limit {TP_LOSS_RTOL}); gradient relative L2 {grad_rel:.3e} "
+          f"(limit {TP_GRAD_REL}; worst tensor {worst}); parameters after "
+          f"it: {flips} of {total} entries ({flips / total:.2e}, limit "
+          f"{TP_FLIP_MAX}) apart by more than lr0 {lr0:.1e}, largest gap "
+          f"{moved:.2e} [{smi}]")
+    if (loss_gap > TP_LOSS_RTOL or grad_rel > TP_GRAD_REL
+            or flips / total > TP_FLIP_MAX):
+        raise AssertionError("tp: the two-rank step is not the one-process "
+                             "step")
+    if any(run["loss"] != runs[0]["loss"] for run in runs):
+        raise AssertionError("tp: the ranks' losses differ")
+    print(f"tp: phase 16 (b) ViT in {time.perf_counter() - t0:.1f} s "
+          f"[{smi}]")
+
+
+def tp_resnet_phase(smi, tmp):
+    """(b) the flagship config at MESH.model 2 (no rule matches a CNN: each
+    rank runs the whole step) through the Trainer on 2 gloo ranks: its 2
+    steps' launches on each rank, equal, and equal to phase 8's per step.
+    Returns each rank's launches."""
+    path = _fit_config(tmp, cuts=TP_RESNET_CUTS,
+                       settings=TP_RESNET_SETTINGS, label="tp resnet",
+                       work="tp_resnet_work", name="tp_resnet.yml")
+    from embeddingnet_tpu_torch.config import parse_params
+    steps = parse_params(path).generator.n_batches
+    expected = {name: n * steps for name, n in
+                EXPECTED_AUG_PER_STEP.items()}
+    runs, took = _tp_torchrun("resnet", os.path.join(tmp, "tp_resnet"),
+                              path)
+    for run in runs:
+        print(f"tp resnet: rank {run['rank']} grid {run['grid']}, data "
+              f"axis {run['data']}, split {run['split']}: loss "
+              f"{run['loss']:.4f}, {run['images_per_sec']:.0f} img/s, "
+              f"launches {run['launches']} (expected {expected}) [{smi}]")
+        for name, n in expected.items():
+            if run["launches"][name] != n:
+                raise AssertionError(f"tp resnet: rank {run['rank']} "
+                                     f"launched {name} "
+                                     f"{run['launches'][name]} times, "
+                                     f"expected {n}")
+        if run["split"]:
+            raise AssertionError("tp resnet: a rule split a CNN")
+    if runs[0]["loss"] != runs[1]["loss"]:
+        raise AssertionError("tp resnet: the ranks' losses differ")
+    print(f"tp resnet: in {took:.1f} s [{smi}]")
+    return {f"tp_resnet_rank{run['rank']}": run["launches"] for run in runs}
+
+
+def pipeline_phase(smi, tmp):
+    """(c) GPipe over 2 gloo ranks: ViT-B/16's 12 blocks, n_micro 4, B=32,
+    bf16, against the blocks in order."""
+    runs, took = _tp_torchrun("pipeline", os.path.join(tmp, "pipeline"))
+    for run in runs:
+        worst = max(run["worst"].items(), key=lambda kv: kv[1])
+        print(f"pipeline: stage {run['stage']}: output and gradient against "
+              f"the sequential blocks, worst {worst[0]} "
+              f"{worst[1]:.3e} of the largest entry (limit {PIPE_TOL}); "
+              f"fwd+bwd {run['times_ms']['pipeline']:.1f} ms pipelined, "
+              f"{run['times_ms']['sequential']:.1f} ms sequential on one "
+              f"rank [{smi}]")
+        if worst[1] > PIPE_TOL:
+            raise AssertionError(f"pipeline: {worst}")
+    print(f"pipeline: in {took:.1f} s [{smi}]")
+
+
+def quickstart_phase(smi, tmp):
+    """(d) examples/quickstart_torch.py on the card, end to end."""
+    t0 = time.perf_counter()
+    out = runpy.run_path(QUICKSTART)["main"](
+        ["--device", DEVICE, "--work_dir", os.path.join(tmp, "quickstart")])
+    h = out["history"]
+    print(f"quickstart: {len(h['loss'])} epochs, loss "
+          + " ".join(f"{v:.4f}" for v in h["loss"])
+          + f"; query {out['query'][0]} -> {out['query'][1]}; val recall "
+          f"top1 {out['recall']['top1']:.3f} top5 "
+          f"{out['recall']['top5']:.3f}; in "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    if not np.all(np.isfinite(h["loss"])):
+        raise AssertionError("quickstart: loss not finite")
+    for key in ("weights", "encodings"):
+        if not os.path.exists(out[key]):
+            raise AssertionError(f"quickstart: no {key}")
+
+
+def phase16(smi, tmp):
+    """Phase 16: (a) the native decoder, (b) tensor parallelism, (c) the
+    pipeline, (d) the quickstart twin. Returns the launches of its runs:
+    the native fit's (where the decoder builds) and each TP rank's."""
+    t0 = time.perf_counter()
+    launches = {}
+    native = decoder_phase(smi, tmp)
+    if native is not None:
+        launches["native_fit"] = native
+    tp_vit_phase(smi, tmp)
+    launches.update(tp_resnet_phase(smi, tmp))
+    pipeline_phase(smi, tmp)
+    quickstart_phase(smi, tmp)
+    print(f"phase 16 in {time.perf_counter() - t0:.1f} s [{smi}]")
+    return launches
+
+
 def main():
     smi = check_card()
     # f32 references in full f32: cuDNN's convs default to TF32
@@ -3755,6 +4321,7 @@ def main():
         road_launches, inference_launches = depthwise_phase(smi, tmp)
         dp_launches = data_parallel_phase(smi, tmp)
         zoo_launches = zoo_phase(smi, tmp)
+        p16_launches = phase16(smi, tmp)
     finally:
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3800,6 +4367,8 @@ def main():
                                       in dp_launches.items()},
                  "phase15_launches": {run: counts[name] for run, counts
                                       in zoo_launches.items()},
+                 "phase16_launches": {run: counts[name] for run, counts
+                                      in p16_launches.items()},
                  "max_abs_err": rec["max_abs_err"], **sums, "per": per}
         if name in LIBRARY_RATIO:
             entry["library_ratio"] = sums["ms"] / sums["library_ms"]
@@ -3828,5 +4397,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == [CHILD_FLAG]:
         _fit_child(sys.argv[2:])
+    elif sys.argv[1:2] == [TP_CHILD_FLAG]:
+        _tp_child(sys.argv[2:])
     else:
         main()

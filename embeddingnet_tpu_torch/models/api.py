@@ -173,8 +173,9 @@ class EmbeddingNet:
         """Bulk encode of image files: f32 embeddings [N, D] in the order
         of ``paths`` ((0, D) for none). The port's
         :class:`~embeddingnet_tpu_torch.data.pipeline.BatchLoader` decodes
-        batches of ``batch_size`` with cv2 on ``num_workers`` threads, a
-        batch ahead of the device; a file that does not decode encodes a
+        batches of ``batch_size`` on ``num_workers`` threads (the native
+        decoder where its ``auto`` picks it, as the JAX loader does, else
+        cv2), a batch ahead of the device; a file that does not decode encodes a
         zero image. The tail batch is encoded as it is (no compiled shape
         to pad to); the embeddings stay on the device until the end."""
         from embeddingnet_tpu_torch.data.pipeline import BatchLoader

@@ -21,6 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from embeddingnet_tpu_torch.parallel.collectives import copy_to_model
+
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
                  eps: float = 1e-12) -> torch.Tensor:
@@ -84,7 +86,11 @@ class ClassificationHead(nn.Module):
 
 
 class SoftmaxHead(nn.Module):
-    """GAP -> Dense(n_classes) logits (softmax is folded into the loss)."""
+    """GAP -> Dense(n_classes) logits (softmax is folded into the loss).
+    With a model group in ``tp`` the Dense holds this rank's span of the
+    classes (``parallel/tp.py``) and the logits are those classes'."""
+
+    tp = None       # the model group of a split layer (parallel/tp.py)
 
     def __init__(self, in_channels: int, n_classes: int,
                  compute_dtype: Optional[torch.dtype] = None):
@@ -92,7 +98,7 @@ class SoftmaxHead(nn.Module):
         self.logits = Dense(in_channels, n_classes, compute_dtype)
 
     def forward(self, features: torch.Tensor) -> torch.Tensor:
-        return self.logits(features.mean((2, 3)))
+        return self.logits(copy_to_model(features.mean((2, 3)), self.tp))
 
 
 class SiameseL1Head(nn.Module):

@@ -297,7 +297,10 @@ class ArcFaceModule(nn.Module):
     class_weights [n_classes, encodings_len])``. The encoder is a
     standalone :class:`EmbeddingModule`'s without the classifier, and keeps
     the default BatchNorm momentum, 0.99, as the JAX module passes none
-    on."""
+    on. With a model group in ``tp`` (``parallel/tp.py``) ``class_weights``
+    holds this rank's span of the classes, from :attr:`class_offset`."""
+
+    tp = None       # the model group of a split layer (parallel/tp.py)
 
     def __init__(self, backbone_name: str = "vit-b16",
                  encodings_len: int = 512, n_classes: int = 1000,
@@ -310,6 +313,7 @@ class ArcFaceModule(nn.Module):
             backbone_name, encodings_len, embeddings_normalization,
             fast_conv=fast_conv, dtype=dtype, classifier=False,
             input_shape=input_shape)
+        self.n_classes = n_classes
         self.class_weights = nn.Parameter(torch.zeros(n_classes,
                                                       encodings_len))
 
@@ -318,6 +322,11 @@ class ArcFaceModule(nn.Module):
         weights."""
         self.encoder.reset_parameters(generator)
         nn.init.normal_(self.class_weights, 0.0, 0.01, generator=generator)
+
+    @property
+    def class_offset(self) -> int:
+        """The first class of this rank's rows of ``class_weights``."""
+        return 0 if self.tp is None else self.tp.span(self.n_classes)[0]
 
     def forward(self, x: torch.Tensor, masks: Optional[MaskSource] = None):
         return self.encoder(x, masks), self.class_weights

@@ -27,6 +27,14 @@ f32 (torch's two-pass variance, where Flax takes E[x^2] - E[x]^2: about
 
 The position embedding is sized by the input (``gh * gw + 1`` tokens), as
 Flax sizes it at ``init``, so a ViT is built for one ``image_size``.
+
+Tensor parallelism (:mod:`~embeddingnet_tpu_torch.parallel.tp`): with a
+model group in ``tp``, attention runs ``heads / size`` heads on the rows of
+``query``/``key``/``value`` that hold them and the matching columns of
+``out``, and the MLP ``fc1``'s rows and ``fc2``'s columns; each takes its
+input through ``copy_to_model``, sums the partial ``out``/``fc2`` products
+over the group with ``reduce_from_model`` and adds their bias once, after
+the sum. Without one (``tp`` None) the graph is the one-process graph.
 """
 
 from __future__ import annotations
@@ -39,8 +47,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from embeddingnet_tpu_torch.models import remat
-from embeddingnet_tpu_torch.models.heads import Dense, lecun_normal_
+from embeddingnet_tpu_torch.models.heads import (Dense, at_least_f32,
+                                                 lecun_normal_)
 from embeddingnet_tpu_torch.models.resnet import Conv2d
+from embeddingnet_tpu_torch.parallel.collectives import (copy_to_model,
+                                                         reduce_from_model)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -50,16 +61,29 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 class LayerNorm(nn.LayerNorm):
     """Flax ``nn.LayerNorm``: the statistics and the f32 affine on the
-    input in f32 (CUDA has no bf16-input, f32-weight layer norm), the
-    result rounded once to the input's dtype."""
+    input in f32 (CUDA has no bf16-input, f32-weight layer norm; a float64
+    module keeps float64), the result rounded once to the input's
+    dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps).to(x.dtype)
+        return F.layer_norm(at_least_f32(x), self.normalized_shape,
+                            self.weight, self.bias, self.eps).to(x.dtype)
+
+
+def row_parallel(dense: Dense, x: torch.Tensor, tp) -> torch.Tensor:
+    """``dense(x)`` where ``dense`` holds the columns of its weight that
+    this rank's slice of ``x``'s features meets: the partial products
+    summed over the model group, then the bias."""
+    dtype = dense.compute_dtype or torch.promote_types(x.dtype,
+                                                       dense.weight.dtype)
+    y = reduce_from_model(F.linear(x.to(dtype), dense.weight.to(dtype)), tp)
+    return y if dense.bias is None else y + dense.bias.to(dtype)
 
 
 class MultiHeadDotProductAttention(nn.Module):
     """Self-attention with Flax's names and order of operations."""
+
+    tp = None       # the model group of a split layer (parallel/tp.py)
 
     def __init__(self, dim: int, heads: int,
                  dtype: Optional[torch.dtype] = None):
@@ -75,18 +99,24 @@ class MultiHeadDotProductAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, d = x.shape
         head_dim = d // self.heads
+        heads = self.heads // (self.tp.size if self.tp else 1)
+        x = copy_to_model(x, self.tp)
 
         def split(t):                     # [B, N, D] -> [B, heads, N, hd]
-            return t.view(b, n, self.heads, head_dim).transpose(1, 2)
+            return t.view(b, n, heads, head_dim).transpose(1, 2)
 
         q = split(self.query(x)) / math.sqrt(head_dim)
         k, v = split(self.key(x)), split(self.value(x))
         weights = torch.softmax(q @ k.transpose(-2, -1), dim=-1)
-        y = (weights @ v).transpose(1, 2).reshape(b, n, d)
-        return self.out(y)
+        y = (weights @ v).transpose(1, 2).reshape(b, n, heads * head_dim)
+        if self.tp is None:
+            return self.out(y)
+        return row_parallel(self.out, y, self.tp)
 
 
 class MlpBlock(nn.Module):
+    tp = None       # the model group of a split layer (parallel/tp.py)
+
     def __init__(self, dim: int, hidden: int, use_quick_gelu: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -95,9 +125,11 @@ class MlpBlock(nn.Module):
         self.fc2 = Dense(hidden, dim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.fc1(x)
+        x = self.fc1(copy_to_model(x, self.tp))
         x = quick_gelu(x) if self.use_quick_gelu else F.gelu(x)
-        return self.fc2(x)
+        if self.tp is None:
+            return self.fc2(x)
+        return row_parallel(self.fc2, x, self.tp)
 
 
 class EncoderBlock(nn.Module):

@@ -1,4 +1,7 @@
-"""The collectives of data-parallel training, with their gradients.
+"""The collectives of data- and tensor-parallel training, with their
+gradients.
+
+Data parallelism (the ranks of a data group, :class:`DataParallel`):
 
 Gradient convention (SPMD, as ``shard_map`` transposes its collectives):
 the objective is the **sum over ranks** of the scalar each rank
@@ -20,6 +23,15 @@ back-propagated as it is would come out ``world`` times too large.
 :func:`all_reduce_grads` sums the parameter gradients over ranks in one
 flat buffer per dtype, in the parameters' order, so every rank applies
 the same update bit for bit.
+
+Tensor parallelism (the ranks of a model group, :class:`ModelParallel`,
+Megatron's convention): every rank of a model group computes the same loss
+from the same rows and back-propagates all of it; a layer whose weight is
+split over the group takes its input through :func:`copy_to_model`
+(identity forward, the gradient summed over the group backward: each rank
+holds the part of it that its slice produced) and sums its partial outputs
+with :func:`reduce_from_model` (summed forward, identity backward).
+:func:`gather_slices` puts the slices of a tensor back together.
 """
 
 from __future__ import annotations
@@ -29,7 +41,8 @@ from typing import Iterable, NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from embeddingnet_tpu_torch.parallel.mesh import process_row_block
+from embeddingnet_tpu_torch.parallel.mesh import (current_grid,
+                                                  process_row_block)
 
 
 class DataParallel(NamedTuple):
@@ -42,16 +55,45 @@ class DataParallel(NamedTuple):
 
     @classmethod
     def current(cls, group=None) -> "DataParallel":
-        """The initialised process group's world (``group`` or the
-        default)."""
+        """The world of ``group``; by default this rank's data group: the
+        data row of the current grid (:func:`~embeddingnet_tpu_torch.
+        parallel.mesh.build_grid`) when it has a model axis, else the
+        default process group."""
         if not dist.is_initialized():
             raise RuntimeError("data-parallel training needs an initialised "
                                "torch.distributed process group")
+        grid = current_grid()
+        if group is None and grid is not None and grid.model > 1:
+            return cls(grid.d, grid.data, grid.data_group)
         return cls(dist.get_rank(group), dist.get_world_size(group), group)
 
     def rows(self, global_batch: int) -> Tuple[int, int]:
         """``[lo, hi)`` of the global batch that this rank holds."""
         return process_row_block(global_batch, (self.rank, self.size))
+
+
+class ModelParallel(NamedTuple):
+    """A model group: this process's ``rank`` of ``size`` ranks in
+    ``group``, which hold the slices of one model."""
+
+    rank: int
+    size: int
+    group: object
+
+    @classmethod
+    def current(cls) -> Optional["ModelParallel"]:
+        """The current grid's model group, or None without a model axis."""
+        grid = current_grid()
+        if grid is None or grid.model == 1:
+            return None
+        return cls(grid.m, grid.model, grid.model_group)
+
+    def span(self, n: int) -> Tuple[int, int]:
+        """``[lo, hi)`` of this rank's slice of ``n`` (``torch.
+        tensor_split``'s: the first ``n % size`` ranks one more)."""
+        base, extra = divmod(n, self.size)
+        lo = self.rank * base + min(self.rank, extra)
+        return lo, lo + base + (self.rank < extra)
 
 
 # -- with gradients -----------------------------------------------------------
@@ -86,6 +128,66 @@ class _AllReduceSum(torch.autograd.Function):
         g = g.contiguous().clone()
         dist.all_reduce(g, group=ctx.group)
         return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, tp: Optional[ModelParallel]
+                  ) -> torch.Tensor:
+    """``x`` into a layer split over the model group: the identity; its
+    gradient summed over the group (identity without a model group)."""
+    if tp is None or tp.size == 1:
+        return x
+    return _CopyToModel.apply(x, tp.group)
+
+
+def reduce_from_model(x: torch.Tensor, tp: Optional[ModelParallel]
+                      ) -> torch.Tensor:
+    """The sum over the model group of the partial outputs ``x``; the
+    gradient passes unchanged (identity without a model group)."""
+    if tp is None or tp.size == 1:
+        return x
+    return _ReduceFromModel.apply(x, tp.group)
+
+
+def gather_slices(x: torch.Tensor, dim: int, n: int,
+                  tp: ModelParallel) -> torch.Tensor:
+    """The whole tensor of which each rank of the model group holds its
+    :meth:`ModelParallel.span` of ``n`` along ``dim`` (no gradient). The
+    slices travel padded to the largest, as one all-gather."""
+    x = x.detach()
+    longest = -(-n // tp.size)
+    pad = list(x.shape)
+    pad[dim] = longest - x.shape[dim]
+    padded = torch.cat([x, x.new_zeros(pad)], dim).contiguous()
+    parts = [torch.empty_like(padded) for _ in range(tp.size)]
+    dist.all_gather(parts, padded, group=tp.group)
+    spans = [ModelParallel(r, tp.size, None).span(n) for r in range(tp.size)]
+    return torch.cat([p.narrow(dim, 0, hi - lo)
+                      for p, (lo, hi) in zip(parts, spans)], dim)
 
 
 def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:

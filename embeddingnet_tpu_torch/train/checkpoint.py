@@ -16,7 +16,10 @@ wait`, :meth:`~CheckpointManager.epochs`, ``restore`` and ``close`` wait
 for it, and the files are the synchronous save's byte for byte. Under
 several ranks (``parallel``) rank 0 alone writes, every rank makes the
 same save decisions, and a read waits at a barrier until rank 0's write is
-done.
+done. A state split over a model group (``parallel/tp.py``) is saved
+whole, its slices gathered from every rank of the group, and cut to this
+rank's slices on load, so a checkpoint of a tensor-parallel run resumes in
+one process and the other way round.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from embeddingnet_tpu_torch.parallel.tp import gather_state, slice_state
 from embeddingnet_tpu_torch.train.state import TrainState
 
 STATE_FILE, HOST_FILE = "state.pt", "host.json"
@@ -66,7 +70,9 @@ class CheckpointManager:
         self.map_location = map_location
         self.async_save = async_save
         self.parallel = parallel
-        self.writes = parallel is None or parallel.rank == 0
+        # the world's rank 0 (with a model axis, several ranks are rank 0
+        # of their data group)
+        self.writes = parallel is None or dist.get_rank() == 0
         self.best: Optional[float] = None
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -88,13 +94,18 @@ class CheckpointManager:
         if raw is None or not self._improved(float(raw)):
             return False
         self.best = float(raw)
+        split = getattr(state.module, "model_parallel", None) is not None
+        if not self.writes and not split:
+            return True
+        # whole tensors: a collective over the model group when split
+        tree = gather_state(state)
         if not self.writes:
             return True
         host = {"epoch": epoch, "best": self.best,
                 "metrics": {k: float(v) for k, v in metrics.items()},
                 **(host_state or {})}
         self._wait_local()
-        tensors = host_copy(state.state_dict())
+        tensors = host_copy(tree)
         if not self.async_save:
             self._write(epoch, tensors, host)
             return True
@@ -138,8 +149,8 @@ class CheckpointManager:
         then until every rank got there (so rank 0's files are
         complete)."""
         self._wait_local()
-        if self.parallel is not None and self.parallel.size > 1:
-            dist.barrier(group=self.parallel.group)
+        if self.parallel is not None and dist.get_world_size() > 1:
+            dist.barrier()
 
     def close(self) -> None:
         self.wait()
@@ -170,9 +181,9 @@ class CheckpointManager:
             raise FileNotFoundError(
                 f"no checkpoint{'' if epoch is None else f' {epoch}'} "
                 f"under {self.directory}")
-        state.load_state_dict(torch.load(
+        state.load_state_dict(slice_state(torch.load(
             os.path.join(path, STATE_FILE), map_location=self.map_location,
-            weights_only=True))
+            weights_only=True), state))
         with open(os.path.join(path, HOST_FILE)) as f:
             host = json.load(f)
         self.best = host.get("best")

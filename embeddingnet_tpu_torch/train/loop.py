@@ -26,8 +26,8 @@ every backbone of the port's registry, and loads ``MODEL.backbone_weights``
 fresh module as the JAX Trainer does: the encoder's backbone and head keys
 that the file holds, into the encoder of the siamese and arcface modules.
 What the port lacks raises ``NotImplementedError`` at construction, before
-anything is written, naming its ``ROADMAP.md`` item: a ``MESH.model`` axis
-or a one-process mesh over several cards (item 13).
+anything is written, naming its ``ROADMAP.md`` item: a one-process mesh
+over several cards (item 13).
 
 Data parallelism: under an initialised ``torch.distributed`` process
 group (``torchrun --nproc_per_node=N tools/train_torch.py``, one process
@@ -43,6 +43,18 @@ checkpoints, and every rank loads them. ``PERFORMANCE.remat``
 rematerialises the triplet step's backbone blocks; ``params_dtype:
 bfloat16`` keeps parameters, BatchNorm statistics and the optimizer state
 in bf16; ``async_checkpoint`` writes checkpoints on a background thread.
+
+Tensor parallelism (``MESH.model > 1``): the ranks form a ``(data,
+model)`` grid (:func:`~embeddingnet_tpu_torch.parallel.mesh.build_grid`,
+rank ``d * model + m``); the module is split over the model group by
+:func:`~embeddingnet_tpu_torch.parallel.tp.shard_module` (a ViT's
+attention and MLP, the ArcFace class weights, the softmax head's logits;
+a CNN stays whole on every rank) before the optimizer is built; every
+rank of a model group feeds the rows of its data index, the data group
+takes the place of the world above, and the recall runs the split
+encoder. Checkpoints hold whole tensors (gathered on save, sliced on
+load), so a run resumes across layouts; :meth:`Trainer.encoder_variables`
+returns whole tensors too, for the export that rank 0 writes.
 """
 
 from __future__ import annotations
@@ -69,8 +81,10 @@ from embeddingnet_tpu_torch.models.registry import (ArcFaceModule,
                                                     list_backbones,
                                                     transfer_backbone_params)
 from embeddingnet_tpu_torch.ops.augment import augment_from_params
-from embeddingnet_tpu_torch.parallel import collectives
-from embeddingnet_tpu_torch.parallel.collectives import DataParallel
+from embeddingnet_tpu_torch.parallel import collectives, mesh
+from embeddingnet_tpu_torch.parallel import tp as tensor_parallel
+from embeddingnet_tpu_torch.parallel.collectives import (DataParallel,
+                                                         ModelParallel)
 from embeddingnet_tpu_torch.train import callbacks as cb
 from embeddingnet_tpu_torch.train import checkpoint as ckpt
 from embeddingnet_tpu_torch.train import optim, steps
@@ -88,14 +102,19 @@ class Trainer:
         self.data_loader = data_loader
         self.mode = params.model.mode
         self.device = torch.device(device)
-        # a process group makes this process one rank of a data-parallel
-        # run (torchrun); without one it trains alone
-        self.parallel = (DataParallel.current()
-                         if torch.distributed.is_available()
-                         and torch.distributed.is_initialized() else None)
-        self._rank0 = self.parallel is None or self.parallel.rank == 0
+        # a process group makes this process one rank of a parallel run
+        # (torchrun): a data row of the (data, model) grid, and a slice of
+        # the model with MESH.model > 1; without one it trains alone
+        self._distributed = (torch.distributed.is_available()
+                             and torch.distributed.is_initialized())
+        self._rank0 = mesh.world().rank == 0
         self.log = log_fn if self._rank0 else (lambda *a, **k: None)
         self._check_supported()
+        self.grid, self.parallel, self.tp = None, None, None
+        if self._distributed:
+            self.grid = mesh.build_grid(params.mesh.data, params.mesh.model)
+            self.parallel = DataParallel.current()
+            self.tp = ModelParallel.current()
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(f"Trainer: device {device!r} asked for, "
@@ -170,32 +189,35 @@ class Trainer:
                 f"backbone name; valid: {list_backbones()}")
         self._weights_path = pretrained.resolve_weights(
             p.model.backbone_weights, p.model.backbone_name)
-        if p.mesh.model > 1:
+        world, model = mesh.world().size, p.mesh.model
+        if not self._distributed and (model > 1 or p.mesh.data
+                                      not in (-1, 1)):
+            ranks = (p.mesh.data if p.mesh.data > 0 else 1) * model
             raise NotImplementedError(
-                f"MESH.model={p.mesh.model}: the PyTorch port has no model "
-                f"axis; parameter sharding (parallel/tp.py) waits for a "
-                f"config that sets it (see ROADMAP.md, item 13)")
-        world = self.parallel.size if self.parallel is not None else 1
-        if p.mesh.data not in (-1, world):
-            if self.parallel is None:
-                raise NotImplementedError(
-                    f"MESH.data={p.mesh.data} in one process: the PyTorch "
-                    f"port runs one process per card and has no one-process "
-                    f"mesh over several cards (see ROADMAP.md, item 13); "
-                    f"launch {p.mesh.data} ranks with torchrun "
-                    f"--nproc_per_node={p.mesh.data}, or set MESH.data: -1")
+                f"MESH.data={p.mesh.data}, MESH.model={model} in one "
+                f"process: the PyTorch port runs one process per card and "
+                f"has no one-process mesh over several cards (see "
+                f"ROADMAP.md, item 13); launch {ranks} ranks with torchrun "
+                f"--nproc_per_node={ranks} (--dist_backend gloo for ranks "
+                f"that share a card), or set MESH.data: -1, MESH.model: 1")
+        if model < 1 or world % model:
+            raise ValueError(f"MESH.model={model} on a world of {world} "
+                             f"ranks: it must divide the world")
+        data = world // model
+        if p.mesh.data not in (-1, data):
             if p.mesh.data == 1:
                 raise ValueError(
                     "a multi-process launch needs a data axis over every "
-                    "rank: set MESH.data: -1 (all ranks)")
-            raise ValueError(f"MESH.data={p.mesh.data} on a world of "
-                             f"{world} ranks: set MESH.data: -1 or {world}")
+                    "rank of a model slot: set MESH.data: -1 (all ranks)")
+            raise ValueError(f"MESH.data={p.mesh.data} with MESH.model="
+                             f"{model} on a world of {world} ranks: set "
+                             f"MESH.data: -1 or {data}")
         g = p.generator
         batch = g.k_classes * g.k_samples if self.mode == "triplet" \
             else g.batch_size
-        if world > 1 and batch % world:
+        if data > 1 and batch % data:
             raise ValueError(f"global batch {batch} must divide by the "
-                             f"world size {world}")
+                             f"data axis' {data} ranks")
 
     def _monitor(self) -> str:
         # TRAIN.monitor overrides; else val_loss when validating, else
@@ -240,6 +262,9 @@ class Trainer:
             # bf16 cast of the master weights, as JAX casts after loading
             pretrained.load_into(self.encoder, self._weights_path)
             self.log(f"loaded backbone weights from {self._weights_path}")
+        # this rank's slices of the split parameters (a no-op without a
+        # model axis, and on a CNN)
+        tensor_parallel.shard_module(self.module, self.tp)
         self._view = None
 
     def _new_encoder(self) -> EmbeddingModule:
@@ -632,10 +657,8 @@ class Trainer:
         if self.parallel is None:
             return metrics
         box = [metrics]
-        torch.distributed.broadcast_object_list(
-            box, src=torch.distributed.get_global_rank(
-                self.parallel.group, 0) if self.parallel.group is not None
-            else 0, group=self.parallel.group)
+        # over every rank: the model groups' ranks decide alike too
+        torch.distributed.broadcast_object_list(box, src=0)
         return box[0]
 
     def _profiler(self):
@@ -758,18 +781,31 @@ class Trainer:
         if self.state.ema is None and self.mode != "arcface":
             return self.encoder.eval()
         if self._view is None:
-            self._view = self._new_encoder().to(self.device)
-        self._view.load_state_dict(self.encoder_variables())
+            self._view = tensor_parallel.shard_module(
+                self._new_encoder().to(self.device), self.tp)
+        self._view.load_state_dict(self._local_encoder_variables())
         return self._view.eval()
 
     # -- export ------------------------------------------------------------
 
     def encoder_variables(self) -> dict:
-        """The encoder's ``state_dict`` for export and recall (in siamese
-        and arcface mode the module's encoder, without the distance head or
-        the class weights): the EMA parameters when
-        ``PERFORMANCE.ema_decay`` is on, with the live BatchNorm
-        statistics; else the live encoder's."""
+        """The encoder's ``state_dict`` for export (in siamese and arcface
+        mode the module's encoder, without the distance head or the class
+        weights): the EMA parameters when ``PERFORMANCE.ema_decay`` is on,
+        with the live BatchNorm statistics; else the live encoder's. Whole
+        tensors: under a model axis every rank of the model group must call
+        it (the slices are gathered)."""
+        out = self._local_encoder_variables()
+        prefix = "encoder." if self.mode in _NESTED else ""
+        shards = {name[len(prefix):]: split for name, split in
+                  (getattr(self.module, "tp_shards", None) or {}).items()
+                  if name.startswith(prefix)}
+        return {k: collectives.gather_slices(v, *shards[k], self.tp)
+                if k in shards else v for k, v in out.items()}
+
+    def _local_encoder_variables(self) -> dict:
+        """:meth:`encoder_variables` as this rank holds them (its slices
+        under a model axis)."""
         out = dict(self.encoder.state_dict())
         if self.state.ema is not None:
             prefix = "encoder." if self.mode in _NESTED else ""
@@ -803,6 +839,8 @@ class Trainer:
                                input_shape=m.input_shape)
         module.reset_parameters(torch.Generator().manual_seed(seed + 7))
         module.to(self.device)
+        # split as the encoder is, so that the backbones' slices meet
+        tensor_parallel.shard_module(module, self.tp)
         transfer_backbone_params(self.encoder, module)
         optimizer = optim.get_optimizer(sp.optimizer, optim.step_decay_schedule(
             sp.learning_rate, sp.decay_factor, sp.step_size,
@@ -839,8 +877,9 @@ class Trainer:
                 break
         if best is not None:
             module.load_state_dict(best)
+        whole = tensor_parallel.gather_module_state(module)
         if self._rank0:
-            torch.save({k: v.cpu() for k, v in module.state_dict().items()},
+            torch.save({k: v.cpu() for k, v in whole.items()},
                        os.path.join(self.paths["pretraining_weights"],
                                     "backbone.pt"))
         if self.parallel is not None:

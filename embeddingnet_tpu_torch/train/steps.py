@@ -45,6 +45,14 @@ summed over ranks (:func:`~embeddingnet_tpu_torch.parallel.collectives.
 all_reduce_grads`) before the update. So one step equals the one-process
 step on the global batch up to the order of the sums, and the ranks stay
 bit-identical.
+
+Tensor parallelism (a module split by :func:`~embeddingnet_tpu_torch.
+parallel.tp.shard_module`): the split layers carry their model group and
+run its collectives themselves; every rank of a model group takes the same
+rows and back-propagates the same loss, ``parallel`` is the data group,
+and the gradients of split and whole parameters alike are summed over the
+data group only. The ArcFace and softmax losses run on the class-split
+logits (``ops/losses.py``).
 """
 
 from __future__ import annotations
@@ -385,12 +393,14 @@ def make_arcface_train_step(module: torch.nn.Module,
                             state.generator, aug_draws, rows)
             emb, weights = _forward(module, x, state.generator, drop_draws,
                                     rows)
-            if weights.shape[0] != n_classes:
-                raise ValueError(f"the module has {weights.shape[0]} class "
+            tp = getattr(module, "tp", None)
+            if getattr(module, "n_classes", weights.shape[0]) != n_classes:
+                raise ValueError(f"the module has {module.n_classes} class "
                                  f"weights, the step {n_classes} classes")
             share = _share(parallel, arcface_loss(
                 emb.float(), labels, weights.float(), margin=margin,
-                scale=scale), rows)
+                scale=scale, tp=tp,
+                class_offset=getattr(module, "class_offset", 0)), rows)
             _backward_and_update(state, module, optimizer, share, (), device,
                                  parallel)
         return state, _global(parallel, {"loss": share.detach()})
@@ -398,11 +408,34 @@ def make_arcface_train_step(module: torch.nn.Module,
     return step
 
 
+def _softmax_tp(module: torch.nn.Module):
+    """The model group of a softmax module whose logits are split by class
+    (``parallel/tp.py``), else None."""
+    head = getattr(module, "softmax_head", None)
+    return getattr(head, "tp", None)
+
+
 def _softmax_metrics(logits: torch.Tensor, labels: torch.Tensor,
-                     n_classes: int):
-    """(cross-entropy, accuracy) of f32 ``logits``."""
-    loss = softmax_cross_entropy(logits, one_hot(labels, n_classes))
-    acc = (logits.argmax(-1) == labels).float().mean()
+                     n_classes: int, tp=None):
+    """(cross-entropy, accuracy) of f32 ``logits``; with ``tp`` the logits
+    are this rank's span of the classes, and the argmax is the first
+    largest over every rank's."""
+    if tp is None:
+        loss = softmax_cross_entropy(logits, one_hot(labels, n_classes))
+        acc = (logits.argmax(-1) == labels).float().mean()
+        return loss, acc
+    lo, hi = tp.span(n_classes)
+    loss = softmax_cross_entropy(logits, one_hot(labels, hi - lo, lo), tp)
+    best, idx = logits.detach().max(-1)
+    both = torch.stack([best.to(torch.float64), (idx + lo).to(torch.float64)])
+    parts = [torch.empty_like(both) for _ in range(tp.size)]
+    torch.distributed.all_gather(parts, both, group=tp.group)
+    values = torch.stack([p[0] for p in parts])          # [ranks, B]
+    # the ranks hold ascending spans: the first rank with the largest value
+    # holds the first argmax
+    first = values.argmax(0)
+    pred = torch.stack([p[1] for p in parts]).gather(0, first[None])[0]
+    acc = (pred.long() == labels).float().mean()
     return loss, acc
 
 
@@ -427,7 +460,8 @@ def make_softmax_train_step(module: torch.nn.Module,
         x = _preprocess(images, compute_dtype, augment_fn, state.generator,
                         aug_draws)
         logits = _forward(module, x, state.generator, drop_draws).float()
-        loss, acc = _softmax_metrics(logits, labels, n_classes)
+        loss, acc = _softmax_metrics(logits, labels, n_classes,
+                                     _softmax_tp(module))
         _backward_and_update(state, module, optimizer, loss, (), device)
         return state, {"loss": loss.detach(), "accuracy": acc.detach()}
 
@@ -446,7 +480,8 @@ def make_softmax_eval_step(module: torch.nn.Module, *, n_classes: int,
         module.eval()
         _, (images, labels) = _on_device(module, images, labels)
         logits = module(preprocess(images, compute_dtype)).float()
-        loss, acc = _softmax_metrics(logits, labels, n_classes)
+        loss, acc = _softmax_metrics(logits, labels, n_classes,
+                                     _softmax_tp(module))
         return {"loss": loss, "accuracy": acc}
 
     return step

@@ -67,6 +67,8 @@ from embeddingnet_tpu_torch.ops import losses  # noqa: E402
 from embeddingnet_tpu_torch.ops.augment import get_aug  # noqa: E402
 from embeddingnet_tpu_torch.train import checkpoint as ckpt  # noqa: E402
 from embeddingnet_tpu_torch.train import optim, steps  # noqa: E402
+from embeddingnet_tpu_torch.data.pipeline import BatchLoader  # noqa: E402
+from embeddingnet_tpu_torch.train import loop as loop_module  # noqa: E402
 from embeddingnet_tpu_torch.train.loop import Trainer  # noqa: E402
 from embeddingnet_tpu_torch.train.state import TrainState  # noqa: E402
 
@@ -476,7 +478,7 @@ def test_pretrain_softmax_hands_over_what_jax_hands_over(tiny_dataset,
     """Both Trainers from the same weights (the JAX Trainer's, converted)
     and the same softmax head (the JAX pretraining's ``PRNGKey(seed + 7)``
     init, converted): two pretraining epochs of SGD on the same
-    ``SimpleSampler`` batches (JAX's ``BatchLoader`` on cv2, as the port's,
+    ``SimpleSampler`` batches (both ``BatchLoader``s on cv2,
     ``ROADMAP.md`` F1), the same epoch metrics, and the encoder's backbone
     after the handoff equal to the JAX Trainer's; the class weights and the
     optimizer untouched, the backbone saved, the handoff logged.
@@ -492,6 +494,9 @@ def test_pretrain_softmax_hands_over_what_jax_hands_over(tiny_dataset,
                MODEL={"backbone_name": backbone})
     monkeypatch.setattr(jloop, "BatchLoader",
                         functools.partial(JBatchLoader, backend="python"))
+    # the port's Trainer on cv2 too: both would pick their native decoders
+    monkeypatch.setattr(loop_module, "BatchLoader",
+                        functools.partial(BatchLoader, backend="python"))
     jparams = jconfig.params_from_dict(dict(
         cfg, GENERAL={**cfg["GENERAL"], "project_name": "jax"}))
     jtrainer = jloop.Trainer(jparams, JENDataLoader(

@@ -365,12 +365,17 @@ def _sharded_config_run(dataset, work_dir):
     out = {}
     for label, sections, error in (
             ("mesh_data_1", {"MESH": {"data": 1}}, ValueError),
-            ("mesh_model_2", {"MESH": {"data": -1, "model": 2}},
-             NotImplementedError)):
+            ("mesh_2x2", {"MESH": {"data": 2, "model": 2}}, ValueError)):
         try:
             _trainer(_sharded_config(dataset, work_dir, **sections))
         except error as e:
             out[label] = str(e)
+    # MESH.model: 2 over the 2 ranks: one data row, ResNet-50 whole on
+    # both (no rule matches a CNN)
+    grid = _trainer(_sharded_config(dataset, work_dir,
+                                    MESH={"data": -1, "model": 2}))
+    out["mesh_model_2"] = (tuple(grid.grid[:2]), grid.parallel.size,
+                           getattr(grid.module, "tp_shards", None))
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         trainer = _trainer(_sharded_config(dataset, work_dir))
@@ -456,12 +461,15 @@ def test_only_rank_zero_writes(trainer_runs):
 
 def test_sharded_config_trains_on_two_ranks(trainer_runs):
     """``configs/batch4096_sharded.yml`` (``MESH.data: -1``, remat, bf16)
-    builds a Trainer and trains on 2 gloo ranks; ``MESH.data: 1`` under a
-    multi-process launch and ``MESH.model: 2`` raise, as in JAX."""
+    builds a Trainer and trains on 2 gloo ranks; ``MESH.data: 1`` and a
+    2x2 mesh under a launch of 2 ranks raise, as in JAX; ``MESH.model: 2``
+    makes one data row of a model group of 2, which splits nothing of a
+    ResNet."""
     ranks = [run["sharded"] for run in trainer_runs[0]]
     for out in ranks:
         assert "MESH.data: -1" in out["mesh_data_1"]
-        assert "ROADMAP.md, item 13" in out["mesh_model_2"]
+        assert "a world of 2 ranks" in out["mesh_2x2"]
+        assert out["mesh_model_2"] == ((1, 2), 1, None)
         assert out["remat"] and out["dtype"] == "torch.bfloat16"
         assert np.isfinite(out["loss"])
     assert ranks[0]["loss"] == ranks[1]["loss"]

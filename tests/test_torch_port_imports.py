@@ -15,11 +15,11 @@ decodes), a ``Trainer`` fits one epoch on the CPU and ``encode_dataset``
 equals ``encode``, and so do a siamese ``Trainer``
 (radam) and a triplet one whose warm-up switches its mining mode, after
 every mining mode ran on each of its paths and rms_prop took a step. No
-file of the port (its package, ``chip_smoke.py``, every
-``tools/*_torch.py``) imports the JAX package, JAX, Flax, msgpack or
-TensorFlow, not even
-inside a function, nor does the data-parallel tests' worker module (a
-spawned rank imports it)."""
+file of the port (its package, ``chip_smoke.py``,
+``examples/quickstart_torch.py``, every ``tools/*_torch.py``) imports the
+JAX package, JAX, Flax, msgpack or TensorFlow, not even inside a function,
+nor do the parallel tests' worker modules (a spawned rank imports
+them)."""
 
 import os
 import re
@@ -41,6 +41,7 @@ MODULES = [
     "embeddingnet_tpu_torch.data.images",
     "embeddingnet_tpu_torch.data.samplers",
     "embeddingnet_tpu_torch.data.pipeline",
+    "embeddingnet_tpu_torch.data.native_loader",
     "embeddingnet_tpu_torch.ops.augment",
     "embeddingnet_tpu_torch.ops.distances",
     "embeddingnet_tpu_torch.ops.mining",
@@ -73,6 +74,8 @@ MODULES = [
     "embeddingnet_tpu_torch.parallel.collectives",
     "embeddingnet_tpu_torch.parallel.sharded",
     "embeddingnet_tpu_torch.parallel.sharded_knn",
+    "embeddingnet_tpu_torch.parallel.tp",
+    "embeddingnet_tpu_torch.parallel.pp",
     "embeddingnet_tpu_torch.serving",
     "embeddingnet_tpu_torch.train",
     "embeddingnet_tpu_torch.train.optim",
@@ -324,14 +327,19 @@ with tempfile.TemporaryDirectory() as tmp:
     history = Trainer(params, loader, device="cpu").fit().history
     assert set(history) >= {"loss", "val_loss", "val_recall1"}, history
     assert os.path.isdir(f"{tmp}/work/project/weights/0")
-    # the bulk encode decodes with cv2
+    # the bulk encode decodes as its loader resolves (the native decoder on
+    # a host of several cores, else cv2)
+    from embeddingnet_tpu_torch.data import native_loader
     from embeddingnet_tpu_torch.data.images import get_images
+    from embeddingnet_tpu_torch.data.pipeline import BatchLoader
     from embeddingnet_tpu_torch.models.api import EmbeddingNet
     net = EmbeddingNet(params, device="cpu")
     paths = loader.flat("train")[0]
     bulk = net.encode_dataset(paths, batch_size=5)
-    assert np.allclose(bulk, net.encode(get_images(paths, (32, 32, 3))),
-                       atol=1e-6)
+    native = BatchLoader([], (32, 32, 3)).backend == "native"
+    decoded = (native_loader.decode_batch(paths, 32, 32) if native
+               else get_images(paths, (32, 32, 3)))
+    assert np.allclose(bulk, net.encode(decoded), atol=1e-6)
 assert not any(m == "embeddingnet_tpu" or m.startswith("embeddingnet_tpu.")
                for m in sys.modules), "the JAX package was imported"
 print("ok")
@@ -438,8 +446,9 @@ _JAX_PACKAGE_IMPORT = re.compile(
 
 
 def test_port_files_never_import_the_jax_package():
-    """Static: no file of the port, nor ``chip_smoke.py`` or the port's
-    tools (every ``tools/*_torch.py``), imports ``embeddingnet_tpu`` (a
+    """Static: no file of the port, nor ``chip_smoke.py``,
+    ``examples/quickstart_torch.py`` or the port's tools (every
+    ``tools/*_torch.py``), imports ``embeddingnet_tpu`` (a
     lazy import inside a function would
     escape the run above), and the T1 tool does not import the JAX tool
     it ports."""
@@ -449,11 +458,15 @@ def test_port_files_never_import_the_jax_package():
     for cli in ("train_torch.py", "test_torch.py", "evaluate_torch.py",
                 "serve_torch.py", "convert_weights_torch.py"):
         assert root / "tools" / cli in tools
-    files += [root / "chip_smoke.py"] + tools
-    assert root / "embeddingnet_tpu_torch" / "parallel" / "sharded.py" in \
-        files
-    # the data-parallel tests' worker module, which spawned ranks import
-    files.append(root / "tests" / "test_torch_port_ddp.py")
+    files += [root / "chip_smoke.py", root / "examples" /
+              "quickstart_torch.py"] + tools
+    for name in ("parallel/sharded.py", "parallel/tp.py", "parallel/pp.py",
+                 "data/native_loader.py"):
+        assert root / "embeddingnet_tpu_torch" / name in files
+    # the worker modules of the data-, tensor- and pipeline-parallel tests,
+    # which spawned ranks import
+    files += [root / "tests" / "test_torch_port_ddp.py",
+              root / "tests" / "_torch_port_spawn.py"]
     assert len(files) > 20
     offenders = [str(f.relative_to(root)) for f in files
                  if _JAX_PACKAGE_IMPORT.search(f.read_text())

@@ -106,10 +106,19 @@ def world(tmp_path_factory):
 
 
 def test_encode_dataset_equals_encode_in_order(world):
+    """The bulk encode against ``encode`` of the images its loader decodes
+    (the native decoder on a host of several cores, else cv2; the two part
+    by a gray level, ``ROADMAP.md`` F1)."""
+    from embeddingnet_tpu_torch.data import native_loader
+    from embeddingnet_tpu_torch.data.pipeline import BatchLoader
     net, loader = world["net"], world["loader"]
     paths = loader.flat("train")[0][:23]
     got = net.encode_dataset(paths, batch_size=5, num_workers=2)
-    want = net.encode(get_images(paths, net.input_shape))
+    if BatchLoader([], net.input_shape).backend == "native":
+        decoded = native_loader.decode_batch(paths, *net.input_shape[:2])
+    else:
+        decoded = get_images(paths, net.input_shape)
+    want = net.encode(decoded)
     assert got.shape == (23, D) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=0, atol=ENC_TOL)
     reordered = net.encode_dataset(paths[::-1], batch_size=7)

@@ -6,9 +6,9 @@ plateau-scaled Adam update with EMA and a frozen backbone against optax's
 chain, and the val loss of the eval step on converted weights against
 ``make_triplet_eval_step``.
 
-The JAX ``BatchLoader`` is built with ``backend="python"``: on a host with
-more than one core it would pick its native decoder, which differs from
-cv2 by up to one gray level (``ROADMAP.md`` fault F1)."""
+Both ``BatchLoader``s are built with ``backend="python"``: on a host with
+more than one core they would pick their native decoders, which differ
+from cv2 by up to one gray level (``ROADMAP.md`` fault F1)."""
 
 import math
 
@@ -148,7 +148,7 @@ def test_batch_loader_matches(loaders, kind, cached):
             ts = samplers.TripletSampler(tl.val_data, tl.class_names, 6, 7)
             js = jsamplers.TripletSampler(jl.val_data, jl.class_names, 6, 7)
         got = list(BatchLoader(ts, (SIZE, SIZE, 3), n_batches=3,
-                               cache=t_cache))
+                               backend="python", cache=t_cache))
         want = list(JBatchLoader(js, (SIZE, SIZE, 3), n_batches=3,
                                  backend="python", cache=j_cache))
         assert len(got) == len(want) == 3

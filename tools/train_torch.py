@@ -10,7 +10,12 @@ config has a ``SOFTMAX_PRETRAINING`` section. Under torchrun each process
 is one rank on the card ``LOCAL_RANK`` (NCCL; ``--device cpu`` gives gloo
 ranks on the CPU), the process group joined before any other use of CUDA,
 and the ranks train one model data-parallel (``MESH.data: -1``, or the
-world size); rank 0 prints and writes. Every config of the repo fits as
+world size), or, with ``MESH.model: M > 1``, each model split over groups
+of M consecutive ranks (tensor parallelism: a ViT's attention and MLP, the
+ArcFace class weights); rank 0 prints and writes. ``--dist_backend gloo``
+runs ranks that share one card (NCCL refuses two ranks on one device):
+``torchrun --nproc_per_node=2 tools/train_torch.py <cfg> --dist_backend
+gloo`` with ``MESH.model: 2`` on one card. Every config of the repo fits as
 it stands, on any backbone name of the JAX registry, from
 ``MODEL.backbone_weights`` when it names a local file or a preset in
 ``$EMBEDDINGNET_WEIGHTS_DIR`` (``tools/convert_weights_torch.py`` writes
@@ -43,6 +48,10 @@ def parse_args(argv=None):
                         help="torch device to train on (default: cuda)")
     parser.add_argument("--resume_from", default=None,
                         help="checkpoint epoch to resume from, or 'latest'")
+    parser.add_argument("--dist_backend", default=None,
+                        choices=("nccl", "gloo"),
+                        help="torch.distributed backend under torchrun "
+                             "(default: nccl on the card, gloo on the CPU)")
     return parser.parse_args(argv)
 
 
@@ -52,14 +61,16 @@ def main(argv=None):
     args = parse_args(argv)
     import torch
     from embeddingnet_tpu_torch.parallel.mesh import (
-        maybe_initialize_distributed, world)
+        maybe_initialize_distributed, reset_grid, world)
     joined = torch.distributed.is_initialized()
     # before any other use of CUDA: a torchrun rank takes its own card
-    device = maybe_initialize_distributed(args.device) or args.device
+    device = maybe_initialize_distributed(
+        args.device, backend=args.dist_backend) or args.device
     try:
         return _run(args, device, world().rank == 0)
     finally:
         if not joined and torch.distributed.is_initialized():
+            reset_grid()
             torch.distributed.destroy_process_group()
 
 
@@ -100,6 +111,8 @@ def _run(args, device, rank0):
     history = trainer.fit()
     # export the best-monitored epoch, not wherever early stopping halted
     trainer.restore_best()
+    # whole tensors, gathered from a model group's slices on every rank
+    variables = trainer.encoder_variables()
     if not rank0:
         # the ranks hold one model: rank 0 exports it
         return trainer, None
@@ -112,7 +125,7 @@ def _run(args, device, rank0):
                        dtype=trainer.compute_dtype)
     # the encoder of any mode (the siamese and arcface ones have no
     # classifier)
-    net.load_encoder_state(trainer.encoder_variables())
+    net.load_encoder_state(variables)
     weights_path = net.save_base_model(trainer.paths["work_dir"])
     print(f"base model saved to {weights_path}")
 
