@@ -15,9 +15,9 @@ flagship through K1-K4), the GPipe block and the quickstart twin.
 1. Checks for a CUDA card (there is no CPU route) and prints its name and
    power limit as ``nvidia-smi`` reports them.
 2. Builds the kernels: every ``embeddingnet_tpu_torch/csrc/*.cu`` with
-   ``nvcc`` (one process per source, in parallel), and the Triton kernel T2
-   at its first launch; prints ptxas's registers and spills for each
-   kernel instance, and fails if any instance spills. Beside them it
+   ``nvcc`` (one process per source, in parallel: the conv kernels and T2);
+   prints ptxas's registers and spills for each kernel instance, and fails
+   if any instance spills. Beside them it
    builds the native decoder (``csrc/enloader.cpp``, ``g++``); where the
    libjpeg/libpng headers are missing it prints ``native_decoder:
    unavailable: <the compiler's message>``, the decoder's documented
@@ -25,7 +25,7 @@ flagship through K1-K4), the GPipe block and the quickstart twin.
 3. Kernel phase: each kernel against its plain PyTorch version on the same
    inputs, in f32 with TF32 off, at the shapes ResNet-50 at 64x64 gives it
    (the forward K3/K1 at B = 3, 32, 256 and 1024, K1 at 8x8 too; the
-   backward K1-as-dgrad, K2, K4 and the normalisation T2 at B = 1024 and
+   backward K1-as-dgrad, K2, K4 at B = 1024 and
    the conv kernels at B = 8 and the ragged B = 37, K2 at all three
    training shapes; T1, K1's forward with the affine-ReLU epilogue, at B =
    3, 128 and 1024 at S=2, C=512 and S=4, C=256, against the f32 and the
@@ -42,7 +42,15 @@ flagship through K1-K4), the GPipe block and the quickstart twin.
    ``torch.profiler`` device time (``kernel_device_ms``,
    ``library_device_ms``, ``sequence_device_ms``, ``conv2d_device_ms``,
    ``eager_sequence_device_ms``), which a Python launch's host time does
-   not inflate; so are T2 and ``torch.mul`` into bf16.
+   not inflate. T2, the normalisation, exact on all 256 u8 values, the
+   training batch [1024, 64, 64, 3], a tail size and two misaligned views,
+   then timed at the training batch beside ``torch.mul`` into bf16 four
+   ways: CUDA events back to back (``ms``, L2-hot: the one input and the
+   allocator's one output block stay in the 50 MB L2), profiler device
+   time (``device_ms``, as hot), device time with L2 cold (``cold_ms``:
+   64 MB written before each launch, the launch alone between two events)
+   and the host's enqueue cost (``host_us``: 200 launches with no
+   synchronize on the host clock).
 4. Serving phase: the flagship model (ResNet-50 v1.5, 64x64x3, 256-d
    L2-normalised embedding, kNN k=5, bf16, fused BN-ReLU conv on), with
    seeded random weights, encodes a DB of 10,240 synthetic images
@@ -285,6 +293,7 @@ from embeddingnet_tpu_torch.train.steps import make_triplet_train_step
 SEED = 0
 DEVICE = "cuda"
 SM90_SRC = "embeddingnet_tpu_torch/csrc/conv3x3_sm90.cu"
+T2_SRC = "embeddingnet_tpu_torch/csrc/normalize_u8_sm90.cu"
 JAX_CONV = "embeddingnet_tpu/ops/fused_conv.py"
 # phase 9's fit and phase 13 (d)'s encode as they decoded (phase 16 (a)
 # prints the native decoder's beside them)
@@ -295,8 +304,7 @@ KERNELS = {
     "conv3x3_dgrad": ("cuda", SM90_SRC, f"{JAX_CONV}:200"),
     "conv3x3_wgrad": ("cuda", SM90_SRC, f"{JAX_CONV}:225"),
     "conv3x3_wgrad_bn_relu": ("cuda", SM90_SRC, f"{JAX_CONV}:575"),
-    "normalize_u8": ("triton", "embeddingnet_tpu_torch/ops/preprocess.py",
-                     "tools/perf_probe3.py:63"),
+    "normalize_u8": ("cuda", T2_SRC, "tools/perf_probe3.py:63"),
     "conv3x3_small_affine_relu": ("cuda", SM90_SRC,
                                   "tools/pallas_fused_conv.py:39"),
     # K1's forward: ResNet-50 does not reach it (its stride-1 3x3 convs all
@@ -360,6 +368,14 @@ WGRAD_REL = 1e-3
 # H100 SXM (NVIDIA's data sheet): dense bf16 tensor-core rate, HBM3 rate
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# T2's edge checks: a size with a tail of n % 16 = 3, taken from the start
+# of a flat tensor and at offsets 1 (the scalar path) and 8 (an 8-element
+# head); its cold reading writes FLUSH_BYTES, more than the 50 MB L2,
+# before each launch; its host reading enqueues HOST_LAUNCHES launches
+T2_TAIL = 1_000_003
+FLUSH_BYTES = 64 << 20
+HOST_LAUNCHES = 200
+SLEEP_CYCLES_PER_ITER = 200_000     # ~100 us at the H100's ~2 GHz
 
 FLAGSHIP = {
     "model": {"backbone_name": "resnet50", "input_shape": [64, 64, 3],
@@ -690,10 +706,11 @@ def build():
 
 
 def _kernel_label(mangled):
-    """``conv3x3_sm90_kernel<false, 256, true>`` from the mangled name of a
-    kernel instance (bool and int template arguments)."""
-    m = re.search(r"\d+(conv3x3_\w+?_kernel)(?:I((?:L[bi]\d+E)+)E)?",
-                  mangled)
+    """``conv3x3_sm90_kernel<false, 256, true>`` or
+    ``normalize_u8_sm90_kernel`` from the mangled name of a kernel instance
+    (bool and int template arguments)."""
+    m = re.search(r"\d+((?:conv3x3|normalize_u8)_\w*?_kernel)"
+                  r"(?:I((?:L[bi]\d+E)+)E)?", mangled)
     if not m:
         return mangled
     args = [("true" if v == "1" else "false") if k == "b" else v
@@ -822,7 +839,7 @@ def _wgrad_library(g_nchw, x_nchw, w_oihw):
 
 def backward_kernel_phase(records):
     """K1 as the dgrad, K2 and K4 against their plain versions at the
-    training shapes, and T2 at the training batch."""
+    training shapes."""
     rng = np.random.default_rng(SEED + 1)
     for s, c, _ in MIXED_SHAPES + FUSED_SHAPES:
         w = _tensor(rng, (3, 3, c, c), 0.05).bfloat16()
@@ -877,38 +894,120 @@ def backward_kernel_phase(records):
                 _time_row(records, name, b, s, c, run, plain, library,
                           max_err, worst, **extra)
 
-    # T2: u8 [1024, 64, 64, 3] -> bf16 x / 255, exact
+
+def cold_ms(fn, flush, iters=50, warmup=3):
+    """Device time of one call of ``fn`` with L2 cold: ``flush()`` (a pass
+    over FLUSH_BYTES) before each launch, and the launch alone between two
+    CUDA events; the mean over ``iters``. The device first sleeps for
+    about 100 us an iteration, so the host has enqueued every launch before
+    the device reaches its start event: were the device to catch up, the
+    events would also time its wait for the host's next launch (a flush
+    takes ~20 us of device time, about what the host takes to enqueue a
+    flush, two events and a launch)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(iters * SLEEP_CYCLES_PER_ITER)
+    pairs = []
+    for _ in range(iters):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def host_us(fn, launches=HOST_LAUNCHES):
+    """The host's enqueue cost of one call of ``fn``: ``launches`` calls
+    with no synchronize on the host clock, after one call and a
+    synchronize; microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took / launches * 1e6
+
+
+def normalize_kernel_phase(records):
+    """T2 against its plain version, exact: all 256 u8 values, the training
+    batch, a tail size and two misaligned views; then timed at the training
+    batch beside ``torch.mul`` into bf16, hot, cold and on the host."""
+    rng = np.random.default_rng(SEED + 2)
     x = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, 64, 64, 3),
                                       np.uint8)).cuda()
-    got = pre.normalize_u8(x)
+    flat = torch.from_numpy(rng.integers(0, 256, T2_TAIL + 8,
+                                         np.uint8)).cuda()
     every = torch.arange(256, dtype=torch.uint8, device=DEVICE)
-    exact = torch.equal(got, pre._plain_normalize_u8(x)) and torch.equal(
-        pre.normalize_u8(every), (every.float() / 255.0).bfloat16())
-    print(f"check normalize_u8 B={TRAIN_BATCH} [64, 64, 3] and all 256 u8 "
-          f"values: tolerance exact (0), equal {exact}")
-    if not exact:
-        raise AssertionError("normalize_u8 differs from its plain version")
+    cases = {"all 256 u8 values": every,
+             f"B={TRAIN_BATCH} [64, 64, 3]": x,
+             f"tail: {T2_TAIL} elements": flat[:T2_TAIL],
+             f"offset 1: {T2_TAIL + 7} elements": flat[1:],
+             f"offset 8: {T2_TAIL} elements": flat[8:]}
+    for label, t in cases.items():
+        plan = pre.plan_normalize_u8(
+            t.numel(), t.data_ptr() % pre.VECTOR,
+            _cuda.sm_count(t.device.index),
+            pre._blocks_per_sm(t.device.index))
+        exact = torch.equal(pre.normalize_u8(t), pre._plain_normalize_u8(t))
+        if t is every:
+            exact = exact and torch.equal(
+                pre.normalize_u8(every), (every.float() / 255.0).bfloat16())
+        print(f"check normalize_u8 {label} ({plan}): tolerance exact (0), "
+              f"equal {exact}")
+        if not exact:
+            raise AssertionError(f"normalize_u8 differs from its plain "
+                                 f"version: {label}")
     out = torch.empty(x.shape, dtype=torch.bfloat16, device=DEVICE)
+    scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    run = lambda: pre.normalize_u8(x)  # noqa: E731
+    mul = lambda: torch.mul(x, 1.0 / 255.0, out=out)  # noqa: E731
+    write = lambda: scratch.fill_(1)  # noqa: E731
     plain_ms1 = cuda_ms(lambda: pre._plain_normalize_u8(x))
-    ms = cuda_ms(lambda: pre.normalize_u8(x))
+    # each reading in turns, kernel, torch.mul, torch.mul, kernel
+    readings = {}
+    for key, reading in (
+            ("ms", cuda_ms), ("device_ms", device_ms),
+            ("cold_ms", lambda fn: cold_ms(fn, write)),
+            ("cold_after_read_ms", lambda fn: cold_ms(fn, scratch.sum)),
+            ("host_us", host_us)):
+        a1, b1, b2, a2 = reading(run), reading(mul), reading(mul), reading(run)
+        readings[key] = (a1 + a2) / 2
+        readings[f"library_{key}"] = (b1 + b2) / 2
+        readings[f"{key}_reads"] = [a1, a2, b1, b2]
     plain_ms2 = cuda_ms(lambda: pre._plain_normalize_u8(x))
-    library_ms = cuda_ms(lambda: torch.mul(x, 1.0 / 255.0, out=out))
-    t2_device_ms = device_ms(lambda: pre.normalize_u8(x))
-    library_device_ms = device_ms(
-        lambda: torch.mul(x, 1.0 / 255.0, out=out))
+    # the share of T2's host cost that is its output's allocation, which
+    # torch.mul into a given tensor does not make
+    readings["alloc_host_us"] = host_us(lambda: torch.empty(
+        x.shape, dtype=torch.bfloat16, device=DEVICE))
     bound_ms, bound_by = bound(0, x.numel() * 3)
     _record(records, "normalize_u8", {
         "B": TRAIN_BATCH, "shape": [64, 64, 3], "max_abs_err": 0.0,
-        "err_over_bound": 0.0, "ms": ms, "plain_ms": (plain_ms1 + plain_ms2)
-        / 2, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms, "device_ms": t2_device_ms,
-        "library_device_ms": library_device_ms})
-    print(f"time normalize_u8 B={TRAIN_BATCH}: kernel {ms * 1e3:.1f} us, "
-          f"plain bf16 {plain_ms1 * 1e3:.1f}/{plain_ms2 * 1e3:.1f} us, "
-          f"library (torch.mul into bf16) {library_ms * 1e3:.1f} us, bound "
-          f"{bound_ms * 1e3:.2f} us ({bound_by}); device time (profiler) "
-          f"kernel {t2_device_ms * 1e3:.2f} us, torch.mul "
-          f"{library_device_ms * 1e3:.2f} us")
+        "err_over_bound": 0.0, "plain_ms": (plain_ms1 + plain_ms2) / 2,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        **{k: v for k, v in readings.items() if not k.endswith("_reads")}})
+    r = readings
+    print(f"time normalize_u8 B={TRAIN_BATCH}: bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by}), plain bf16 {plain_ms1 * 1e3:.1f}/"
+          f"{plain_ms2 * 1e3:.1f} us; kernel against torch.mul into bf16: "
+          f"event back to back {r['ms'] * 1e3:.2f} / "
+          f"{r['library_ms'] * 1e3:.2f} us, device (profiler) "
+          f"{r['device_ms'] * 1e3:.2f} / {r['library_device_ms'] * 1e3:.2f} "
+          f"us, cold (64 MB written before each) {r['cold_ms'] * 1e3:.2f} / "
+          f"{r['library_cold_ms'] * 1e3:.2f} us, cold (64 MB read before "
+          f"each) {r['cold_after_read_ms'] * 1e3:.2f} / "
+          f"{r['library_cold_after_read_ms'] * 1e3:.2f} us, host enqueue "
+          f"{r['host_us']:.2f} / {r['library_host_us']:.2f} us (the "
+          f"output's torch.empty alone {r['alloc_host_us']:.2f} us); each "
+          f"read (kernel, kernel, torch.mul, torch.mul): "
+          + "; ".join(f"{k[:-6]} " + ", ".join(f"{v:.5f}" for v in reads)
+                      for k, reads in r.items() if k.endswith("_reads")))
 
 
 def _exact_epilogue_inputs(rng, b, s, c):
@@ -4301,6 +4400,7 @@ def main():
     records = {}
     forward_kernel_phase(records)
     backward_kernel_phase(records)
+    normalize_kernel_phase(records)
     epilogue_kernel_phase(records)
     tool_launches, t1_device_ms = epilogue_tool_phase()
     fc.reset_launch_counts()
@@ -4334,9 +4434,12 @@ def main():
         per = f"augmented training step, B={TRAIN_BATCH}"
         if name == "normalize_u8":
             row = rec["shapes"][0]
-            sums = {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "library_ms", "bound_by", "device_ms",
-                                        "library_device_ms")}
+            sums = {k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "bound_by",
+                "device_ms", "library_device_ms", "cold_ms",
+                "library_cold_ms", "cold_after_read_ms",
+                "library_cold_after_read_ms", "host_us", "library_host_us",
+                "alloc_host_us")}
             launches = plain_launches[name]
             per = f"training step without augmentation, B={TRAIN_BATCH}"
         elif name == "conv3x3_small_affine_relu":

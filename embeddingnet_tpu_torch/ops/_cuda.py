@@ -11,7 +11,9 @@ anew. A failed build raises; nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -19,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List
+
+import torch
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
@@ -36,10 +40,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, g, scale, bias (both null but for K4), ws, out, batch, s, cin, cout,
 # parts, per_part, stream. conv3x3_sm90.cu resolves cuTensorMapEncodeTiled
 # through the runtime (cudaGetDriverEntryPoint), so no library beyond the
-# runtime is linked.
+# runtime is linked. embn_normalize_u8 (T2): x, out, n, head, grid, stream;
+# embn_normalize_u8_blocks_per_sm: a pointer to the int it fills.
 ENTRY_POINTS = {
     "conv3x3_sm90": {"embn_conv3x3_sm90": [_P] * 5 + [_I] * 7 + [_P],
                      "embn_conv3x3_wgrad_sm90": [_P] * 6 + [_I] * 6 + [_P]},
+    "normalize_u8_sm90": {"embn_normalize_u8": [_P] * 2 + [_I] * 3 + [_P],
+                          "embn_normalize_u8_blocks_per_sm": [_P]},
 }
 SOURCES = [CSRC / f"{name}.cu" for name in ENTRY_POINTS]
 
@@ -115,3 +122,23 @@ def library(name: str) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _libs[name] = lib
         return _libs[name]
+
+
+def stream(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on ``device``, for a launch:
+    the raw handle, as PyTorch's own generated launchers read it, without
+    the ``torch.cuda.Stream`` object that ``current_stream`` builds."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def on_device(device: torch.device):
+    """Makes ``device`` current for a launch, where it is not already (a
+    device switch costs a few microseconds of host time a launch)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

@@ -44,7 +44,6 @@ registers.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 from typing import Optional, Sequence, Tuple
@@ -449,23 +448,6 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return t.data_ptr() if t is not None else None
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _on_device(device: torch.device):
-    """Makes ``device`` current for a launch, where it is not already (a
-    device switch costs a few microseconds of host time a launch)."""
-    if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 def _launch_sm90(name: str, x: torch.Tensor, w: torch.Tensor,
                  mode: int = _FPROP, scale: Optional[torch.Tensor] = None,
                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -490,12 +472,12 @@ def _launch_sm90(name: str, x: torch.Tensor, w: torch.Tensor,
     if b == 0:
         return out
     plan = plan_sm90("dgrad" if dgrad else "fprop", b, s, cin, cout,
-                     _sm_count(x.device.index))
+                     _cuda.sm_count(x.device.index))
     fn = _cuda.library("conv3x3_sm90").embn_conv3x3_sm90
-    with _on_device(x.device):
+    with _cuda.on_device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(bias),
                  out.data_ptr(), b, s, cin, cout, mode, plan.rows,
-                 plan.grid[0], _stream(x.device))
+                 plan.grid[0], _cuda.stream(x.device))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     LAUNCHES[name] += 1
@@ -519,14 +501,15 @@ def _launch_wgrad(name: str, x: torch.Tensor, g: torch.Tensor,
                       device=x.device)
     if b == 0:
         return out.zero_()
-    plan = plan_sm90("wgrad", b, s, cin, cout, _sm_count(x.device.index))
+    plan = plan_sm90("wgrad", b, s, cin, cout,
+                     _cuda.sm_count(x.device.index))
     ws = (torch.empty((plan.parts, 9 * cin, cout), dtype=torch.float32,
                       device=x.device) if plan.parts > 1 else out)
-    with _on_device(x.device):
+    with _cuda.on_device(x.device):
         err = _cuda.library("conv3x3_sm90").embn_conv3x3_wgrad_sm90(
             x.data_ptr(), g.data_ptr(), _ptr(scale), _ptr(bias),
             ws.data_ptr(), out.data_ptr(), b, s, cin, cout, plan.parts,
-            plan.per_part, _stream(x.device))
+            plan.per_part, _cuda.stream(x.device))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     LAUNCHES[name] += 1

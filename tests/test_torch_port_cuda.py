@@ -3,11 +3,11 @@
 with the affine-ReLU epilogue T1 — all in csrc/conv3x3_sm90.cu, the
 TMA/wgmma design, K3 and K4 with the BN-ReLU prologue on the landed input
 tile, T1 with the epilogue on the accumulators — and the u8 normalisation
-T2) against their plain
-PyTorch versions, the modules that launch them, forward and backward, the
-augmentation presets, the miner, the ViT forward and the ArcFace loss, and
-the EfficientNet/MobileNet/simple CNN forward and backward on the card
-against the CPU.
+T2 of csrc/normalize_u8_sm90.cu, at its edges too: a tail, misaligned
+views, no elements) against their plain PyTorch versions, the modules that
+launch them, forward and backward, the augmentation presets, the miner,
+the ViT forward and the ArcFace loss, and the EfficientNet/MobileNet/simple
+CNN forward and backward on the card against the CPU.
 They skip on a machine without a card. On the card, run them with
 
     python -m pytest tests/test_torch_port_cuda.py -q -m cuda --noconftest
@@ -308,6 +308,26 @@ def test_normalize_u8_matches_plain(card):
         0, 256, (1024, 64, 64, 3), np.uint8)).to(card)
     assert torch.equal(pre.normalize_u8(x), pre._plain_normalize_u8(x))
     assert pre.LAUNCHES == {"normalize_u8": 2}
+
+
+@pytest.mark.parametrize("case", ["tail", "offset_1", "offset_8", "empty",
+                                  "vit_val"])
+def test_normalize_u8_edges_match_plain(card, case):
+    """T2's edges, exact against its plain version: a tail of n % 16
+    elements; a flat view at an odd offset (the scalar path) and at 8 bytes
+    (an 8-element head, then aligned vectors); a zero-size tensor (no
+    launch); the ViT pretraining's val batch [128, 96, 96, 3]."""
+    rng = np.random.default_rng(10)
+    flat = torch.from_numpy(rng.integers(0, 256, 1_000_003 + 8,
+                                         np.uint8)).to(card)
+    x = {"tail": flat[:1_000_003], "offset_1": flat[1:],
+         "offset_8": flat[8:], "empty": flat[:0],
+         "vit_val": torch.from_numpy(rng.integers(
+             0, 256, (128, 96, 96, 3), np.uint8)).to(card)}[case]
+    got = pre.normalize_u8(x)
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got, pre._plain_normalize_u8(x))
+    assert pre.LAUNCHES == {"normalize_u8": 0 if case == "empty" else 1}
 
 
 def test_kernel_is_deterministic(card):
