@@ -82,7 +82,7 @@ flagship through K1-K4), the GPipe block and the quickstart twin.
    timed steps with exact launch counts (no T2: the augmented step divides
    in f32), finite and falling loss, the busy share, peak memory and the
    augmentation's device time per step (``torch.profiler``, the step's
-   ``record_function("augment")`` range).
+   ``augment`` span, a profiler range by that name).
 9. Fit phase: the flagship config (``configs/resnet50_batchall_1024.yml``,
    parsed by the port's ``parse_params``) fitted through the port's
    ``Trainer`` on a folder dataset written with cv2 (1,024 classes x 10

@@ -25,6 +25,7 @@ import numpy as np
 
 from embeddingnet_tpu_torch.data import native_loader
 from embeddingnet_tpu_torch.data.images import get_image
+from embeddingnet_tpu_torch.utils import trace
 
 
 class DecodeCache:
@@ -191,7 +192,8 @@ class BatchLoader:
         thread.start()
         try:
             while True:
-                item = q.get()
+                with trace.span("data.get"):
+                    item = q.get()
                 if item is sentinel:
                     if error:
                         raise error[0]

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from embeddingnet_tpu_torch.models import remat
 from embeddingnet_tpu_torch.models.resnet import BatchNorm, Conv2d
 from embeddingnet_tpu_torch.models.stochastic import MaskSource, drop_connect
+from embeddingnet_tpu_torch.ops.fused_conv import cast
 
 # (expand_ratio, channels, repeats, stride, kernel)
 _B0_BLOCKS: Sequence[Tuple[int, int, int, int, int]] = (
@@ -104,15 +105,14 @@ class SameConv2d(Conv2d):
                 x.shape[2:], self.kernel_size, self.stride))
         dtype = self.compute_dtype or torch.promote_types(x.dtype,
                                                           self.weight.dtype)
-        x = x.to(dtype)
+        x, weight, bias = cast(dtype, x, self.weight, self.bias)
         if top == bottom and left == right:
             padding = (top, left)
         else:
             x = F.pad(x, (left, right, top, bottom))
             padding = (0, 0)
-        bias = None if self.bias is None else self.bias.to(dtype)
-        return F.conv2d(x, self.weight.to(dtype), bias, self.stride,
-                        padding, 1, self.groups)
+        return F.conv2d(x, weight, bias, self.stride, padding, 1,
+                        self.groups)
 
 
 class SqueezeExcite(nn.Module):
@@ -131,8 +131,8 @@ class SqueezeExcite(nn.Module):
     def _dense(conv: Conv2d, s: torch.Tensor) -> torch.Tensor:
         dtype = conv.compute_dtype or torch.promote_types(s.dtype,
                                                           conv.weight.dtype)
-        return F.linear(s.to(dtype), conv.weight.flatten(1).to(dtype),
-                        conv.bias.to(dtype))
+        s, weight, bias = cast(dtype, s, conv.weight, conv.bias)
+        return F.linear(s, weight.flatten(1), bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean((2, 3))

@@ -21,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from embeddingnet_tpu_torch.ops.fused_conv import cast
 from embeddingnet_tpu_torch.parallel.collectives import copy_to_model
 
 
@@ -48,8 +49,7 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype or torch.promote_types(x.dtype,
                                                           self.weight.dtype)
-        bias = None if self.bias is None else self.bias.to(dtype)
-        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+        return F.linear(*cast(dtype, x, self.weight, self.bias))
 
 
 class EmbeddingHead(nn.Module):

@@ -36,7 +36,8 @@ import torch.nn.functional as F
 from embeddingnet_tpu_torch.models import remat
 from embeddingnet_tpu_torch.models.heads import Dense, lecun_normal_
 from embeddingnet_tpu_torch.ops.fused_conv import (BNScaleBias, FastConv3x3,
-                                                    FusedBNReluConv3x3)
+                                                    FusedBNReluConv3x3, cast)
+from embeddingnet_tpu_torch.utils import trace
 
 
 class Conv2d(nn.Conv2d):
@@ -51,8 +52,7 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype or torch.promote_types(x.dtype,
                                                           self.weight.dtype)
-        bias = None if self.bias is None else self.bias.to(dtype)
-        return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
+        return self._conv_forward(*cast(dtype, x, self.weight, self.bias))
 
 
 class BatchNorm(BNScaleBias):
@@ -73,9 +73,11 @@ class BatchNorm(BNScaleBias):
                                  persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale, bias = super().forward(x)
-        y = x.to(scale.dtype) * scale[:, None, None] + bias[:, None, None]
-        return y.to(self.compute_dtype or scale.dtype)
+        with trace.span("bn"):
+            scale, bias = self.scale_bias(x)
+            y = (x.to(scale.dtype) * scale[:, None, None]
+                 + bias[:, None, None])
+            return y.to(self.compute_dtype or scale.dtype)
 
 
 def _conv3x3(in_channels, filters, strides, groups, use_bias, dtype, fast):

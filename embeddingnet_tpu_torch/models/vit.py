@@ -50,6 +50,7 @@ from embeddingnet_tpu_torch.models import remat
 from embeddingnet_tpu_torch.models.heads import (Dense, at_least_f32,
                                                  lecun_normal_)
 from embeddingnet_tpu_torch.models.resnet import Conv2d
+from embeddingnet_tpu_torch.ops.fused_conv import cast
 from embeddingnet_tpu_torch.parallel.collectives import (copy_to_model,
                                                          reduce_from_model)
 
@@ -76,8 +77,9 @@ def row_parallel(dense: Dense, x: torch.Tensor, tp) -> torch.Tensor:
     summed over the model group, then the bias."""
     dtype = dense.compute_dtype or torch.promote_types(x.dtype,
                                                        dense.weight.dtype)
-    y = reduce_from_model(F.linear(x.to(dtype), dense.weight.to(dtype)), tp)
-    return y if dense.bias is None else y + dense.bias.to(dtype)
+    x, weight, bias = cast(dtype, x, dense.weight, dense.bias)
+    y = reduce_from_model(F.linear(x, weight), tp)
+    return y if bias is None else y + bias
 
 
 class MultiHeadDotProductAttention(nn.Module):

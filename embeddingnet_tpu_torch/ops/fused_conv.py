@@ -54,6 +54,7 @@ import torch.nn.functional as F
 
 from embeddingnet_tpu_torch.ops import _cuda, batchnorm_context
 from embeddingnet_tpu_torch.parallel import collectives
+from embeddingnet_tpu_torch.utils import trace
 
 # Launches of each kernel since the last reset_launch_counts(), counted
 # where the wrapper launches; a run reads them to show that its path went
@@ -684,6 +685,17 @@ def _compute_dtype(module_dtype: Optional[torch.dtype], x: torch.Tensor,
     return module_dtype or torch.promote_types(x.dtype, weight.dtype)
 
 
+def cast(dtype: torch.dtype, *tensors: Optional[torch.Tensor]) -> tuple:
+    """``tensors`` in ``dtype`` (None stays None): a layer's casts of its
+    input and parameters to its compute dtype, inside a ``cast`` span
+    (:mod:`~embeddingnet_tpu_torch.utils.trace`) when one of them is
+    converted."""
+    if all(t is None or t.dtype == dtype for t in tensors):
+        return tensors
+    with trace.span("cast"):
+        return tuple(None if t is None else t.to(dtype) for t in tensors)
+
+
 def _gate_dtype(x: torch.Tensor) -> Optional[torch.dtype]:
     return x.dtype if x.device.type != "cpu" else None
 
@@ -692,8 +704,12 @@ def _hwio(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     # The kernel's [3, 3, Cin, Cout] weight is a per-call cast and permute
     # of the module's f32 OIHW parameter: one small copy per conv call,
     # counted in the module-level times of PERF.md. Autograd carries dW
-    # back through it to the f32 parameter.
-    return weight.to(dtype).permute(2, 3, 1, 0).contiguous()
+    # back through it to the f32 parameter. A conversion runs inside a
+    # ``cast`` span.
+    if weight.dtype == dtype:
+        return weight.permute(2, 3, 1, 0).contiguous()
+    with trace.span("cast"):
+        return weight.to(dtype).permute(2, 3, 1, 0).contiguous()
 
 
 class FastConv3x3(nn.Conv2d):
@@ -712,7 +728,7 @@ class FastConv3x3(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = _compute_dtype(self.compute_dtype, x, self.weight)
-        x = x.to(dtype)
+        x, = cast(dtype, x)
         nhwc = x.permute(0, 2, 3, 1)
         w_shape = (3, 3, self.in_channels // self.groups, self.out_channels)
         args = (tuple(nhwc.shape), w_shape, self.stride, self.groups,
@@ -722,8 +738,8 @@ class FastConv3x3(nn.Conv2d):
         elif eligible_mixed(*args):
             op = conv3x3_small_mixed
         else:
-            return F.conv2d(x, self.weight.to(dtype), None, self.stride, 1,
-                            1, self.groups)
+            w, = cast(dtype, self.weight)
+            return F.conv2d(x, w, None, self.stride, 1, 1, self.groups)
         return op(nhwc.contiguous(), _hwio(self.weight, dtype)).permute(
             0, 3, 1, 2)
 
@@ -747,6 +763,11 @@ class BNScaleBias(nn.BatchNorm2d):
     global batch's (the ranks hold equal blocks), as JAX's over a data
     mesh; while ``recomputing`` (a rematerialised forward) the running
     averages stay as the first forward left them.
+
+    The forward runs inside a ``bn`` span (:mod:`~embeddingnet_tpu_torch.
+    utils.trace`); a subclass that applies the affine too opens its own
+    around :meth:`scale_bias` and the affine, so one layer call is one
+    ``bn`` range.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5,
@@ -755,6 +776,11 @@ class BNScaleBias(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        with trace.span("bn"):
+            return self.scale_bias(x)
+
+    def scale_bias(self, x: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         # f32, or f64 for a float64 input (a module converted with .double())
         acc = torch.promote_types(x.dtype, torch.float32)
         if self.training:
@@ -800,7 +826,8 @@ class FusedBNReluConv3x3(nn.Conv2d):
     def forward(self, x: torch.Tensor, scale: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
         dtype = _compute_dtype(self.compute_dtype, x, self.weight)
-        nhwc = x.to(dtype).permute(0, 2, 3, 1)
+        x, = cast(dtype, x)
+        nhwc = x.permute(0, 2, 3, 1)
         scale, bias = scale.float(), bias.float()
         args = (tuple(nhwc.shape), (3, 3, self.in_channels,
                                     self.out_channels))
@@ -814,5 +841,5 @@ class FusedBNReluConv3x3(nn.Conv2d):
             y = conv3x3_small_mixed(z.contiguous(),
                                     _hwio(self.weight, dtype))
             return y.permute(0, 3, 1, 2)
-        return F.conv2d(z.permute(0, 3, 1, 2), self.weight.to(dtype), None,
-                        1, 1)
+        w, = cast(dtype, self.weight)
+        return F.conv2d(z.permute(0, 3, 1, 2), w, None, 1, 1)

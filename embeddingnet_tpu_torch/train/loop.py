@@ -89,6 +89,7 @@ from embeddingnet_tpu_torch.train import callbacks as cb
 from embeddingnet_tpu_torch.train import checkpoint as ckpt
 from embeddingnet_tpu_torch.train import optim, steps
 from embeddingnet_tpu_torch.train.state import TrainState
+from embeddingnet_tpu_torch.utils import trace
 from embeddingnet_tpu_torch.utils.logging import MetricsLogger
 
 # the modes whose module nests the encoder under ``encoder``
@@ -98,6 +99,10 @@ _NESTED = ("siamese", "arcface")
 class Trainer:
     def __init__(self, params, data_loader, *, device="cuda",
                  log_fn: Callable = print):
+        with trace.span("init"):
+            self._construct(params, data_loader, device, log_fn)
+
+    def _construct(self, params, data_loader, device, log_fn):
         self.params = params
         self.data_loader = data_loader
         self.mode = params.model.mode
@@ -450,7 +455,8 @@ class Trainer:
                     tuple(h for _, h in pairs))
         host = torch.from_numpy(np.asarray(x))
         if self.device.type == "cuda":
-            host = host.pin_memory()
+            with trace.span("data.pin"):
+                host = host.pin_memory()
         return host.to(self.device, non_blocking=True), host
 
     def _device_prefetch(self, loader):
@@ -525,19 +531,20 @@ class Trainer:
         self._data_wait_s = 0.0
         while True:
             t_wait = time.perf_counter()
-            batch = next(batches, None)
+            with trace.span("data.wait"):
+                batch = next(batches, None)
             self._data_wait_s += time.perf_counter() - t_wait
             if batch is None:
                 break
             images, targets = batch
             if self.mode == "siamese":
-                self.state, metrics = self.train_step(self.state, *images,
-                                                      targets)
+                args = (*images, targets)
                 images_seen += sum(int(x.shape[0]) for x in images)
             else:
-                self.state, metrics = self.train_step(self.state, images,
-                                                      targets)
+                args = (images, targets)
                 images_seen += int(images.shape[0])
+            with trace.span("step"):
+                self.state, metrics = self.train_step(self.state, *args)
             totals = self._accumulate(totals, metrics)
             count += 1
             # a read every 32 steps keeps the queue of launches shallow

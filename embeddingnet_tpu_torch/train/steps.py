@@ -75,6 +75,7 @@ from embeddingnet_tpu_torch.parallel.collectives import DataParallel
 from embeddingnet_tpu_torch.train.optim import (OptimizerSpec, l2_penalty,
                                                 update_param_ema)
 from embeddingnet_tpu_torch.train.state import TrainState
+from embeddingnet_tpu_torch.utils import trace
 
 
 def _preprocess(images: torch.Tensor, dtype: torch.dtype,
@@ -87,12 +88,13 @@ def _preprocess(images: torch.Tensor, dtype: torch.dtype,
     augmentation this is :func:`preprocess` (T2 for uint8 to bf16); with
     it, the f32 divide, as JAX skips its bf16 shortcut then. The draws come
     from ``generator`` unless ``draws`` are given; the augmentation runs
-    inside a ``record_function("augment")`` range for the profiler. With
+    inside an ``augment`` span (:mod:`~embeddingnet_tpu_torch.utils.
+    trace`). With
     ``rows = (lo, hi, global_batch)`` the draws (given or drawn) are the
     global batch's and ``images`` its rows ``[lo, hi)``."""
     if augment_fn is None:
         return preprocess(images, dtype)
-    with torch.profiler.record_function("augment"):
+    with trace.span("augment"):
         x = images.float()
         if draws is None:
             shape = x.shape if rows is None else (rows[2],) + x.shape[1:]
@@ -125,14 +127,15 @@ def apply_update(state: TrainState, optimizer: OptimizerSpec) -> None:
     """The update of a train step, from the gradients in ``.grad``: the
     learning rate ``optimizer.lr_at(state.step) * state.plateau_scale``,
     ``state.optimizer.step()``, the EMA of the parameters where the state
-    keeps one, and the step count."""
-    lr = optimizer.lr_at(state.step) * state.plateau_scale
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
-    state.optimizer.step()
-    if state.ema is not None:
-        update_param_ema(state.ema, state.module, state.ema_decay)
-    state.step += 1
+    keeps one, and the step count, inside an ``optimizer`` span."""
+    with trace.span("optimizer"):
+        lr = optimizer.lr_at(state.step) * state.plateau_scale
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+        if state.ema is not None:
+            update_param_ema(state.ema, state.module, state.ema_decay)
+        state.step += 1
 
 
 def _backward_and_update(state: TrainState, module: torch.nn.Module,
@@ -154,7 +157,7 @@ def _backward_and_update(state: TrainState, module: torch.nn.Module,
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     if parallel is not None:
-        with torch.profiler.record_function("all_reduce_grads"):
+        with trace.span("all_reduce_grads"):
             collectives.all_reduce_grads(module.parameters(), parallel.group)
     apply_update(state, optimizer)
 
@@ -235,8 +238,8 @@ def make_triplet_train_step(module: torch.nn.Module,
     draws_shape`). ``aug_draws`` (the preset's draws for this batch),
     ``drop_draws`` (the masks, in layer order) and ``mine_draws`` override
     them.
-    The mining runs inside a ``record_function("mining")`` range for the
-    profiler.
+    The mining runs inside a ``mining`` span (:mod:`~embeddingnet_tpu_torch.
+    utils.trace`).
 
     ``remat`` (``PERFORMANCE.remat``) runs the backbone's blocks under
     checkpoints (:mod:`~embeddingnet_tpu_torch.models.remat`): the same
@@ -261,7 +264,7 @@ def make_triplet_train_step(module: torch.nn.Module,
                             state.generator, aug_draws, rows)
             emb = _forward(module, x, state.generator, drop_draws,
                            rows).float()
-            with torch.profiler.record_function("mining"):
+            with trace.span("mining"):
                 loss, stats, objective = _triplet_loss(
                     parallel, emb, labels, margin, mode, state.generator,
                     mine_draws, max_positives)
