@@ -280,6 +280,7 @@ from embeddingnet_tpu_torch.models.api import EmbeddingNet
 from embeddingnet_tpu_torch.models.registry import EmbeddingModule
 from embeddingnet_tpu_torch.ops import _cuda
 from embeddingnet_tpu_torch.ops import augment as aug
+from embeddingnet_tpu_torch.ops import batchnorm as bnk
 from embeddingnet_tpu_torch.ops import fused_conv as fc
 from embeddingnet_tpu_torch.ops import preprocess as pre
 from embeddingnet_tpu_torch.ops.knn import knn_classify
@@ -294,6 +295,7 @@ SEED = 0
 DEVICE = "cuda"
 SM90_SRC = "embeddingnet_tpu_torch/csrc/conv3x3_sm90.cu"
 T2_SRC = "embeddingnet_tpu_torch/csrc/normalize_u8_sm90.cu"
+BN_SRC = "embeddingnet_tpu_torch/csrc/batchnorm_sm90.cu"
 JAX_CONV = "embeddingnet_tpu/ops/fused_conv.py"
 # phase 9's fit and phase 13 (d)'s encode as they decoded (phase 16 (a)
 # prints the native decoder's beside them)
@@ -311,6 +313,10 @@ KERNELS = {
     # follow a BatchNorm, so all are fused); ResNet-18's second block of a
     # stage does (conv1), so its path is phase 11's siamese fit
     "conv3x3_small": ("cuda", SM90_SRC, f"{JAX_CONV}:200"),
+    # BatchNorm: no TPU kernel (XLA fuses it into the convs); they replace
+    # the port's eager BatchNorm
+    **{name: ("cuda", BN_SRC, "ops/batchnorm.py plain_scale_bias, "
+              "plain_batch_norm") for name in bnk.LAUNCHES},
 }
 # the kernels whose per-step time is held to one library call's
 # (kernel ms / library ms in the kernels line)
@@ -709,7 +715,7 @@ def _kernel_label(mangled):
     """``conv3x3_sm90_kernel<false, 256, true>`` or
     ``normalize_u8_sm90_kernel`` from the mangled name of a kernel instance
     (bool and int template arguments)."""
-    m = re.search(r"\d+((?:conv3x3|normalize_u8)_\w*?_kernel)"
+    m = re.search(r"\d+((?:conv3x3|normalize_u8|bn)_\w*?_kernel)"
                   r"(?:I((?:L[bi]\d+E)+)E)?", mangled)
     if not m:
         return mangled
@@ -1008,6 +1014,260 @@ def normalize_kernel_phase(records):
           f"read (kernel, kernel, torch.mul, torch.mul): "
           + "; ".join(f"{k[:-6]} " + ", ".join(f"{v:.5f}" for v in reads)
                       for k, reads in r.items() if k.endswith("_reads")))
+
+
+# The BatchNorm layers the timing phase walks: the flagship (ResNet-50 at 64
+# px, fused BN-ReLU conv on) and the B3 cell's EfficientNet-B3 at 96 px.
+BN_MODELS = (("resnet50", 64, True), ("efficientnet-b3", 96, False))
+
+
+def _bn_layer_shapes(name, size, fast_conv):
+    """``{(kind, C, H, W): layers}`` of ``name``'s BatchNorms at ``size``
+    px, from a train-mode forward of one image on the CPU: ``kind``
+    BatchNorm (the affine applied) or BNScaleBias (the fused conv's)."""
+    import collections
+    module = EmbeddingModule(name, encodings_len=256, fast_conv=fast_conv,
+                             input_shape=(size, size, 3))
+    shapes = collections.Counter()
+
+    def hook(mod, args):
+        kind = ("BNScaleBias" if type(mod) is fc.BNScaleBias
+                else "BatchNorm")
+        shapes[(kind,) + tuple(args[0].shape[1:])] += 1
+    for mod in module.modules():
+        if isinstance(mod, fc.BNScaleBias):
+            mod.register_forward_pre_hook(hook)
+    with torch.no_grad():
+        module.train()(torch.rand(1, size, size, 3))
+    return shapes
+
+
+# BatchNorm's checks, each error a share of the plain version's largest
+# entry (tests/test_torch_port_cuda.py BN_F32, BN_BF16): f32 outputs,
+# running averages and parameter gradients to BN_SMOKE_F32 (sums of up to
+# a million terms added in another order, rsqrtf's 2 ulp); bf16 outputs and
+# dx to BN_SMOKE_BF16 (one bf16 rounding of values the two sides compute a
+# few f32 ulp apart). BatchNorm's cotangent is noise plus BN_DY_SLOPE * the
+# normalised input plus BN_DY_SHIFT, so that the backward's batch-mean and
+# projection terms are as large as dx itself: a kernel that drops or
+# misweighs one is off by more than the tolerance
+BN_SMOKE_F32, BN_SMOKE_BF16 = 1e-4, 1e-2
+BN_DY_SLOPE, BN_DY_SHIFT = 1.0, 1.0
+
+
+def _bn_rel(label, got, want, tol):
+    """The largest error of ``got`` as a share of ``want``'s largest
+    entry; raises past ``tol``."""
+    got, want = got.detach().double(), want.detach().double()
+    ref = max(want.abs().max().item(), 1e-30)
+    rel = (got - want).abs().max().item() / ref
+    if not torch.isfinite(got).all() or not rel <= tol:
+        raise AssertionError(f"{label}: error {rel:.3e} of the largest "
+                             f"entry, tolerance {tol:g}")
+    return rel
+
+
+def _bn_check_layer(kind, bn, x, rng):
+    """One layer's kernels against the plain version on the card from one
+    state and the same input values (f32 on the plain side): the forward
+    (y, or BNScaleBias's (scale, bias)), the running averages and batch
+    count, dx, dgamma and dbeta; and its launches, each once ({bn_stats,
+    bn_apply, bn_bwd_reduce, bn_bwd_dx} a BatchNorm, {bn_stats,
+    bn_finalize, bn_bwd_dx} a BNScaleBias). Returns {kernel: worst error
+    share} and the cotangent."""
+    import copy
+    c = x.shape[1]
+    plain = copy.deepcopy(bn)
+    if kind == "BatchNorm":
+        xf = x.float()
+        xhat = (xf - xf.mean((0, 2, 3), keepdim=True)) * torch.rsqrt(
+            xf.var((0, 2, 3), unbiased=False, keepdim=True) + bn.eps)
+        cot = (torch.randn_like(xf) + BN_DY_SLOPE * xhat
+               + BN_DY_SHIFT).to(torch.bfloat16)
+        del xf, xhat
+    else:
+        cot = tuple(torch.from_numpy(rng.normal(size=c).astype(
+            np.float32)).cuda() for _ in range(2))
+    outs = {}
+    for side, mod in (("kernels", bn), ("plain", plain)):
+        # the plain version from the same values in f32: its bf16 route
+        # casts x twice and adds dx's two parts in bf16, each rounded
+        # apart, a reference less exact than the kernels' one rounding
+        xr = x.detach().to(torch.float32 if side == "plain" else x.dtype,
+                           memory_format=torch.channels_last)
+        xr.requires_grad_()
+        bnk.reset_launch_counts()
+        if kind == "BatchNorm":
+            fn = bnk.batch_norm if side == "kernels" else bnk.plain_batch_norm
+            out = (fn(mod, xr, torch.bfloat16),)
+            out[0].backward(cot)
+        else:
+            fn = bnk.scale_bias if side == "kernels" else bnk.plain_scale_bias
+            out = fn(mod, xr)
+            (out[0] * cot[0] + out[1] * cot[1]).sum().backward()
+        torch.cuda.synchronize()
+        outs[side] = ([o.detach() for o in out], xr.grad, mod.weight.grad,
+                      mod.bias.grad, mod.running_mean.clone(),
+                      mod.running_var.clone(),
+                      mod.num_batches_tracked.item(), dict(bnk.LAUNCHES))
+        del xr
+    (fwd, dx, dg, db, rm, rv, n, launches), want = (outs["kernels"],
+                                                    outs["plain"])
+    label = f"batchnorm {kind} C={c} {x.shape[2]}x{x.shape[3]}"
+    expected = ({"bn_stats": 1, "bn_apply": 1, "bn_bwd_reduce": 1,
+                 "bn_bwd_dx": 1} if kind == "BatchNorm" else
+                {"bn_stats": 1, "bn_finalize": 1, "bn_bwd_dx": 1})
+    if launches != {k: expected.get(k, 0) for k in launches}:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{expected}")
+    if n != want[6]:
+        raise AssertionError(f"{label}: num_batches_tracked {n}, plain "
+                             f"{want[6]}")
+    grads = "bn_bwd_reduce" if kind == "BatchNorm" else "bn_finalize"
+    err = {
+        "bn_stats": max(_bn_rel(f"{label} {what}", g, w, BN_SMOKE_F32)
+                        for what, g, w in (("running_mean", rm, want[4]),
+                                           ("running_var", rv, want[5]))),
+        "bn_bwd_dx": _bn_rel(f"{label} dx", dx, want[1], BN_SMOKE_BF16),
+        grads: max(_bn_rel(f"{label} {what}", g, w, BN_SMOKE_F32)
+                   for what, g, w in (("dgamma", dg, want[2]),
+                                      ("dbeta", db, want[3]))),
+    }
+    if kind == "BatchNorm":
+        err["bn_apply"] = _bn_rel(f"{label} y", fwd[0], want[0][0],
+                                  BN_SMOKE_BF16)
+    else:
+        err["bn_stats"] = max(err["bn_stats"], *(
+            _bn_rel(f"{label} {what}", g, w, BN_SMOKE_F32)
+            for what, g, w in zip(("scale", "bias"), fwd, want[0])))
+    print(f"check {label}: forward, running averages, dx, dgamma, dbeta "
+          f"against the plain version, worst error shares " + ", ".join(
+              f"{k} {v:.2e}" for k, v in sorted(err.items())))
+    return err, cot
+
+
+def batchnorm_kernel_phase(records):
+    """The BatchNorm kernels (``csrc/batchnorm_sm90.cu``) at every BatchNorm
+    shape of the two cells' models at B=1,024, bf16 activations: each
+    layer's forward and backward checked against the plain version
+    (``_bn_check_layer``), then each kernel timed with CUDA events beside
+    its bytes bound (x read, y, dx written, each once: the statistics
+    R*C*2 bytes, the affine 4, the backward's sums 4, dx 6), the plain
+    eager forward and backward, and ``F.batch_norm``'s (a yardstick the
+    port never calls), all summed over the step's layers."""
+    rng = np.random.default_rng(SEED + 5)
+    out = {"max_rel_err": {name: 0.0 for name in bnk.LAUNCHES}}
+    for name, size, fast in BN_MODELS:
+        shapes = _bn_layer_shapes(name, size, fast)
+        step = {"kernels_ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0,
+                "library_ms": 0.0, "layers": sum(shapes.values())}
+        rows = []
+        for (kind, c, h, w), layers in sorted(shapes.items()):
+            x = torch.from_numpy((rng.normal(size=(TRAIN_BATCH, h, w, c))
+                                  * 2 + 1).astype(np.float32)).cuda().to(
+                torch.bfloat16).permute(0, 3, 1, 2)
+            bn = (fc.BNScaleBias(c, momentum=0.9) if kind == "BNScaleBias"
+                  else _bn_module(c)).cuda().train()
+            err, cot = _bn_check_layer(kind, bn, x, rng)
+            for k, v in err.items():
+                out["max_rel_err"][k] = max(out["max_rel_err"][k], v)
+            dy = cot if kind == "BatchNorm" else torch.randn_like(x)
+            call = bnk._call(bn, x, None)
+            stat = torch.empty((4, c), device=DEVICE)
+            coef = torch.empty((4, c), device=DEVICE)
+            y = torch.empty_like(x)
+            dg, db = torch.empty_like(bn.weight), torch.empty_like(bn.bias)
+            n = x.numel() * 2
+            fns = {"bn_stats": (lambda: bnk._stats(
+                call, x, stat, bnk.TRAIN), n)}
+            if kind == "BatchNorm":
+                fns["bn_apply"] = (lambda: bnk._apply(call, x, y, stat),
+                                   2 * n)
+                fns["bn_bwd_reduce"] = (lambda: bnk._bwd_reduce(
+                    call, x, dy, coef,
+                    bnk.BACKWARD | bnk.TRAIN | bnk.DIRECT, stat, dg, db),
+                    2 * n)
+                fns["bn_bwd_dx"] = (lambda: bnk._bwd_dx(call, x, dy, coef),
+                                    3 * n)
+            else:
+                fns["bn_finalize"] = (lambda: bnk._finalize(
+                    call, coef, bnk.BACKWARD | bnk.TRAIN,
+                    local=(stat[3], stat[2]), stat=stat, dgamma=dg,
+                    dbeta=db), 0)
+                fns["bn_bwd_dx"] = (lambda: bnk._bwd_dx(call, x, None, coef),
+                                    2 * n)
+            bnk._stats(call, x, stat, bnk.TRAIN)
+            row = {"kind": kind, "C": c, "H": h, "W": w, "layers": layers,
+                   "max_rel_err": err}
+            for key, (fn, nbytes) in fns.items():
+                row[key + "_ms"] = cuda_ms(fn, iters=20)
+                row[key + "_bound_ms"] = bound(0, nbytes)[0]
+            xr = x.detach().requires_grad_()
+
+            def plain():
+                if kind == "BatchNorm":
+                    o = bnk.plain_batch_norm(bn, xr, torch.bfloat16)
+                    o.backward(dy)
+                else:
+                    s, b = bnk.plain_scale_bias(bn, xr)
+                    (s.sum() + b.sum()).backward()
+
+            def library():
+                o = F.batch_norm(xr, bn.running_mean, bn.running_var,
+                                 bn.weight, bn.bias, True, 0.1, bn.eps)
+                o.backward(dy)
+            row["plain_ms"] = cuda_ms(plain, iters=10)
+            row["library_ms"] = cuda_ms(library, iters=10)
+            row["kernels_ms"] = sum(row[k + "_ms"] for k in fns)
+            row["bound_ms"] = sum(row[k + "_bound_ms"] for k in fns)
+            for key in ("kernels_ms", "bound_ms", "plain_ms", "library_ms"):
+                step[key] += layers * row[key]
+            rows.append(row)
+            del x, dy, y, xr, cot
+        print(f"time batchnorm {name} {size} px, B={TRAIN_BATCH}, "
+              f"{step['layers']} layers a step: kernels forward and backward "
+              f"{step['kernels_ms']:.3f} ms (bound {step['bound_ms']:.3f}), "
+              f"plain eager {step['plain_ms']:.3f}, F.batch_norm "
+              f"{step['library_ms']:.3f}")
+        out[name] = {"step": step, "shapes": rows}
+    records["batchnorm"] = out
+    print(json.dumps({"batchnorm": out}))
+    return out
+
+
+def _bn_per_step(module):
+    """BatchNorm's launches in one training step of ``module``: a
+    BatchNorm layer launches bn_stats, bn_apply, bn_bwd_reduce and
+    bn_bwd_dx once, a BNScaleBias (the fused conv's) bn_stats, bn_finalize
+    and bn_bwd_dx."""
+    fused = sum(type(m) is fc.BNScaleBias for m in module.modules())
+    applied = sum(isinstance(m, fc.BNScaleBias)
+                  for m in module.modules()) - fused
+    return {"bn_stats": applied + fused, "bn_apply": applied,
+            "bn_bwd_reduce": applied, "bn_bwd_dx": applied + fused,
+            "bn_finalize": fused}
+
+
+def _bn_kernel_line(name, route, source, replaces, rec, launches):
+    """A BatchNorm kernel's entry of the kernels line: its launches in the
+    augmented training step, its worst error share in the phase's checks,
+    and its CUDA-event time and bytes bound summed over ResNet-50's
+    layers."""
+    layers = [r for r in rec["resnet50"]["shapes"] if name + "_ms" in r]
+    return {"name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_rel_err": rec["max_rel_err"][name],
+            "ms": sum(r["layers"] * r[name + "_ms"] for r in layers),
+            "bound_ms": sum(r["layers"] * r[name + "_bound_ms"]
+                            for r in layers),
+            "per": f"augmented training step (ResNet-50), B={TRAIN_BATCH}; "
+                   f"ms the phase's back-to-back events summed over the "
+                   f"layers"}
+
+
+def _bn_module(c):
+    from embeddingnet_tpu_torch.models.resnet import BatchNorm
+    return BatchNorm(c, eps=1e-3, momentum=0.9, compute_dtype=torch.bfloat16)
 
 
 def _exact_epilogue_inputs(rng, b, s, c):
@@ -1469,9 +1729,10 @@ def training_phase(db_images, db_classes):
     # ---- the main path: every launch count from here to the reading ----
     fc.reset_launch_counts()
     pre.reset_launch_counts()
+    bnk.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     times, metrics = _timed_steps(state, step, timed)
-    launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    launches = {**fc.LAUNCHES, **pre.LAUNCHES, **bnk.LAUNCHES}
     # ---- end of the main path ----
     peak = torch.cuda.max_memory_allocated()
     med = float(np.median(times))
@@ -1601,9 +1862,10 @@ def augmented_training_phase(db_classes):
     # ---- the main path: every launch count from here to the reading ----
     fc.reset_launch_counts()
     pre.reset_launch_counts()
+    bnk.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     times, metrics = _timed_steps(state, step, timed)
-    launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    launches = {**fc.LAUNCHES, **pre.LAUNCHES, **bnk.LAUNCHES}
     # ---- end of the main path ----
     peak = torch.cuda.max_memory_allocated()
     med = float(np.median(times))
@@ -1616,7 +1878,8 @@ def augmented_training_phase(db_classes):
         f"{m['frac_mined']:.3f}" for m in metrics) + "; last step "
         f"mean_pos_dist {metrics[-1]['mean_pos_dist']:.4f}, mean_neg_dist "
         f"{metrics[-1]['mean_neg_dist']:.4f}")
-    _check_training("train+aug", metrics, launches, EXPECTED_AUG_PER_STEP,
+    _check_training("train+aug", metrics, launches,
+                    {**EXPECTED_AUG_PER_STEP, **_bn_per_step(module)},
                     AUG_TIMED_STEPS)
 
     busy, device_ms, ours, top, wall, augment = _device_busy(state, step,
@@ -4401,6 +4664,7 @@ def main():
     forward_kernel_phase(records)
     backward_kernel_phase(records)
     normalize_kernel_phase(records)
+    batchnorm_kernel_phase(records)
     epilogue_kernel_phase(records)
     tool_launches, t1_device_ms = epilogue_tool_phase()
     fc.reset_launch_counts()
@@ -4429,6 +4693,11 @@ def main():
 
     lines, step_sum = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     for name, (route, source, replaces) in KERNELS.items():
+        if name in bnk.LAUNCHES:
+            lines.append(_bn_kernel_line(name, route, source, replaces,
+                                         records["batchnorm"],
+                                         train_launches[name]))
+            continue
         rec = records[name]
         launches = train_launches[name]
         per = f"augmented training step, B={TRAIN_BATCH}"
@@ -4489,6 +4758,9 @@ def main():
         lines.append(entry)
     print(json.dumps({"kernels": lines,
                       "training_step_kernels_sum": step_sum,
+                      "batchnorm_step": {
+                          name: records["batchnorm"][name]["step"]
+                          for name, _, _ in BN_MODELS},
                       "training_step_part_sums_ms": device[PART_SUM_NAME],
                       "mining": mining_rows}))
     print(smi)
@@ -4502,5 +4774,11 @@ if __name__ == "__main__":
         _fit_child(sys.argv[2:])
     elif sys.argv[1:2] == [TP_CHILD_FLAG]:
         _tp_child(sys.argv[2:])
+    elif sys.argv[1:2] == ["--batchnorm"]:
+        check_card()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build()
+        batchnorm_kernel_phase({})
     else:
         main()

@@ -376,8 +376,10 @@ class EmbeddingNet:
         The program is traced on the library path: a copy of the encoder
         built with ``fast_conv`` off (cuDNN or the CPU's convs in place of
         the hand-written kernels, which are not ``torch.library`` ops and
-        are built at run time), carrying the same ``state_dict``, so the
-        file loads where the kernels' build does not exist. It is a file
+        are built at run time), carrying the same ``state_dict``, its
+        BatchNorms traced as PyTorch's ops (``ops/batchnorm.py`` takes the
+        plain version on the tracer's fake tensors), so the file loads
+        where the kernels' build does not exist. It is a file
         format, not the serving path: :meth:`embed`, :meth:`encode_dataset`
         and the kNN keep running the kernels."""
         copy = EmbeddingModule(fast_conv=False, **self._architecture)

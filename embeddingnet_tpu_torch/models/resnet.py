@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from embeddingnet_tpu_torch.models import remat
 from embeddingnet_tpu_torch.models.heads import Dense, lecun_normal_
+from embeddingnet_tpu_torch.ops import batchnorm
 from embeddingnet_tpu_torch.ops.fused_conv import (BNScaleBias, FastConv3x3,
                                                     FusedBNReluConv3x3, cast)
 from embeddingnet_tpu_torch.utils import trace
@@ -58,9 +59,10 @@ class Conv2d(nn.Conv2d):
 class BatchNorm(BNScaleBias):
     """Flax ``nn.BatchNorm`` over NCHW: the affine of :class:`BNScaleBias`
     applied in f32, the result in ``compute_dtype`` (f32 when None; a
-    float64 input stays float64). ``use_scale=False`` (Flax's, the
-    Inceptions') keeps a unit ``weight`` that is a buffer outside the
-    ``state_dict``, so the parameters are Flax's leaves."""
+    float64 input stays float64); on the card the kernels of
+    :mod:`~embeddingnet_tpu_torch.ops.batchnorm`. ``use_scale=False``
+    (Flax's, the Inceptions') keeps a unit ``weight`` that is a buffer
+    outside the ``state_dict``, so the parameters are Flax's leaves."""
 
     def __init__(self, num_features: int, eps: float, momentum: float,
                  compute_dtype: Optional[torch.dtype] = None,
@@ -74,10 +76,7 @@ class BatchNorm(BNScaleBias):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with trace.span("bn"):
-            scale, bias = self.scale_bias(x)
-            y = (x.to(scale.dtype) * scale[:, None, None]
-                 + bias[:, None, None])
-            return y.to(self.compute_dtype or scale.dtype)
+            return batchnorm.batch_norm(self, x, self.compute_dtype)
 
 
 def _conv3x3(in_channels, filters, strides, groups, use_bias, dtype, fast):

@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _D = ctypes.c_longlong, ctypes.c_double
 # Entry points of each source: name -> (argtypes); all return int (the
 # launch's cudaGetLastError(), or a negative code the source documents).
 # embn_conv3x3_sm90 (K1 forward and dgrad, K3, T1): x, w, scale, bias (both
@@ -42,11 +43,22 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # through the runtime (cudaGetDriverEntryPoint), so no library beyond the
 # runtime is linked. embn_normalize_u8 (T2): x, out, n, head, grid, stream;
 # embn_normalize_u8_blocks_per_sm: a pointer to the int it fills.
+# batchnorm_sm90.cu (ops/batchnorm.py): pointers, then rows, spatial and
+# rows per block, then the ints of the channels, layout, plan, dtypes and
+# flags, then eps, momentum and count, the stream last; the source says
+# which are which.
 ENTRY_POINTS = {
     "conv3x3_sm90": {"embn_conv3x3_sm90": [_P] * 5 + [_I] * 7 + [_P],
                      "embn_conv3x3_wgrad_sm90": [_P] * 6 + [_I] * 6 + [_P]},
     "normalize_u8_sm90": {"embn_normalize_u8": [_P] * 2 + [_I] * 3 + [_P],
                           "embn_normalize_u8_blocks_per_sm": [_P]},
+    "batchnorm_sm90": {
+        "embn_bn_stats": [_P] * 9 + [_L] * 3 + [_I] * 9 + [_D] * 3 + [_P],
+        "embn_bn_apply": [_P] * 7 + [_L] * 3 + [_I] * 9 + [_D] + [_P],
+        "embn_bn_bwd_reduce": [_P] * 9 + [_L] * 3 + [_I] * 10 + [_D] * 2
+        + [_P],
+        "embn_bn_bwd_dx": [_P] * 4 + [_L] * 3 + [_I] * 8 + [_P],
+        "embn_bn_finalize": [_P] * 13 + [_I] * 4 + [_D] * 3 + [_P]},
 }
 SOURCES = [CSRC / f"{name}.cu" for name in ENTRY_POINTS]
 

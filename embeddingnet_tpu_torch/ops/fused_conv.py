@@ -52,8 +52,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from embeddingnet_tpu_torch.ops import _cuda, batchnorm_context
-from embeddingnet_tpu_torch.parallel import collectives
+from embeddingnet_tpu_torch.ops import _cuda, batchnorm
 from embeddingnet_tpu_torch.utils import trace
 
 # Launches of each kernel since the last reset_launch_counts(), counted
@@ -764,6 +763,10 @@ class BNScaleBias(nn.BatchNorm2d):
     mesh; while ``recomputing`` (a rematerialised forward) the running
     averages stay as the first forward left them.
 
+    A CPU tensor runs the eager version
+    (:func:`~embeddingnet_tpu_torch.ops.batchnorm.plain_scale_bias`); a CUDA
+    tensor the kernels of :mod:`~embeddingnet_tpu_torch.ops.batchnorm`.
+
     The forward runs inside a ``bn`` span (:mod:`~embeddingnet_tpu_torch.
     utils.trace`); a subclass that applies the affine too opens its own
     around :meth:`scale_bias` and the affine, so one layer call is one
@@ -781,33 +784,7 @@ class BNScaleBias(nn.BatchNorm2d):
 
     def scale_bias(self, x: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        # f32, or f64 for a float64 input (a module converted with .double())
-        acc = torch.promote_types(x.dtype, torch.float32)
-        if self.training:
-            xf = x.to(acc)
-            ctx = batchnorm_context.current()
-            if ctx.world is None:
-                mean = xf.mean((0, 2, 3))
-                ex2 = xf.square().mean((0, 2, 3))
-            else:
-                sums = collectives.all_reduce_sum(torch.cat(
-                    [xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3))]),
-                    ctx.world.group)
-                count = xf.numel() // xf.shape[1] * ctx.world.size
-                mean, ex2 = (sums / count).chunk(2)
-            var = (ex2 - mean.square()).clamp_min(0)
-            if not ctx.recomputing:
-                with torch.no_grad():
-                    self.running_mean.lerp_(mean.to(self.running_mean.dtype),
-                                            self.momentum)
-                    self.running_var.lerp_(var.to(self.running_var.dtype),
-                                           self.momentum)
-                    self.num_batches_tracked += 1
-        else:
-            mean, var = self.running_mean, self.running_var
-        scale = torch.rsqrt(var.to(acc) + self.eps) * self.weight.to(acc)
-        bias = self.bias.to(acc) - mean.to(acc) * scale
-        return scale, bias
+        return batchnorm.scale_bias(self, x)
 
 
 class FusedBNReluConv3x3(nn.Conv2d):

@@ -4,7 +4,9 @@ with the affine-ReLU epilogue T1 — all in csrc/conv3x3_sm90.cu, the
 TMA/wgmma design, K3 and K4 with the BN-ReLU prologue on the landed input
 tile, T1 with the epilogue on the accumulators — and the u8 normalisation
 T2 of csrc/normalize_u8_sm90.cu, at its edges too: a tail, misaligned
-views, no elements) against their plain PyTorch versions, the modules that
+views, no elements, and BatchNorm's statistics, affine and backward of
+csrc/batchnorm_sm90.cu, whose tolerances are stated beside their tests)
+against their plain PyTorch versions, the modules that
 launch them, forward and backward, the augmentation presets, the miner,
 the ViT forward and the ArcFace loss, and the EfficientNet/MobileNet/simple
 CNN forward and backward on the card against the CPU.
@@ -33,6 +35,7 @@ torch = pytest.importorskip("torch")
 
 from embeddingnet_tpu_torch.ops import _cuda  # noqa: E402
 from embeddingnet_tpu_torch.ops import augment as aug  # noqa: E402
+from embeddingnet_tpu_torch.ops import batchnorm as bnk  # noqa: E402
 from embeddingnet_tpu_torch.ops import fused_conv as fc  # noqa: E402
 from embeddingnet_tpu_torch.ops import preprocess as pre  # noqa: E402
 
@@ -55,9 +58,11 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = False
     fc.reset_launch_counts()
     pre.reset_launch_counts()
+    bnk.reset_launch_counts()
     yield torch.device("cuda")
     fc.reset_launch_counts()
     pre.reset_launch_counts()
+    bnk.reset_launch_counts()
 
 
 def _inputs(seed, b, s, cin, cout, device):
@@ -918,3 +923,399 @@ def test_same_max_pool_and_nasnet_adjust_on_the_card(card, n):
         got = copy.deepcopy(model).to(card).eval()(images.to(card)).cpu()
     assert _rel(got, want) < 1e-5
     assert fc.LAUNCHES == _launched()
+
+
+# -- BatchNorm: csrc/batchnorm_sm90.cu through ops/batchnorm.py -------------
+#
+# The kernels against the plain eager version on the CPU (the same module
+# state, the same inputs), f32 with TF32 off. Tolerances, each as a share of
+# the reference tensor's largest entry: f32 outputs, running averages and
+# parameter gradients to BN_F32 (sums of up to a million f32 terms added in
+# another order, and rsqrtf's 2 ulp against the CPU's); dx to BN_F32 of the
+# largest |scale * dy|, its direct term: the train-mode backward subtracts
+# the gradient's batch mean and its projection on x, which leaves a residue
+# that the two orders of summation round differently; bf16 outputs and dx to
+# BN_BF16 (one bf16 rounding of values the two sides compute a few f32 ulp
+# apart lands a bf16 ulp, 2^-8, either way).
+BN_F32 = 1e-4
+BN_BF16 = 1e-2
+# float64 (a module converted with .double(), as the card-vs-CPU checks
+# convert theirs; the kernels' float64 instances): every output and
+# gradient to BN_F64, sums of up to 262,144 float64 terms in another order
+# (some 1e-12 of the terms at most); a wrong term would be of their size
+BN_F64 = 1e-10
+# the tolerance of an output or input gradient in its dtype
+BN_TOL = {torch.float32: BN_F32, torch.bfloat16: BN_BF16,
+          torch.float64: BN_F64}
+
+# (N, C, H, W): ResNet-50's first and last BatchNorm at 64 px and
+# EfficientNet-B3's at 96 px with the batch cut, B3's 1,392-wide layer, and
+# an odd C over a single row
+BN_SHAPES = [(8, 64, 32, 32), (64, 2048, 2, 2), (8, 40, 48, 48),
+             (16, 1536, 3, 3), (8, 1392, 3, 3), (1, 7, 1, 1)]
+
+
+def _bn_launched(**counts):
+    return {name: counts.get(name, 0) for name in bnk.LAUNCHES}
+
+
+def _bn_modules(kind, c, dtype, device, seed=0):
+    """A BatchNorm (or BNScaleBias) with drawn parameters and running
+    averages, on ``device``."""
+    from functools import partial
+    from embeddingnet_tpu_torch.models import resnet
+    make = (partial(resnet.BatchNorm, compute_dtype=dtype)
+            if kind == "BatchNorm" else fc.BNScaleBias)
+    bn = make(c, eps=1e-3, momentum=0.9)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, c)))
+        bn.bias.copy_(torch.from_numpy(rng.normal(size=c) * 0.1))
+        bn.running_mean.copy_(torch.from_numpy(rng.normal(size=c) * 0.1))
+        bn.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, c)))
+    return bn.to(device)
+
+
+def _bn_input(shape, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    n, c, h, w = shape
+    x = rng.normal(size=(n, h, w, c)) * 2.0 + rng.normal(size=c)
+    return torch.from_numpy(x.astype(np.float32)).to(dtype).to(
+        device).permute(0, 3, 1, 2)                 # channels_last NCHW
+
+
+def _bn_run(bn, x, cot):
+    """Forward and backward of ``bn`` on ``x`` with cotangents ``cot``:
+    (outputs, dx, dgamma, dbeta)."""
+    x = x.detach().clone(memory_format=torch.preserve_format)
+    x.requires_grad_()
+    for p in bn.parameters():
+        p.grad = None
+    out = bn(x)
+    outs = out if isinstance(out, tuple) else (out,)
+    sum((o.float() * c).sum() for o, c in zip(outs, cot)).backward()
+    return ([o.detach() for o in outs], x.grad, bn.weight.grad,
+            bn.bias.grad)
+
+
+def _bn_scales(bn, x, cot, kind, training):
+    """The largest terms that the backward adds and cancels, as float64
+    computes them: for dx = a * dy + b * x + c, |a dy| or |b x|; for
+    dgamma = rstd * (dscale - mean * dbias), rstd * |dscale| or rstd *
+    |mean * dbias|. Either side's rounding is a share of them (at R = 1 the
+    exact values are 0). ``bn`` holds the parameters and, in eval mode, the
+    running averages used."""
+    x = x.double()
+    n = x.numel() // x.shape[1]
+    gamma = bn.weight.detach().double()
+    if training:
+        mean = x.mean((0, 2, 3))
+        var = x.var((0, 2, 3), unbiased=False)
+    else:
+        mean, var = bn.running_mean.double(), bn.running_var.double()
+    rstd = torch.rsqrt(var + bn.eps)
+    if kind == "BatchNorm":
+        dy = cot[0].to(bn.compute_dtype or torch.float32).double()
+        dscale, dbias = (dy * x).sum((0, 2, 3)), dy.sum((0, 2, 3))
+        direct = ((gamma * rstd)[:, None, None] * dy).abs().max()
+    else:
+        dscale, dbias = cot[0].double(), cot[1].double()
+        direct = torch.zeros((), dtype=torch.float64)
+    b = (-gamma * (dscale - mean * dbias) * rstd ** 3 / n if training
+         else torch.zeros_like(mean))
+    dx = max(direct.item(), (b[:, None, None] * x).abs().max().item())
+    dgamma = (rstd * torch.maximum(dscale.abs(), (mean * dbias).abs())
+              ).max().item()
+    return dx, dgamma
+
+
+def _bn_close(got, want, tol, ref=None):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    ref = want.abs().max().item() if ref is None else ref
+    err = (got - want).abs().max().item()
+    assert err <= tol * max(ref, 1e-30), (err, ref, tol)
+
+
+@pytest.mark.parametrize("training", [True, False])
+@pytest.mark.parametrize("kind", ["BatchNorm", "BNScaleBias"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_batchnorm_kernels_match_plain(card, shape, dtype, kind, training):
+    """Forward (y or (scale, bias)), the running averages and
+    num_batches_tracked, dx, dgamma and dbeta of the kernels against the
+    plain version on the CPU from one state, in train and eval mode; and
+    the launches: two a layer each way in train mode (one forward for
+    BNScaleBias), bn_apply alone for an eval BatchNorm forward. A float64
+    module runs the kernels' float64 instances, never the plain version."""
+    c = shape[1]
+    x = _bn_input(shape, dtype, 1, "cpu")
+    rng = np.random.default_rng(2)
+    if kind == "BatchNorm":
+        cot = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))]
+    else:
+        cot = [torch.from_numpy(rng.normal(size=c).astype(np.float32))
+               for _ in range(2)]
+    cpu = _bn_modules(kind, c, dtype, "cpu").train(training)
+    gpu = _bn_modules(kind, c, dtype, card).train(training)
+    if dtype == torch.float64:
+        cpu.double(), gpu.double()
+    bnk.reset_launch_counts()
+    want = _bn_run(cpu, x, cot)
+    got = _bn_run(gpu, x.to(card), [t.to(card) for t in cot])
+    torch.cuda.synchronize()
+    tol = BN_TOL[dtype]
+    # parameters and running averages: f32 (or float64)
+    param_tol = BN_F64 if dtype == torch.float64 else BN_F32
+    for g, w in zip(got[0], want[0]):
+        assert g.dtype == w.dtype
+        _bn_close(g, w, BN_TOL[g.dtype])
+    dx_scale, dgamma_scale = _bn_scales(cpu, x, cot, kind, training)
+    if kind == "BatchNorm" or training:
+        _bn_close(got[1], want[1], tol, dx_scale)
+    else:
+        assert got[1] is None and want[1] is None
+    _bn_close(got[2], want[2], param_tol, dgamma_scale)
+    _bn_close(got[3], want[3], param_tol)
+    for name in ("running_mean", "running_var"):
+        _bn_close(getattr(gpu, name), getattr(cpu, name), param_tol)
+    assert gpu.num_batches_tracked.item() == cpu.num_batches_tracked.item()
+    if training:
+        want_launches = dict(bn_stats=1, bn_bwd_dx=1)
+        want_launches["bn_apply" if kind == "BatchNorm" else
+                      "bn_finalize"] = 1
+        if kind == "BatchNorm":
+            want_launches["bn_bwd_reduce"] = 1
+    elif kind == "BatchNorm":   # the backward finishes the running averages
+        want_launches = dict(bn_apply=1, bn_finalize=1, bn_bwd_reduce=1,
+                             bn_bwd_dx=1)
+    else:
+        want_launches = dict(bn_finalize=2)
+    assert bnk.LAUNCHES == _bn_launched(**want_launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("case", ["nchw", "unaligned", "odd_c"])
+def test_batchnorm_edges_match_plain(card, case, dtype):
+    """A contiguous NCHW input (taken through its strides; NASNet's stem
+    adjusts feed one), a channels_last view whose base is not 16-byte
+    aligned and C = 42 run the one-channel instances and match the plain
+    version, in bf16 and in float64."""
+    shape = (4, 42 if case == "odd_c" else 64, 6, 6)
+    x = _bn_input(shape, dtype, 3, "cpu")
+    if case == "nchw":
+        x = x.contiguous()
+    xg = x.to(card)
+    if case == "nchw":
+        xg = xg.contiguous()
+        assert bnk.geometry(xg).nchw == 1
+    elif case == "unaligned":
+        n, c, h, w = shape
+        flat = torch.empty(n * h * w * c + 1, dtype=dtype, device=card)
+        xg = flat[1:].view(n, h, w, c).permute(0, 3, 1, 2)
+        xg.copy_(x.to(card))
+        assert xg.data_ptr() % 16 and bnk.geometry(xg).nchw == 0
+    assert bnk.vector_width(bnk.geometry(xg), xg) == 1
+    cot = [torch.from_numpy(np.random.default_rng(4).normal(
+        size=shape).astype(np.float32))]
+    cpu = _bn_modules("BatchNorm", shape[1], dtype, "cpu")
+    gpu = _bn_modules("BatchNorm", shape[1], dtype, card)
+    if dtype == torch.float64:
+        cpu.double(), gpu.double()
+    want = _bn_run(cpu, x, cot)
+    got = _bn_run(gpu, xg, [cot[0].to(card)])
+    param_tol = BN_F64 if dtype == torch.float64 else BN_F32
+    _bn_close(got[0][0], want[0][0], BN_TOL[dtype])
+    _bn_close(got[1], want[1], BN_TOL[dtype])
+    _bn_close(got[2], want[2], param_tol)
+    _bn_close(got[3], want[3], param_tol)
+    _bn_close(gpu.running_var, cpu.running_var, param_tol)
+
+
+def test_batchnorm_recomputing_leaves_running_averages(card):
+    """A rematerialised forward (``recomputing``) gives the first forward's
+    output and leaves the running averages and the batch count alone."""
+    from embeddingnet_tpu_torch.ops import batchnorm_context as ctxm
+    x = _bn_input((8, 256, 8, 8), torch.bfloat16, 5, card)
+    bn = _bn_modules("BatchNorm", 256, torch.bfloat16, card)
+    before = {k: v.clone() for k, v in bn.state_dict().items()}
+    again = ctxm.current()._replace(recomputing=True)
+    with ctxm.use(again):
+        y_re = bn(x)
+    after = bn.state_dict()
+    assert all(torch.equal(before[k], after[k]) for k in before)
+    y = bn(x)
+    assert torch.equal(y, y_re)
+    assert bn.num_batches_tracked.item() == before[
+        "num_batches_tracked"].item() + 1
+    assert not torch.equal(bn.running_var, before["running_var"])
+
+
+def test_batchnorm_is_bitwise_repeatable(card):
+    """The sums add their partials in a fixed order: two runs from one
+    state give the same outputs, gradients and running averages bit for
+    bit, at the stem's shape (521 row groups) and the last layer's."""
+    for shape in ((64, 64, 32, 32), (256, 2048, 2, 2)):
+        x = _bn_input(shape, torch.bfloat16, 6, card)
+        cot = [torch.from_numpy(np.random.default_rng(7).normal(
+            size=shape).astype(np.float32)).to(card)]
+        runs = []
+        for _ in range(2):
+            bn = _bn_modules("BatchNorm", shape[1], torch.bfloat16, card)
+            runs.append(_bn_run(bn, x, cot) + (bn.running_var.clone(),))
+        a, b = runs
+        assert torch.equal(a[0][0], b[0][0])
+        for i in (1, 2, 3, 4):
+            assert torch.equal(a[i], b[i]), i
+
+
+def test_batchnorm_wrapper_refuses_what_the_kernels_cannot_take(card):
+    """A float64 CUDA input to a module that is not float64 (the kernels'
+    float64 instances take float64 modules alone), a float16 input, a
+    layout that is neither channels_last nor contiguous NCHW, a 2-D input,
+    parameters of two dtypes and a float64 module asked for a bf16 output
+    raise before any launch."""
+    bnk.reset_launch_counts()
+    bn = _bn_modules("BatchNorm", 64, torch.bfloat16, card)
+    x = _bn_input((4, 64, 8, 8), torch.float32, 8, card)
+    for bad in (x.double(), x.half(), x[:, :, ::2], x.contiguous()[..., 1:],
+                x[:, :, 0, 0]):
+        with pytest.raises(ValueError):
+            bnk.batch_norm(bn, bad, torch.bfloat16)
+        with pytest.raises(ValueError):
+            bnk.scale_bias(bn, bad)
+    bn.running_var.data = bn.running_var.data.bfloat16()
+    with pytest.raises(ValueError):
+        bnk.batch_norm(bn, x, torch.bfloat16)
+    bn64 = _bn_modules("BatchNorm", 64, None, card).double()
+    with pytest.raises(ValueError):
+        bnk.batch_norm(bn64, x.double(), torch.bfloat16)
+    with pytest.raises(ValueError):
+        bnk.batch_norm(bn64, x, None)
+    assert bnk.LAUNCHES == _bn_launched()
+
+
+def test_batchnorm_global_statistics_in_an_nccl_group_of_one(card):
+    """With a world (an NCCL group of one rank), the statistics kernel writes
+    the sums, the collective runs and bn_finalize finishes them, forward
+    and backward: the same numbers bit for bit as without a world; and the
+    data-parallel f32 train step through the kernels matches the
+    one-process step on the card to BN_F32 (loss, gradients, running
+    averages)."""
+    import copy
+    import socket
+    import torch.distributed as dist
+    from embeddingnet_tpu_torch.models.heads import EmbeddingHead
+    from embeddingnet_tpu_torch.models.registry import EmbeddingModule
+    from embeddingnet_tpu_torch.models.resnet import resnet18
+    from embeddingnet_tpu_torch.ops import batchnorm_context as ctxm
+    from embeddingnet_tpu_torch.parallel.collectives import DataParallel
+    from embeddingnet_tpu_torch.train.optim import get_optimizer
+    from embeddingnet_tpu_torch.train.state import TrainState
+    from embeddingnet_tpu_torch.train.steps import make_triplet_train_step
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        world = DataParallel.current()
+        shape = (16, 256, 8, 8)
+        x = _bn_input(shape, torch.bfloat16, 9, card)
+        cot = [torch.from_numpy(np.random.default_rng(10).normal(
+            size=shape).astype(np.float32)).to(card)]
+        for kind in ("BatchNorm", "BNScaleBias"):
+            if kind == "BNScaleBias":
+                cot = [t.to(card) for t in (torch.randn(256), torch.randn(
+                    256))]
+            runs = []
+            for w in (None, world):
+                bn = _bn_modules(kind, 256, torch.bfloat16, card)
+                bnk.reset_launch_counts()
+                with ctxm.global_statistics(w):
+                    out = _bn_run(bn, x, cot)
+                runs.append((out, bn.running_mean.clone(),
+                             bn.running_var.clone(), dict(bnk.LAUNCHES)))
+            (a, am, av, al), (b, bm, bv, bl) = runs
+            for ga, gb in zip(a[0], b[0]):
+                assert torch.equal(ga, gb), kind
+            for i in (1, 2, 3):
+                assert torch.equal(a[i], b[i]), (kind, i)
+            assert torch.equal(am, bm) and torch.equal(av, bv)
+            assert bl["bn_finalize"] >= 2 and al["bn_finalize"] <= 1, (
+                al, bl)
+        base = EmbeddingModule("resnet18", encodings_len=16)
+        base.backbone = resnet18(num_filters=16)
+        base.head = EmbeddingHead(base.backbone.out_channels, 16)
+        base.reset_parameters(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(1)
+        images = torch.from_numpy(rng.integers(0, 256, (32, 32, 32, 3),
+                                               dtype=np.uint8))
+        labels = torch.arange(8).repeat_interleave(4)
+        out = []
+        for dp in (world, None):
+            module = copy.deepcopy(base).to(card)
+            spec = get_optimizer("sgd", 0.05)
+            state = TrainState.create(module, spec)
+            step = make_triplet_train_step(module, spec, mode="batch_all",
+                                           max_positives=3, parallel=dp)
+            bnk.reset_launch_counts()
+            _, m = step(state, images, labels)
+            torch.cuda.synchronize()
+            assert bnk.LAUNCHES["bn_stats"] > 0
+            out.append((m["loss"].cpu(), {
+                n: p.grad.cpu() for n, p in module.named_parameters()},
+                {k: v.cpu() for k, v in module.state_dict().items()
+                 if "running_" in k}))
+        (l_dp, g_dp, s_dp), (l_one, g_one, s_one) = out
+        _bn_close(l_dp, l_one, BN_F32)
+        for n, g in g_one.items():
+            _bn_close(g_dp[n], g, BN_F32)
+        for k, v in s_one.items():
+            _bn_close(s_dp[k], v, BN_F32)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_batchnorm_under_remat_matches_without(card):
+    """A bf16 ResNet-18 step with its blocks rematerialised (the recompute
+    runs the statistics kernel again, ``recomputing``) against the same
+    step without: the loss and the BatchNorm state equal, bit for bit (the
+    kernels' sums are repeatable and the recompute leaves the running
+    averages alone), the gradients to BN_BF16 of their largest entry (the
+    convs' backward may add in another order)."""
+    import copy
+    from embeddingnet_tpu_torch.models import remat
+    from embeddingnet_tpu_torch.models.heads import EmbeddingHead
+    from embeddingnet_tpu_torch.models.registry import EmbeddingModule
+    from embeddingnet_tpu_torch.models.resnet import resnet18
+    base = EmbeddingModule("resnet18", encodings_len=16, dtype=torch.bfloat16)
+    base.backbone = resnet18(num_filters=16, dtype=torch.bfloat16)
+    base.head = EmbeddingHead(base.backbone.out_channels, 16)
+    base.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(11).uniform(
+        size=(32, 32, 32, 3)).astype(np.float32)).to(card)
+    out = {}
+    for on in (False, True):
+        module = copy.deepcopy(base).to(card).train()
+        bnk.reset_launch_counts()
+        with remat.rematerialize(on):
+            loss = module(x).float().square().sum()
+            loss.backward()
+        torch.cuda.synchronize()
+        out[on] = (loss.detach(), {n: p.grad for n, p in
+                                   module.named_parameters()},
+                   {k: v for k, v in module.state_dict().items()
+                    if "running_" in k or "num_batches" in k},
+                   dict(bnk.LAUNCHES))
+    (l0, g0, s0, n0), (l1, g1, s1, n1) = out[False], out[True]
+    assert torch.equal(l0, l1)
+    for k in s0:
+        assert torch.equal(s0[k], s1[k]), k
+    for n, g in g0.items():
+        assert (g is None) == (g1[n] is None), n
+        if g is not None:
+            _bn_close(g1[n], g, BN_BF16)
+    assert n1["bn_stats"] > n0["bn_stats"] > 0     # the recompute's
+    assert n1["bn_bwd_dx"] == n0["bn_bwd_dx"]

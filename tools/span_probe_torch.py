@@ -26,7 +26,14 @@ For each seed it prints one JSON line:
   while the main thread is inside ``data.wait`` or ``step``, over the
   wall, and ``placed_busy_pct``, the stretch's busy share with its window
   put on the profiler's clock by ``clock_offset_ns()`` (a check of the
-  placement: ``100 - device_idle_pct.train``).
+  placement: ``100 - device_idle_pct.train``);
+* BatchNorm (``ops/batchnorm.py``): ``bn_launches_per_step``, its
+  ``LAUNCHES`` over the spans-on windows per step, beside
+  ``bn_layers`` (the model's BatchNorms and how many apply the affine),
+  and ``bn_kernel_device_ms.train``, the device time per step of each of
+  its kernels by symbol (forward and backward) in the host and card
+  stretch, with ``top_device_ops``, that stretch's ten costliest device
+  operations.
 
 The names are those the metrics would take in ``BENCHMARK.json``.
 
@@ -46,6 +53,9 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANGES = ("bn", "cast", "optimizer", "augment", "mining")
+BN_SYMBOLS = ("bn_stats_sm90_kernel", "bn_apply_sm90_kernel",
+              "bn_bwd_reduce_sm90_kernel", "bn_bwd_dx_sm90_kernel",
+              "bn_finalize_sm90_kernel")
 
 
 def span_costs(n: int = 20000) -> dict:
@@ -121,6 +131,7 @@ def probe(cell, seed: int, seconds: float, device: str = "cuda") -> dict:
     import torch
     from benchmark.drivers import train_epochs as te
     from benchmark.trace import summarize
+    from embeddingnet_tpu_torch.ops import batchnorm, fused_conv
     from embeddingnet_tpu_torch.utils import trace
 
     main = threading.get_ident()
@@ -131,12 +142,21 @@ def probe(cell, seed: int, seconds: float, device: str = "cuda") -> dict:
            "trainer_init_s.setup": trace.totals()["init"][1]}
     try:
         r.warm()
+        bns = [m for m in r.trainer.module.modules()
+               if isinstance(m, fused_conv.BNScaleBias)]
+        out["bn_layers"] = {"all": len(bns), "affine_applied": sum(
+            type(m) is not fused_conv.BNScaleBias for m in bns)}
         ips = []
         on_windows = []
+        launches = dict.fromkeys(batchnorm.LAUNCHES, 0)
         for on in (False, True, True, False):
             trace.enable() if on else trace.disable()
             trace.reset()
+            batchnorm.reset_launch_counts()
             win = r.window(seconds)
+            if on:
+                for k, v in batchnorm.LAUNCHES.items():
+                    launches[k] += v
             ips.append({"spans": "on" if on else "off",
                         "images_per_s": win["images"] / win["window_s"]})
             if on:
@@ -153,6 +173,8 @@ def probe(cell, seed: int, seconds: float, device: str = "cuda") -> dict:
             e["data_wait_s"] for w, _ in on_windows
             for e in w["epochs"]) / wall
         out["pin_ms.train"] = 1e3 * tot("data.pin") / steps
+        out["bn_launches_per_step"] = {k: v / steps
+                                       for k, v in launches.items()}
         out["spans_per_step"] = {
             name: sum(t.get(name, [0, 0.0])[0] for _, t in on_windows)
             / steps for name in set().union(*(t for _, t in on_windows))}
@@ -174,6 +196,16 @@ def probe(cell, seed: int, seconds: float, device: str = "cuda") -> dict:
         for name in RANGES:
             out[f"{name}_device_ms.train"] = (
                 1e3 * s["range_device_s"][name] / pp["units"])
+        by_symbol = {}
+        for name, sec in s["device_s_by_name"].items():
+            for sym in BN_SYMBOLS:
+                if sym in name:
+                    by_symbol[sym] = by_symbol.get(sym, 0.0) + sec
+        out["bn_kernel_device_ms.train"] = {
+            k: 1e3 * v / pp["units"] for k, v in by_symbol.items()}
+        out["top_device_ops"] = [
+            [name[:90], 1e3 * sec / pp["units"]]
+            for name, sec in s["breakdown"]["device_ops"]]
         i, s = _taken(card, lambda prof, wall: summarize(
             prof, wall, pp["units"]))
         prof, wall, _ = card.raw[i]
