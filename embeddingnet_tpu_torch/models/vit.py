@@ -19,11 +19,22 @@ Submodules carry the Flax names (``patch_embed``, ``block3.attn.query``,
 whose weight :func:`~embeddingnet_tpu_torch.models.convert.flax_to_torch`
 reshapes from Flax's ``[D, heads, head_dim]`` kernels), q divided by
 ``sqrt(head_dim)`` before ``q @ k^T``, a softmax, ``@ v``, then ``out``; it
-is written out as matmuls and a softmax (no fused attention kernel yet,
-``ROADMAP.md``). Parameters are f32; matmuls and activations run in the
-compute dtype; LayerNorm takes its statistics and applies its affine in
-f32 (torch's two-pass variance, where Flax takes E[x^2] - E[x]^2: about
-1e-6 apart in f32) and rounds once to the compute dtype.
+is written out as matmuls and a softmax (no fused attention kernel yet:
+``ROADMAP.md`` item 17, measured by the benchmark's cell
+``vit-b16-arcface-train``). Parameters are f32; matmuls and activations
+run in the compute dtype; LayerNorm takes its statistics and applies its
+affine in f32 (torch's two-pass variance, where Flax takes E[x^2] -
+E[x]^2: about 1e-6 apart in f32) and rounds once to the compute dtype.
+
+Spans (:mod:`~embeddingnet_tpu_torch.utils.trace`): ``attn`` covers the
+attention core, from the split q, k, v to the merged heads (the q scaling,
+the scores, the softmax, the value product), the projections outside it;
+``ln`` one :class:`LayerNorm` forward; ``mlp`` one :class:`MlpBlock`
+forward (``fc1``, the GELU, ``fc2``, their ``cast`` spans inside). Each
+span opens again in a remat recompute; the backward runs in autograd,
+outside them. :data:`LAUNCHES` counts the attention cores and LayerNorms
+run, one per forward call (a recompute counts again), with the spans on
+or off.
 
 The position embedding is sized by the input (``gh * gw + 1`` tokens), as
 Flax sizes it at ``init``, so a ViT is built for one ``image_size``.
@@ -53,6 +64,12 @@ from embeddingnet_tpu_torch.models.resnet import Conv2d
 from embeddingnet_tpu_torch.ops.fused_conv import cast
 from embeddingnet_tpu_torch.parallel.collectives import (copy_to_model,
                                                          reduce_from_model)
+from embeddingnet_tpu_torch.utils import trace
+
+# Attention cores and LayerNorms run in this process, one per forward call
+# (a remat recompute counts again); a run reads their rise beside its
+# profile.
+LAUNCHES = {"attention": 0, "layernorm": 0}
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -67,8 +84,10 @@ class LayerNorm(nn.LayerNorm):
     dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(at_least_f32(x), self.normalized_shape,
-                            self.weight, self.bias, self.eps).to(x.dtype)
+        LAUNCHES["layernorm"] += 1
+        with trace.span("ln"):
+            return F.layer_norm(at_least_f32(x), self.normalized_shape,
+                                self.weight, self.bias, self.eps).to(x.dtype)
 
 
 def row_parallel(dense: Dense, x: torch.Tensor, tp) -> torch.Tensor:
@@ -107,10 +126,12 @@ class MultiHeadDotProductAttention(nn.Module):
         def split(t):                     # [B, N, D] -> [B, heads, N, hd]
             return t.view(b, n, heads, head_dim).transpose(1, 2)
 
-        q = split(self.query(x)) / math.sqrt(head_dim)
-        k, v = split(self.key(x)), split(self.value(x))
-        weights = torch.softmax(q @ k.transpose(-2, -1), dim=-1)
-        y = (weights @ v).transpose(1, 2).reshape(b, n, heads * head_dim)
+        q, k, v = self.query(x), self.key(x), self.value(x)
+        LAUNCHES["attention"] += 1
+        with trace.span("attn"):
+            q, k, v = split(q) / math.sqrt(head_dim), split(k), split(v)
+            weights = torch.softmax(q @ k.transpose(-2, -1), dim=-1)
+            y = (weights @ v).transpose(1, 2).reshape(b, n, heads * head_dim)
         if self.tp is None:
             return self.out(y)
         return row_parallel(self.out, y, self.tp)
@@ -127,11 +148,12 @@ class MlpBlock(nn.Module):
         self.fc2 = Dense(hidden, dim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.fc1(copy_to_model(x, self.tp))
-        x = quick_gelu(x) if self.use_quick_gelu else F.gelu(x)
-        if self.tp is None:
-            return self.fc2(x)
-        return row_parallel(self.fc2, x, self.tp)
+        with trace.span("mlp"):
+            x = self.fc1(copy_to_model(x, self.tp))
+            x = quick_gelu(x) if self.use_quick_gelu else F.gelu(x)
+            if self.tp is None:
+                return self.fc2(x)
+            return row_parallel(self.fc2, x, self.tp)
 
 
 class EncoderBlock(nn.Module):

@@ -20,6 +20,7 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from embeddingnet_tpu_torch.models.heads import at_least_f32
 from embeddingnet_tpu_torch.parallel.collectives import copy_to_model
 
 
@@ -116,10 +117,10 @@ def arcface_loss(embeddings: torch.Tensor, labels: torch.Tensor,
                  scale: float = 64.0, tp: Optional[object] = None,
                  class_offset: int = 0) -> torch.Tensor:
     """ArcFace (Deng et al. 2019): the embeddings [B, D] and the class
-    weights [C, D] L2-normalised, ``cos`` their f32 product clipped to
-    +-(1 - 1e-7), the target class's angle ``arccos(cos)`` widened by
-    ``margin`` (no easy-margin branch), logits ``scale`` times the cosines,
-    then :func:`softmax_cross_entropy`.
+    weights [C, D] L2-normalised, ``cos`` their f32 product (float64 for
+    float64 inputs) clipped to +-(1 - 1e-7), the target class's angle
+    ``arccos(cos)`` widened by ``margin`` (no easy-margin branch), logits
+    ``scale`` times the cosines, then :func:`softmax_cross_entropy`.
 
     ``cos`` wants f32 products: at scale 64 a TF32 ``cos`` moves the
     logits by about 0.06, so callers on a card keep TF32 off. At a cosine
@@ -137,8 +138,8 @@ def arcface_loss(embeddings: torch.Tensor, labels: torch.Tensor,
         return x / torch.linalg.vector_norm(x, dim=-1,
                                             keepdim=True).clamp_min(1e-12)
 
-    cos = torch.clamp(normalize(embeddings).float()
-                      @ normalize(class_weights).float().T,
+    cos = torch.clamp(at_least_f32(normalize(embeddings))
+                      @ at_least_f32(normalize(class_weights)).T,
                       -1.0 + 1e-7, 1.0 - 1e-7)
     onehot = one_hot(labels, class_weights.shape[0], class_offset)
     target_cos = torch.cos(torch.arccos(cos) + margin)

@@ -40,7 +40,8 @@ ranks (:mod:`~embeddingnet_tpu_torch.parallel.sharded_knn`), the epoch's
 metrics are rank 0's (broadcast, so the plateau, early-stop and
 checkpoint decisions agree), rank 0 alone prints, logs and writes
 checkpoints, and every rank loads them. ``PERFORMANCE.remat``
-rematerialises the triplet step's backbone blocks; ``params_dtype:
+rematerialises the triplet and ArcFace steps' backbone blocks (the
+siamese step warns and keeps its activations); ``params_dtype:
 bfloat16`` keeps parameters, BatchNorm statistics and the optimizer state
 in bf16; ``async_checkpoint`` writes checkpoints on a background thread.
 
@@ -138,10 +139,9 @@ class Trainer:
         self.compute_dtype = (torch.bfloat16
                               if perf.compute_dtype == "bfloat16"
                               else torch.float32)
-        if perf.remat and self.mode != "triplet":
-            warnings.warn(f"PERFORMANCE.remat: the {self.mode} step keeps "
-                          f"its activations (JAX rematerialises the triplet "
-                          f"step alone)", UserWarning, stacklevel=2)
+        if perf.remat and self.mode == "siamese":
+            warnings.warn("PERFORMANCE.remat: the siamese step keeps its "
+                          "activations", UserWarning, stacklevel=2)
         cache_mb = perf.decode_cache_mb
         self._decode_cache = DecodeCache(cache_mb) if cache_mb > 0 else None
         self.augment_fn = augment_from_params(params)
@@ -340,7 +340,7 @@ class Trainer:
                 self.module, self.optimizer,
                 n_classes=self.data_loader.n_classes, margin=g.margin,
                 augment_fn=self.augment_fn, compute_dtype=self.compute_dtype,
-                parallel=self.parallel)
+                remat=self.params.performance.remat, parallel=self.parallel)
             self.eval_step = None
             return
         self.train_step = steps.make_triplet_train_step(

@@ -62,6 +62,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from embeddingnet_tpu_torch.models import remat as _remat
+from embeddingnet_tpu_torch.models.heads import at_least_f32
 from embeddingnet_tpu_torch.models.stochastic import MaskSource
 from embeddingnet_tpu_torch.ops import batchnorm_context, mining
 from embeddingnet_tpu_torch.ops.augment import Augment, Draws
@@ -371,16 +372,20 @@ def make_arcface_train_step(module: torch.nn.Module,
                             margin: float = 0.5, scale: float = 64.0,
                             augment_fn: Optional[Augment] = None,
                             compute_dtype: torch.dtype = torch.float32,
+                            remat: bool = False,
                             parallel: Optional[DataParallel] = None):
     """ArcFace step; returns ``step(state, images_u8, labels,
     aug_draws=None) -> (state, {"loss"})``. ``module`` is an
     :class:`~embeddingnet_tpu_torch.models.registry.ArcFaceModule` with
     ``n_classes`` class weights; the loss takes its embeddings and class
-    weights in f32. The augmentation's draws, then the module's masks,
+    weights in f32 (float64 in a float64 module), inside an ``arcface``
+    span. The augmentation's draws, then the module's masks,
     come from ``state.generator`` unless ``aug_draws`` and ``drop_draws``
-    give them. ``parallel``: the data-parallel step (the module
-    docstring), on this rank's rows; the loss is a mean over the global
-    batch, so each rank back-propagates its rows' sum over it."""
+    give them. ``remat``: the backbone's blocks under checkpoints, as
+    :func:`make_triplet_train_step`'s. ``parallel``: the data-parallel step
+    (the module docstring), on this rank's rows; the loss is a mean over
+    the global batch, so each rank back-propagates its rows' sum over
+    it."""
 
     def step(state: TrainState, images, labels,
              aug_draws: Optional[List[Draws]] = None,
@@ -391,7 +396,8 @@ def make_arcface_train_step(module: torch.nn.Module,
         module.train()
         device, (images, labels) = _on_device(module, images, labels)
         rows = _rows(parallel, images.shape[0])
-        with batchnorm_context.global_statistics(parallel):
+        with batchnorm_context.global_statistics(parallel), \
+                _remat.rematerialize(remat):
             x = _preprocess(images, compute_dtype, augment_fn,
                             state.generator, aug_draws, rows)
             emb, weights = _forward(module, x, state.generator, drop_draws,
@@ -400,10 +406,11 @@ def make_arcface_train_step(module: torch.nn.Module,
             if getattr(module, "n_classes", weights.shape[0]) != n_classes:
                 raise ValueError(f"the module has {module.n_classes} class "
                                  f"weights, the step {n_classes} classes")
-            share = _share(parallel, arcface_loss(
-                emb.float(), labels, weights.float(), margin=margin,
-                scale=scale, tp=tp,
-                class_offset=getattr(module, "class_offset", 0)), rows)
+            with trace.span("arcface"):
+                share = _share(parallel, arcface_loss(
+                    at_least_f32(emb), labels, at_least_f32(weights),
+                    margin=margin, scale=scale, tp=tp,
+                    class_offset=getattr(module, "class_offset", 0)), rows)
             _backward_and_update(state, module, optimizer, share, (), device,
                                  parallel)
         return state, _global(parallel, {"loss": share.detach()})

@@ -6,10 +6,12 @@ boundaries, on the clock of the device trace.
 ``next(batches)``), ``data.get`` (``BatchLoader``'s wait on its producer),
 ``data.pin`` (``Trainer._to_device``'s ``pin_memory``), ``step`` (one
 ``train_step`` call), ``augment``, ``mining``, ``all_reduce_grads`` and
-``optimizer`` (``train/steps.py``), ``bn`` (one BatchNorm layer's forward:
-statistics, affine and output cast) and ``cast`` (a layer's casts of its
-input and parameters to the compute dtype, opened only when one of them
-is converted).
+``optimizer`` (``train/steps.py``), ``arcface`` (the ArcFace step's loss),
+``bn`` (one BatchNorm layer's forward: statistics, affine and output cast),
+``cast`` (a layer's casts of its input and parameters to the compute dtype,
+opened only when one of them is converted), and in a ViT
+(``models/vit.py``) ``attn`` (the attention core, between the
+projections), ``ln`` (one LayerNorm) and ``mlp`` (one MLP block).
 
 A span does one or two things:
 

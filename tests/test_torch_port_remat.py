@@ -9,7 +9,9 @@
   remat (the masks are not drawn again); ``simple2`` (one checkpoint over
   the whole backbone, Dropout on the same masks) against JAX's step with
   ``remat=True`` in float64, at the step parity tests' tolerances; the
-  arcface step, which JAX does not rematerialise, warns and is unchanged.
+  ArcFace step (which JAX does not rematerialise) against itself without
+  remat in float64, within 1e-12, its attention cores run twice a step
+  under remat; the siamese Trainer warns that it keeps its activations.
 * bf16 master weights: the port's Trainer against JAX's with the same
   weights (JAX's, cast to bf16): parameters, BatchNorm statistics and the
   optimizer state bf16 on both sides, the first step's loss within 1e-2
@@ -162,25 +164,76 @@ def _trainer(cfg):
     return Trainer(params, loader, device="cpu", log_fn=lambda *a: None)
 
 
-def test_arcface_step_ignores_remat_with_a_warning(tiny_dataset, tmp_path):
-    """JAX builds the arcface step without remat; the port warns and runs
-    the same step (bit-equal to the one without the setting)."""
-    sections = {"MODEL": {"mode": "arcface"},
-                "GENERATOR": {"batch_size": 6}}
-    with pytest.warns(UserWarning, match="PERFORMANCE.remat: the arcface"):
-        on = _trainer(_cfg(tiny_dataset, tmp_path / "on",
-                           PERFORMANCE={"remat": True}, **sections))
-    off = _trainer(_cfg(tiny_dataset, tmp_path / "off", **sections))
-    images, labels = next(iter(off._train_loader()))
-    out = []
-    for trainer in (on, off):
-        _, metrics = trainer.train_step(trainer.state,
-                                        torch.from_numpy(images),
-                                        torch.from_numpy(labels))
-        out.append((metrics["loss"], trainer.module.state_dict()))
-    assert torch.equal(out[0][0], out[1][0])
-    for k in out[0][1]:
-        assert torch.equal(out[0][1][k], out[1][1][k]), k
+def _arcface_steps(module, remat, n_steps=2):
+    """Two float64 Adam steps of the ArcFace step on one batch: the losses,
+    the parameters after, and the attention cores run per step."""
+    from embeddingnet_tpu_torch.ops.augment import get_aug
+    from embeddingnet_tpu_torch.train.steps import make_arcface_train_step
+    spec = optim.get_optimizer("adam", 1e-3)
+    state = TrainState.create(module, spec,
+                              generator=torch.Generator().manual_seed(3))
+    step = make_arcface_train_step(
+        module, spec, n_classes=4, augment_fn=get_aug("deepfake", SHAPE),
+        compute_dtype=torch.float64, remat=remat)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(0, 256, (8,) + SHAPE,
+                                           dtype=np.uint8))
+    labels = torch.arange(8) % 4
+    losses, cores = [], []
+    for _ in range(n_steps):
+        before = tvit.LAUNCHES["attention"]
+        _, metrics = step(state, images, labels)
+        cores.append(tvit.LAUNCHES["attention"] - before)
+        losses.append(metrics["loss"])
+    return losses, {k: p.detach() for k, p in module.named_parameters()}, \
+        cores
+
+
+def test_arcface_step_under_remat_matches_without(monkeypatch):
+    """The ArcFace step honours ``remat`` as the triplet step does: in
+    float64 the loss and the parameters agree with the step without it
+    within 1e-12, and each block's attention core runs twice a step (the
+    recompute) against once."""
+    from embeddingnet_tpu_torch.models.registry import ArcFaceModule
+    monkeypatch.setitem(tvit._VARIANTS, "vit-b16",
+                        dict(patch=16, dim=32, depth=2, heads=2))
+    module = ArcFaceModule("vit-b16", 16, n_classes=4, input_shape=SHAPE)
+    module.reset_parameters(torch.Generator().manual_seed(0))
+    module.double()
+    plain = _arcface_steps(copy.deepcopy(module), remat=False)
+    again = _arcface_steps(module, remat=True)
+    for a, b in zip(plain[0], again[0]):
+        assert abs(float(a) - float(b)) <= 1e-12 * abs(float(a))
+    for k, p in plain[1].items():
+        gap = float((p - again[1][k]).abs().max())
+        assert gap <= 1e-12 * max(float(p.abs().max()), 1e-3), k
+    assert plain[2] == [2, 2] and again[2] == [4, 4]
+
+
+def test_the_arcface_trainer_remats_and_the_siamese_one_warns(
+        tiny_dataset, tmp_path, monkeypatch):
+    """``PERFORMANCE.remat`` reaches the ArcFace Trainer's step without a
+    warning (two attention cores a block a step); the siamese step keeps
+    its activations and says so."""
+    import warnings
+    monkeypatch.setitem(tvit._VARIANTS, "vit-b16",
+                        dict(patch=16, dim=32, depth=2, heads=2))
+    sections = {"MODEL": {"mode": "arcface", "backbone_name": "vit-b16"},
+                "GENERATOR": {"batch_size": 6},
+                "PERFORMANCE": {"remat": True}}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="PERFORMANCE.remat")
+        trainer = _trainer(_cfg(tiny_dataset, tmp_path / "arcface",
+                                **sections))
+    images, labels = next(iter(trainer._train_loader()))
+    before = tvit.LAUNCHES["attention"]
+    trainer.train_step(trainer.state, torch.from_numpy(images),
+                       torch.from_numpy(labels))
+    assert tvit.LAUNCHES["attention"] - before == 4
+    with pytest.warns(UserWarning, match="PERFORMANCE.remat: the siamese"):
+        _trainer(_cfg(tiny_dataset, tmp_path / "siamese",
+                      MODEL={"mode": "siamese"},
+                      PERFORMANCE={"remat": True}))
 
 
 def test_bf16_params_match_the_jax_trainer(tiny_dataset, tmp_path,

@@ -5,11 +5,13 @@ a CPU ``torch.profiler`` the training path's ranges appear by name and a
 span placed by ``clock_offset_ns()`` lies on its range; a two-epoch
 ``Trainer`` run (ResNet-18 at 32 px, P-K 3 x 3 from ``tiny_dataset``) opens
 ``data.wait``, ``data.get``, ``step``, ``optimizer`` and ``bn`` as often as
-it should. The card's cases (marked ``cuda``, skipped without a card; run
-them with ``python -m pytest tests/test_torch_port_trace.py -q -m cuda
---noconftest``): a kernel lands inside its span on a card-only profile's
-clock, and a host sleep inside a span between two kernels counts as idle
-inside it."""
+it should; a ViT ArcFace step opens ``attn``, ``ln``, ``mlp`` and
+``arcface`` as often as it should, with and without remat, and off counts
+``vit.LAUNCHES`` alike. The card's cases (marked ``cuda``, skipped without
+a card; run them with ``python -m pytest tests/test_torch_port_trace.py
+-q -m cuda --noconftest``): a kernel lands inside its span on a card-only
+profile's clock, and a host sleep inside a span between two kernels counts
+as idle inside it."""
 
 import threading
 import time
@@ -207,6 +209,58 @@ def test_a_two_epoch_fit_opens_each_span_as_often_as_it_should(
         assert totals["data.get"][1] <= wait
         assert wait <= trainer._data_wait_s
         assert wait == pytest.approx(trainer._data_wait_s, rel=0.02)
+
+
+@pytest.mark.parametrize("on", [True, False], ids=["on", "off"])
+def test_the_vit_and_arcface_spans(on, monkeypatch):
+    """A ViT ArcFace step opens ``attn`` and ``mlp`` once a block, ``ln``
+    twice a block and once after, ``arcface`` once; under remat the
+    blocks' spans open again in the recompute. ``attn`` holds no ``cast``
+    (the projections stay outside it). Off, nothing is recorded and
+    ``vit.LAUNCHES`` counts all the same."""
+    from embeddingnet_tpu_torch.models import vit
+    from embeddingnet_tpu_torch.models.registry import ArcFaceModule
+    from embeddingnet_tpu_torch.ops.augment import get_aug
+    from embeddingnet_tpu_torch.train import optim
+    from embeddingnet_tpu_torch.train.state import TrainState
+    from embeddingnet_tpu_torch.train.steps import make_arcface_train_step
+    from torch.profiler import ProfilerActivity, profile
+    monkeypatch.setitem(vit._VARIANTS, "vit-b16",
+                        dict(patch=16, dim=32, depth=2, heads=2))
+    module = ArcFaceModule("vit-b16", 16, n_classes=4,
+                           input_shape=(32, 32, 3), dtype=torch.bfloat16)
+    spec = optim.get_optimizer("adam", 1e-3)
+    state = TrainState.create(module, spec,
+                              generator=torch.Generator().manual_seed(3))
+    images = torch.zeros((4, 32, 32, 3), dtype=torch.uint8)
+    labels = torch.arange(4)
+    want = {"attn": 2, "mlp": 2, "ln": 5, "arcface": 1}
+    for remat in (False, True):
+        step = make_arcface_train_step(
+            module, spec, n_classes=4, remat=remat,
+            augment_fn=get_aug("deepfake", (32, 32, 3)),
+            compute_dtype=torch.bfloat16)
+        trace.reset()
+        if on:
+            trace.enable()
+        before = dict(vit.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            step(state, images, labels)
+        trace.disable()
+        again = {"attn": 2, "mlp": 2, "ln": 4, "arcface": 0} if remat else {}
+        count = {k: want[k] + again.get(k, 0) for k in want}
+        assert {k: vit.LAUNCHES[k] - before[k] for k in before} == {
+            "attention": count["attn"], "layernorm": count["ln"]}
+        ranges = [e.name for e in prof.events() if e.name in want]
+        assert {k: ranges.count(k) for k in want} == count
+        if not on:
+            assert trace.spans() == []
+            continue
+        totals = {k: v[0] for k, v in trace.totals().items()}
+        assert {k: totals[k] for k in want} == count
+        parents = {(s.name, s.parent) for s in trace.spans()}
+        assert ("cast", "mlp") in parents
+        assert not any(p == "attn" for _, p in parents)
 
 
 @pytest.fixture
