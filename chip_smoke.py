@@ -50,7 +50,20 @@ flagship through K1-K4), the GPipe block and the quickstart twin.
    time (``device_ms``, as hot), device time with L2 cold (``cold_ms``:
    64 MB written before each launch, the launch alone between two events)
    and the host's enqueue cost (``host_us``: 200 launches with no
-   synchronize on the host clock).
+   synchronize on the host clock). The attention kernels
+   (``csrc/attention_sm90.cu``): the forward and dq, dk, dv against
+   autograd of the float32 plain path (the plain path's errors in the
+   input dtype beside them) and twice bit for bit, and the logsumexp and
+   gradients against ``plain_forward_lse`` and ``plain_backward`` in
+   float64, at the ViT-B/16 cell's core (B=256, N=197, h=12, d=64), N=50,
+   N=257, N=1, B=3, h=6, d=32, d=128, fp16, and the float32 (d=40 too) and
+   float64 instances; then at the cell's core timed forward and backward
+   with CUDA events and profiler device time beside their bytes bounds,
+   the plain bf16 path and ``F.scaled_dot_product_attention``
+   (``library_*``, a yardstick the port never calls). ``python
+   chip_smoke.py --attention`` builds and runs this part alone (about
+   70 s); ``python chip_smoke.py --vit`` this part, phase 12 and phase
+   16's (b) ViT and (c) pipeline, then the attention kernels' lines.
 4. Serving phase: the flagship model (ResNet-50 v1.5, 64x64x3, 256-d
    L2-normalised embedding, kNN k=5, bf16, fused BN-ReLU conv on), with
    seeded random weights, encodes a DB of 10,240 synthetic images
@@ -134,14 +147,19 @@ flagship through K1-K4), the GPipe block and the quickstart twin.
     of LayerNorm and the activations and of all matmuls; (b) the same for
     ``configs/clip_vitl14_arcface.yml`` (the CLIP ViT-L/14 tower, B=32,
     AdamW), 2 warm-up and 5 timed steps; (c) small ViTs of both families
-    under an ArcFace module, f32 with TF32 off, on the card against the
-    CPU: embeddings, loss and every gradient within 1e-5; (d)
+    under an ArcFace module, f32 with TF32 off, on the card (the attention
+    kernels' float32 instances) against the CPU: embeddings, loss and
+    every gradient within 1e-5; (d)
     ``configs/vit_arcface_smoke.yml`` fitted through the ``Trainer`` on
     107 classes x 40 PNGs at 96 px after a ``SOFTMAX_PRETRAINING`` epoch
     of 4 steps and 2 val steps (cuts and settings printed), which must log
     its handoff: loss, recall and wall per epoch, T2's launches exact (the
     pretraining's val batches), every other kernel at 0; (e) a second
     Trainer's ``resume(0)`` bit for bit, and the CLI's resume and export.
+    On (a), (b), (c) and (d), and on phase 16's (b) ViT steps and (c)
+    pipeline, the attention launches are exact: one forward launch a core
+    call on the card, one backward a differentiated call, no plain call
+    on the card.
 13. Depthwise phase: (a) ``configs/efficientnetb3_batchhard_1024.yml``'s
     step at full width and depth (EfficientNet-B3 at 96 px, 256-d, L2
     norm, B=1,024 as P-K 256 x 4, bf16, bn_momentum 0.9, the ``default``
@@ -258,7 +276,12 @@ with the device-time keys of phase 3 summed alike; K3's serving numbers
 K3 and K4 add ``sequence_ms``; the conv kernels add ``device_ms``, their
 ``torch.profiler`` device time per augmented step (the part sums apart, in
 ``training_step_part_sums_ms``; T1: per launch in the A/B tool's run);
-``mining`` holds phase 10's rows. Any failure raises, and the script exits non-zero without the last line.
+the attention kernels' entries give their launches on each ViT path
+(``launches``, by path, ``plain_launches`` beside them) and their times
+summed over one step of the benchmark cell vit-b16-arcface-train (24
+forward, 12 backward calls at its core); ``mining`` holds phase 10's rows.
+Any failure raises, and the script exits non-zero without the last
+line.
 """
 
 import functools
@@ -279,6 +302,7 @@ from embeddingnet_tpu_torch.data.samplers import PKSampler
 from embeddingnet_tpu_torch.models.api import EmbeddingNet
 from embeddingnet_tpu_torch.models.registry import EmbeddingModule
 from embeddingnet_tpu_torch.ops import _cuda
+from embeddingnet_tpu_torch.ops import attention as att
 from embeddingnet_tpu_torch.ops import augment as aug
 from embeddingnet_tpu_torch.ops import batchnorm as bnk
 from embeddingnet_tpu_torch.ops import fused_conv as fc
@@ -296,6 +320,7 @@ DEVICE = "cuda"
 SM90_SRC = "embeddingnet_tpu_torch/csrc/conv3x3_sm90.cu"
 T2_SRC = "embeddingnet_tpu_torch/csrc/normalize_u8_sm90.cu"
 BN_SRC = "embeddingnet_tpu_torch/csrc/batchnorm_sm90.cu"
+ATT_SRC = "embeddingnet_tpu_torch/csrc/attention_sm90.cu"
 JAX_CONV = "embeddingnet_tpu/ops/fused_conv.py"
 # phase 9's fit and phase 13 (d)'s encode as they decoded (phase 16 (a)
 # prints the native decoder's beside them)
@@ -317,7 +342,17 @@ KERNELS = {
     # the port's eager BatchNorm
     **{name: ("cuda", BN_SRC, "ops/batchnorm.py plain_scale_bias, "
               "plain_batch_norm") for name in bnk.LAUNCHES},
+    # attention: no TPU kernel (Flax's MultiHeadDotProductAttention, which
+    # XLA fuses; no pallas_call); they replace the port's eager core
+    **{f"attention_{role}": ("cuda", ATT_SRC, "ops/attention.py "
+                             "plain_attention") for role in ("fwd", "bwd")},
 }
+# the attention kernels' calls in one step of the benchmark cell
+# vit-b16-arcface-train (12 blocks; remat runs each forward twice), over
+# which the kernels line sums their times
+ATT_STEP_CALLS = {"fwd": 24, "bwd": 12}
+# the attention launches of each ViT path the smoke drives, by path
+ATT_LAUNCHES = {}
 # the kernels whose per-step time is held to one library call's
 # (kernel ms / library ms in the kernels line)
 LIBRARY_RATIO = ("conv3x3_dgrad", "conv3x3_wgrad")
@@ -715,7 +750,7 @@ def _kernel_label(mangled):
     """``conv3x3_sm90_kernel<false, 256, true>`` or
     ``normalize_u8_sm90_kernel`` from the mangled name of a kernel instance
     (bool and int template arguments)."""
-    m = re.search(r"\d+((?:conv3x3|normalize_u8|bn)_\w*?_kernel)"
+    m = re.search(r"\d+((?:conv3x3|normalize_u8|bn|attention)_\w*?_kernel)"
                   r"(?:I((?:L[bi]\d+E)+)E)?", mangled)
     if not m:
         return mangled
@@ -1235,6 +1270,193 @@ def batchnorm_kernel_phase(records):
     return out
 
 
+# The attention kernels' checks: (B, N, heads, head dim, dtype); the first
+# is the ViT-B/16 cell's core (224 px), the others ViT-B/32's 50 tokens,
+# ViT-L/14's 257, one token, a ragged batch, a tensor-parallel half, d = 32,
+# d = 128, fp16
+ATT_CELL = (256, 197, 12, 64)
+ATT_SHAPES = [ATT_CELL + (torch.bfloat16,), (8, 50, 12, 64, torch.bfloat16),
+              (4, 257, 16, 64, torch.bfloat16), (3, 1, 12, 64, torch.bfloat16),
+              (3, 197, 12, 64, torch.bfloat16),
+              (4, 197, 6, 64, torch.bfloat16),
+              (4, 197, 4, 32, torch.bfloat16),
+              (2, 130, 2, 128, torch.bfloat16),
+              (4, 197, 12, 64, torch.float16),
+              (4, 197, 12, 64, torch.float32), (2, 50, 4, 40, torch.float32),
+              (4, 197, 12, 64, torch.float64), (3, 1, 12, 64, torch.float64)]
+# each result against the float32 plain path, relative to its largest
+# entry: the kernels round q, k, v, P and dS to 16 bits, and the result
+ATT_REL = 2e-2
+# _forward's logsumexp and _backward's dq, dk, dv against
+# plain_forward_lse and plain_backward in float64 from the same inputs
+# (the output and gradients relative to their largest entry, the
+# logsumexp absolute), by input dtype: 16 bits as above, the logsumexp f32
+# sums of exact products in another order; float32 sums in another order
+# (1e-5, the ViT card check's); float64's (1e-10)
+ATT_REFERENCE = {torch.bfloat16: (ATT_REL, 1e-4),
+                 torch.float16: (ATT_REL, 1e-4),
+                 torch.float32: (1e-5, 1e-4), torch.float64: (1e-10, 1e-10)}
+
+
+def _att_inputs(rng, b, n, h, d, dtype):
+    """q, k, v [b, n, h*d] with unit-variance scores, and an output
+    gradient, on the card in ``dtype``."""
+    t = [torch.from_numpy(rng.normal(size=(b, n, h * d)).astype(
+        np.float32)).cuda() for _ in range(4)]
+    t[0] = t[0] * 1.5            # some rows of the softmax peak
+    return [x.to(dtype) for x in t]
+
+
+def _att_rel(got, want):
+    """The largest error over the largest entry of ``want`` (over 1 where
+    ``want`` is 0: one token's dq and dk)."""
+    scale = want.abs().max().item() or 1.0
+    return (got.float() - want).abs().max().item() / scale
+
+
+def _att_reference(q, k, v, do, h, d):
+    """The errors of ``_forward``'s output and logsumexp and ``_backward``'s
+    dq, dk, dv against ``plain_forward_lse`` and ``plain_backward`` in
+    float64 from the same inputs (the logsumexp's absolute, the others'
+    over their largest entry; one token's dq and dk, zero in exact
+    arithmetic, absolute)."""
+    out, lse = att._forward(q, k, v, h, d, keep_lse=True)
+    grads = att._backward(q, k, v, out, do, lse, h, d)
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+    want, want_lse = att.plain_forward_lse(q64, k64, v64, h)
+    wants = att.plain_backward(q64, k64, v64, want, do64, want_lse, h)
+    errs = {"lse": (lse.double() - want_lse).abs().max().item()}
+    for name, got, w in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                            (want, *wants)):
+        exact_zero = q.shape[1] == 1 and name in ("dq", "dk")
+        errs[name] = ((got.double() - w).abs().max().item()
+                      / (1.0 if exact_zero else w.abs().max().item()))
+    return errs
+
+
+def attention_kernel_phase(records):
+    """The attention kernels (``csrc/attention_sm90.cu``) against the
+    float32 plain path at the shapes of ATT_SHAPES, forward and dq, dk, dv
+    (the bf16 plain path's errors beside them), twice bit for bit, and
+    their logsumexp and gradients against the reference algebra in float64
+    (ATT_REFERENCE); then at
+    the cell's shape timed with CUDA events and profiler device time beside
+    their bytes bounds (forward: q, k, v read and the output written once,
+    ``benchmark/vit_flops.py``'s count; backward: q, k, v, O, dO and the
+    logsumexp read, dq, dk, dv written), the plain bf16 path and
+    ``F.scaled_dot_product_attention`` (a yardstick the port never
+    calls)."""
+    rng = np.random.default_rng(SEED + 7)
+    failures, rows = [], []
+    for b, n, h, d, dtype in ATT_SHAPES:
+        q, k, v, do = _att_inputs(rng, b, n, h, d, dtype)
+        qf, kf, vf = (x.float().requires_grad_() for x in (q, k, v))
+        want = att.plain_attention(qf, kf, vf, h)
+        want_grads = torch.autograd.grad(want, (qf, kf, vf), do.float())
+        qb, kb, vb = (x.clone().requires_grad_() for x in (q, k, v))
+        plain = att.plain_attention(qb, kb, vb, h)
+        plain_grads = torch.autograd.grad(plain, (qb, kb, vb), do)
+        before = dict(att.LAUNCHES)
+        got, grads = [], []
+        for _ in range(2):
+            qk, kk, vk = (x.clone().requires_grad_() for x in (q, k, v))
+            out = att.attention(qk, kk, vk, h)
+            got.append(out)
+            grads.append(torch.autograd.grad(out, (qk, kk, vk), do))
+        torch.cuda.synchronize()
+        launched = {key: att.LAUNCHES[key] - before[key] for key in before}
+        errs = {"out": _att_rel(got[0], want)}
+        plain_errs = {"out": _att_rel(plain, want)}
+        for name, g, pg, w in zip(("dq", "dk", "dv"), grads[0], plain_grads,
+                                  want_grads):
+            errs[name] = _att_rel(g, w)
+            plain_errs[name] = _att_rel(pg, w)
+        repeat = (torch.equal(got[0], got[1])
+                  and all(torch.equal(x, y) for x, y in zip(*grads)))
+        finite = all(torch.isfinite(x).all() for x in [got[0], *grads[0]])
+        reference = _att_reference(q, k, v, do, h, d)
+        tol, lse_tol = ATT_REFERENCE[dtype]
+        label = f"B={b} N={n} h={h} d={d} {str(dtype)[6:]}"
+        ok = (finite and repeat and max(errs.values()) <= ATT_REL
+              and reference["lse"] <= lse_tol
+              and max(err for key, err in reference.items()
+                      if key != "lse") <= tol
+              and launched == {"fwd": 2, "bwd": 2, "plain": 0})
+        print(f"check attention {label}: max error over the f32 plain path's "
+              f"largest entry " + ", ".join(
+                  f"{k} {v:.2e} (plain {plain_errs[k]:.2e})"
+                  for k, v in errs.items())
+              + f"; tolerance {ATT_REL:g}; against the float64 reference "
+              + ", ".join(f"{key} {err:.2e}"
+                          for key, err in reference.items())
+              + f" (tolerance {tol:g}, logsumexp {lse_tol:g} absolute); "
+              f"bit-equal rerun {repeat}; launches {launched}")
+        rows.append({"shape": [b, n, h, d], "dtype": str(dtype),
+                     "max_rel_err": errs, "plain_max_rel_err": plain_errs,
+                     "reference_err": reference, "repeat_equal": repeat})
+        if not ok:
+            failures.append(label)
+        del q, k, v, do, qf, kf, vf, want, want_grads, plain, plain_grads
+        del got, grads
+    if failures:
+        raise AssertionError(f"attention kernels failed at {failures}")
+
+    b, n, h, d = ATT_CELL
+    q, k, v, do = _att_inputs(rng, b, n, h, d, torch.bfloat16)
+    head = lambda t: t.view(b, n, h, d).transpose(1, 2)  # noqa: E731
+    qh, kh, vh = head(q), head(k), head(v)
+    out, lse = att._forward(q, k, v, h, d, keep_lse=True)
+    fwd = lambda: att._forward(q, k, v, h, d, keep_lse=True)  # noqa: E731
+    bwd = lambda: att._backward(  # noqa: E731
+        q, k, v, out, do, lse, h, d)
+    plain_fwd = lambda: att.plain_attention(q, k, v, h)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    qgh, kgh, vgh = (x.clone().requires_grad_() for x in (qh, kh, vh))
+
+    def plain_both():
+        y = att.plain_attention(qg, kg, vg, h)
+        torch.autograd.grad(y, (qg, kg, vg), do)
+
+    def sdpa_both():
+        y = F.scaled_dot_product_attention(qgh, kgh, vgh)
+        torch.autograd.grad(y, (qgh, kgh, vgh), head(do))
+    # operations 4 b h n^2 d forward (benchmark/vit_flops.py attention_cost)
+    # and 2.5 times that backward; q, k, v, O, dO and dq, dk, dv in bf16
+    flops, cell = 4 * b * h * n * n * d, b * n * h * d * 2
+    fwd_bound = bound(flops, 4 * cell)
+    bwd_bound = bound(5 * flops // 2, 8 * cell + b * h * n * 4)
+    times = {"fwd_ms": cuda_ms(fwd), "bwd_ms": cuda_ms(bwd),
+             "plain_fwd_ms": cuda_ms(plain_fwd, iters=20),
+             "plain_fwd_bwd_ms": cuda_ms(plain_both, iters=10),
+             "library_fwd_ms": cuda_ms(sdpa),
+             "library_fwd_bwd_ms": cuda_ms(sdpa_both, iters=20),
+             "fwd_device_ms": device_ms(fwd), "bwd_device_ms": device_ms(bwd),
+             "library_fwd_device_ms": device_ms(sdpa)}
+    times["fwd_ms_again"] = cuda_ms(fwd)
+    times["bwd_ms_again"] = cuda_ms(bwd)
+    row = {"shape": [b, n, h, d], "fwd_bound_ms": fwd_bound[0],
+           "fwd_bound_by": fwd_bound[1], "bwd_bound_ms": bwd_bound[0],
+           "bwd_bound_by": bwd_bound[1], **times}
+    print(f"time attention B={b} N={n} h={h} d={d} bf16: forward "
+          f"{times['fwd_ms'] * 1e3:.1f}/{times['fwd_ms_again'] * 1e3:.1f} us "
+          f"(device {times['fwd_device_ms'] * 1e3:.1f}; bound "
+          f"{fwd_bound[0] * 1e3:.1f}, {fwd_bound[1]}), backward "
+          f"{times['bwd_ms'] * 1e3:.1f}/{times['bwd_ms_again'] * 1e3:.1f} us "
+          f"(device {times['bwd_device_ms'] * 1e3:.1f}; bound "
+          f"{bwd_bound[0] * 1e3:.1f}, {bwd_bound[1]}); plain bf16 forward "
+          f"{times['plain_fwd_ms'] * 1e3:.1f} us, forward and backward "
+          f"{times['plain_fwd_bwd_ms'] * 1e3:.1f}; "
+          f"F.scaled_dot_product_attention forward "
+          f"{times['library_fwd_ms'] * 1e3:.1f} us (device "
+          f"{times['library_fwd_device_ms'] * 1e3:.1f}), forward and "
+          f"backward {times['library_fwd_bwd_ms'] * 1e3:.1f}")
+    records["attention"] = {"checks": rows, "cell": row}
+    print(json.dumps({"attention": records["attention"]}))
+    return records["attention"]
+
+
 def _bn_per_step(module):
     """BatchNorm's launches in one training step of ``module``: a
     BatchNorm layer launches bn_stats, bn_apply, bn_bwd_reduce and
@@ -1263,6 +1485,64 @@ def _bn_kernel_line(name, route, source, replaces, rec, launches):
             "per": f"augmented training step (ResNet-50), B={TRAIN_BATCH}; "
                    f"ms the phase's back-to-back events summed over the "
                    f"layers"}
+
+
+def _att_kernel_line(name, route, source, replaces, rec):
+    """An attention kernel's entry of the kernels line: its launches on each
+    ViT path the smoke drove (ATT_LAUNCHES; a plain count beside them), its
+    worst error share against the float32 plain path in the phase's
+    checks, and its CUDA-event and profiler device time, the plain bf16
+    path's, F.scaled_dot_product_attention's (a yardstick the port never
+    calls; a backward as forward-and-backward less forward) and the bytes
+    bound at the cell's core, summed over the cell's ATT_STEP_CALLS."""
+    role = name.rsplit("_", 1)[1]
+    cell, calls = rec["cell"], ATT_STEP_CALLS[role]
+    if role == "fwd":
+        errs, plain, library = (("out",), cell["plain_fwd_ms"],
+                                cell["library_fwd_ms"])
+    else:
+        errs = ("dq", "dk", "dv")
+        plain = cell["plain_fwd_bwd_ms"] - cell["plain_fwd_ms"]
+        library = cell["library_fwd_bwd_ms"] - cell["library_fwd_ms"]
+    b, n, h, d = cell["shape"]
+    return {"name": name, "route": route, "source": source,
+            "replaces": replaces,
+            "launches": {path: c[role] for path, c in ATT_LAUNCHES.items()},
+            "plain_launches": {path: c["plain"]
+                               for path, c in ATT_LAUNCHES.items()},
+            "max_rel_err": max(row["max_rel_err"][k]
+                               for row in rec["checks"] for k in errs),
+            "ms": cell[f"{role}_ms"] * calls,
+            "device_ms": cell[f"{role}_device_ms"] * calls,
+            "plain_ms": plain * calls, "library_ms": library * calls,
+            "bound_ms": cell[f"{role}_bound_ms"] * calls,
+            "bound_by": cell[f"{role}_bound_by"],
+            "per": f"one step of the benchmark cell vit-b16-arcface-train, "
+                   f"{calls} calls at B={b} N={n} h={h} d={d} bf16; "
+                   f"launches by ViT path"}
+
+
+def attention_paths():
+    """``--vit``: the attention phase, phase 12 and phase 16's ViT runs
+    (tensor parallel, pipeline), then the attention kernels' lines."""
+    import shutil
+    smi = check_card()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build()
+    records = {}
+    attention_kernel_phase(records)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vit_")
+    try:
+        vit_phase(smi, tmp)
+        tp_vit_phase(smi, tmp)
+        pipeline_phase(smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"kernels": [
+        _att_kernel_line(name, *KERNELS[name], records["attention"])
+        for name in KERNELS if name.startswith("attention_")]}))
+    print(smi)
 
 
 def _bn_module(c):
@@ -2563,6 +2843,41 @@ def _vit_profile(state, step, batches):
                 for name, ops in VIT_SHARES.items()}}
 
 
+def _att_layers(module):
+    """The attention cores of ``module``: one call each a forward."""
+    from embeddingnet_tpu_torch.models import vit
+    return sum(isinstance(m, vit.MultiHeadDotProductAttention)
+               for m in module.modules())
+
+
+def _att_reset():
+    """Zeroes the attention kernels' launch counts at the start of a ViT
+    path; returns the ViT's core calls so far, for :func:`_att_read`."""
+    from embeddingnet_tpu_torch.models import vit
+    att.reset_launch_counts()
+    return vit.LAUNCHES["attention"]
+
+
+def _att_read(label, cores_before, bwd=None, plain=0):
+    """The attention launches of a ViT path since :func:`_att_reset`, kept
+    in ATT_LAUNCHES under ``label``. Raises unless every core call but
+    ``plain`` (the CPU's) launched the forward kernel, ``plain`` took the
+    plain version and the backward launched ``bwd`` times (None: once a
+    core call, every forward differentiated once)."""
+    from embeddingnet_tpu_torch.models import vit
+    cores = vit.LAUNCHES["attention"] - cores_before
+    got = dict(att.LAUNCHES)
+    want = {"fwd": cores - plain, "bwd": cores if bwd is None else bwd,
+            "plain": plain}
+    print(f"{label}: attention launches {got} for {cores} core calls, "
+          f"predicted {want}")
+    if got != want or not got["fwd"]:
+        raise AssertionError(f"{label}: attention launches {got}, "
+                             f"predicted {want}")
+    ATT_LAUNCHES[label] = got
+    return got
+
+
 def vit_step_phase(smi, label, path, warmup, timed, batch=None):
     """Phase 12 (a) and (b): the config's ArcFace step at full width and
     depth: warm-up, timed steps with every port kernel's launches counted
@@ -2581,10 +2896,12 @@ def vit_step_phase(smi, label, path, warmup, timed, batch=None):
     # ---- the step's path: every launch count from here to the reading
     fc.reset_launch_counts()
     pre.reset_launch_counts()
+    cores = _att_reset()
     torch.cuda.reset_peak_memory_stats()
     times, metrics = _timed_steps(state, step,
                                   batches[warmup:warmup + timed])
     launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    _att_read(label, cores, bwd=_att_layers(module) * timed)
     # ---- end of the step's path ----
     peak = torch.cuda.max_memory_allocated()
     med = float(np.median(times))
@@ -2636,8 +2953,9 @@ def vit_step_phase(smi, label, path, warmup, timed, batch=None):
 
 def vit_card_check():
     """Phase 12 (c): small ViTs of each family under an ArcFaceModule, f32
-    with TF32 off, on the card against the CPU from the same weights and
-    images: the embeddings, the ArcFace loss and every gradient."""
+    with TF32 off, on the card (the attention kernels' float32 instances)
+    against the CPU (the plain version) from the same weights and images:
+    the embeddings, the ArcFace loss and every gradient."""
     import copy
     from embeddingnet_tpu_torch.models import vit
     from embeddingnet_tpu_torch.models.registry import ArcFaceModule
@@ -2657,6 +2975,7 @@ def vit_card_check():
         cpu.reset_parameters(torch.Generator().manual_seed(SEED))
         card = copy.deepcopy(cpu).to(DEVICE)
         out = {}
+        cores = _att_reset()
         for where, module in (("cpu", cpu), ("card", card)):
             emb, w = module(images.to("cpu" if where == "cpu" else DEVICE))
             loss = arcface_loss(emb, labels.to(emb.device), w, margin=0.5,
@@ -2665,6 +2984,8 @@ def vit_card_check():
             out[where] = (emb.detach().cpu(), loss.item(),
                           {n: p.grad.cpu() for n, p in
                            module.named_parameters()})
+        _att_read(f"vit card check {name}", cores, bwd=small["depth"],
+                  plain=small["depth"])
         (e_cpu, l_cpu, g_cpu), (e_card, l_card, g_card) = (out["cpu"],
                                                             out["card"])
         worst = {"embeddings": ((e_card - e_cpu).abs().max()
@@ -2722,9 +3043,15 @@ def vit_fit_phase(smi, tmp):
     print(f"vit fit: predicted launches over the pretraining and the fit: "
           f"{expected}")
 
+    # every train step differentiates each attention core once; the
+    # evaluations and recall encodings run the forward alone
+    train_steps = (sp.n_epochs * sp.steps_per_epoch
+                   + params.train.n_epochs * params.generator.n_batches)
+
     # ---- the ViT fit's path: every launch count from here to the reading
     fc.reset_launch_counts()
     pre.reset_launch_counts()
+    cores = _att_reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer.pretrain_softmax()
@@ -2734,6 +3061,8 @@ def vit_fit_phase(smi, tmp):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0 - pretrain_s
     launches = {**fc.LAUNCHES, **pre.LAUNCHES}
+    _att_read("vit fit", cores,
+              bwd=_att_layers(trainer.module) * train_steps)
     # ---- end of the ViT fit's path ----
     peak = torch.cuda.max_memory_allocated()
     # T2 at the one shape this path gives it, the pretraining's val batches
@@ -4391,6 +4720,7 @@ def _tp_vit_step(label, tp=None, parallel=None):
     module, state, step, batch, shape, _, _ = _arcface_from_config(
         VIT_CONFIG, label, batch=TP_VIT_BATCH, tp=tp, parallel=parallel)
     batches = _vit_batches(shape, batch, 1 + TP_TIMED, SEED + 40)
+    cores = _att_reset()
     torch.cuda.reset_peak_memory_stats()
     state, metrics = step(state, *batches[0])
     loss = metrics["loss"].item()
@@ -4405,8 +4735,10 @@ def _tp_vit_step(label, tp=None, parallel=None):
         metrics["loss"].item()
         times.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
+    attention = _att_read(label, cores,
+                          bwd=_att_layers(module) * len(batches))
     return {"loss": loss, "grads": grads, "after": after, "times": times,
-            "peak": peak}
+            "peak": peak, "attention": attention}
 
 
 def _tp_vit_child(grid, out):
@@ -4419,7 +4751,8 @@ def _tp_vit_child(grid, out):
         torch.save({k: run[k] for k in ("loss", "grads", "after")},
                    out + ".pt")
     return {"loss": run["loss"], "times_ms": run["times"],
-            "peak": run["peak"], "grid": list(grid[:4])}
+            "peak": run["peak"], "grid": list(grid[:4]),
+            "attention": run["attention"]}
 
 
 def _tp_resnet_child(grid, out, cfg):
@@ -4471,6 +4804,7 @@ def _pipeline_child(grid, out):
     params = pp.place_stage_params(stacked, grid, device=DEVICE)
     for v in params.values():
         v.requires_grad_(True)
+    cores = _att_reset()
 
     def block_apply(p, h):
         return torch.func.functional_call(blocks[0], p, (h,))
@@ -4512,7 +4846,9 @@ def _pipeline_child(grid, out):
         fn()
         torch.cuda.synchronize()
         times[label] = (time.perf_counter() - t0) * 1e3
-    return {"worst": worst, "times_ms": times, "stage": stage}
+    attention = _att_read(f"pipeline stage {stage}", cores)
+    return {"worst": worst, "times_ms": times, "stage": stage,
+            "attention": attention}
 
 
 def tp_vit_phase(smi, tmp):
@@ -4534,6 +4870,7 @@ def tp_vit_phase(smi, tmp):
     runs, took = _tp_torchrun("vit", out)
     tp = torch.load(out + ".pt", weights_only=True)
     for run in runs:
+        ATT_LAUNCHES[f"tp rank {run['rank']}"] = run["attention"]
         print(f"tp: rank {run['rank']} (grid {run['grid']}): timed steps "
               + ", ".join(f"{t:.1f}" for t in run["times_ms"])
               + f" ms, peak {run['peak'] / 2 ** 30:.2f} GiB [{smi}]")
@@ -4606,6 +4943,7 @@ def pipeline_phase(smi, tmp):
     bf16, against the blocks in order."""
     runs, took = _tp_torchrun("pipeline", os.path.join(tmp, "pipeline"))
     for run in runs:
+        ATT_LAUNCHES[f"pipeline stage {run['stage']}"] = run["attention"]
         worst = max(run["worst"].items(), key=lambda kv: kv[1])
         print(f"pipeline: stage {run['stage']}: output and gradient against "
               f"the sequential blocks, worst {worst[0]} "
@@ -4665,6 +5003,7 @@ def main():
     backward_kernel_phase(records)
     normalize_kernel_phase(records)
     batchnorm_kernel_phase(records)
+    attention_kernel_phase(records)
     epilogue_kernel_phase(records)
     tool_launches, t1_device_ms = epilogue_tool_phase()
     fc.reset_launch_counts()
@@ -4697,6 +5036,10 @@ def main():
             lines.append(_bn_kernel_line(name, route, source, replaces,
                                          records["batchnorm"],
                                          train_launches[name]))
+            continue
+        if name.startswith("attention_"):
+            lines.append(_att_kernel_line(name, route, source, replaces,
+                                          records["attention"]))
             continue
         rec = records[name]
         launches = train_launches[name]
@@ -4780,5 +5123,13 @@ if __name__ == "__main__":
         torch.backends.cuda.matmul.allow_tf32 = False
         build()
         batchnorm_kernel_phase({})
+    elif sys.argv[1:2] == ["--vit"]:
+        attention_paths()
+    elif sys.argv[1:2] == ["--attention"]:
+        check_card()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build()
+        attention_kernel_phase({})
     else:
         main()

@@ -18,17 +18,20 @@ Submodules carry the Flax names (``patch_embed``, ``block3.attn.query``,
 ``query``/``key``/``value``/``out`` projections (a torch ``Linear`` each,
 whose weight :func:`~embeddingnet_tpu_torch.models.convert.flax_to_torch`
 reshapes from Flax's ``[D, heads, head_dim]`` kernels), q divided by
-``sqrt(head_dim)`` before ``q @ k^T``, a softmax, ``@ v``, then ``out``; it
-is written out as matmuls and a softmax (no fused attention kernel yet:
-``ROADMAP.md`` item 17, measured by the benchmark's cell
-``vit-b16-arcface-train``). Parameters are f32; matmuls and activations
-run in the compute dtype; LayerNorm takes its statistics and applies its
-affine in f32 (torch's two-pass variance, where Flax takes E[x^2] -
+``sqrt(head_dim)`` before ``q @ k^T``, a softmax, ``@ v``, then ``out``. The
+core between the projections is :func:`~embeddingnet_tpu_torch.ops.
+attention.attention`: on the card one hand-written kernel forward and one
+backward (``csrc/attention_sm90.cu``; on tensor cores in bf16 or fp16, their
+instances without in float32 or float64), reading the heads in place from
+the projections' ``[B, N, heads * head_dim]`` and writing the merged
+result; on the CPU the eager matmuls and softmax. Parameters are f32;
+matmuls and activations run in the compute dtype; LayerNorm takes its
+statistics and applies its affine in f32 (torch's two-pass variance, where Flax takes E[x^2] -
 E[x]^2: about 1e-6 apart in f32) and rounds once to the compute dtype.
 
 Spans (:mod:`~embeddingnet_tpu_torch.utils.trace`): ``attn`` covers the
-attention core, from the split q, k, v to the merged heads (the q scaling,
-the scores, the softmax, the value product), the projections outside it;
+attention core (the q scaling, the scores, the softmax, the value product:
+on the card one kernel), the projections outside it;
 ``ln`` one :class:`LayerNorm` forward; ``mlp`` one :class:`MlpBlock`
 forward (``fc1``, the GELU, ``fc2``, their ``cast`` spans inside). Each
 span opens again in a remat recompute; the backward runs in autograd,
@@ -50,7 +53,6 @@ the sum. Without one (``tp`` None) the graph is the one-process graph.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
 import torch
@@ -61,6 +63,7 @@ from embeddingnet_tpu_torch.models import remat
 from embeddingnet_tpu_torch.models.heads import (Dense, at_least_f32,
                                                  lecun_normal_)
 from embeddingnet_tpu_torch.models.resnet import Conv2d
+from embeddingnet_tpu_torch.ops.attention import attention
 from embeddingnet_tpu_torch.ops.fused_conv import cast
 from embeddingnet_tpu_torch.parallel.collectives import (copy_to_model,
                                                          reduce_from_model)
@@ -118,20 +121,12 @@ class MultiHeadDotProductAttention(nn.Module):
         self.out = Dense(dim, dim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, n, d = x.shape
-        head_dim = d // self.heads
         heads = self.heads // (self.tp.size if self.tp else 1)
         x = copy_to_model(x, self.tp)
-
-        def split(t):                     # [B, N, D] -> [B, heads, N, hd]
-            return t.view(b, n, heads, head_dim).transpose(1, 2)
-
         q, k, v = self.query(x), self.key(x), self.value(x)
         LAUNCHES["attention"] += 1
         with trace.span("attn"):
-            q, k, v = split(q) / math.sqrt(head_dim), split(k), split(v)
-            weights = torch.softmax(q @ k.transpose(-2, -1), dim=-1)
-            y = (weights @ v).transpose(1, 2).reshape(b, n, heads * head_dim)
+            y = attention(q, k, v, heads)
         if self.tp is None:
             return self.out(y)
         return row_parallel(self.out, y, self.tp)

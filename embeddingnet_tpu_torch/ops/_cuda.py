@@ -46,7 +46,9 @@ _L, _D = ctypes.c_longlong, ctypes.c_double
 # batchnorm_sm90.cu (ops/batchnorm.py): pointers, then rows, spatial and
 # rows per block, then the ints of the channels, layout, plan, dtypes and
 # flags, then eps, momentum and count, the stream last; the source says
-# which are which.
+# which are which. attention_sm90.cu (ops/attention.py): the tensors'
+# pointers, batch, tokens, heads, head dimension and the dtype code, the
+# (row, batch) strides of each input, the scale, the stream.
 ENTRY_POINTS = {
     "conv3x3_sm90": {"embn_conv3x3_sm90": [_P] * 5 + [_I] * 7 + [_P],
                      "embn_conv3x3_wgrad_sm90": [_P] * 6 + [_I] * 6 + [_P]},
@@ -59,6 +61,9 @@ ENTRY_POINTS = {
         + [_P],
         "embn_bn_bwd_dx": [_P] * 4 + [_L] * 3 + [_I] * 8 + [_P],
         "embn_bn_finalize": [_P] * 13 + [_I] * 4 + [_D] * 3 + [_P]},
+    "attention_sm90": {
+        "embn_attention_fwd": [_P] * 5 + [_I] * 5 + [_L] * 6 + [_D, _P],
+        "embn_attention_bwd": [_P] * 9 + [_I] * 5 + [_L] * 10 + [_D, _P]},
 }
 SOURCES = [CSRC / f"{name}.cu" for name in ENTRY_POINTS]
 

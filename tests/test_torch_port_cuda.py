@@ -5,7 +5,8 @@ TMA/wgmma design, K3 and K4 with the BN-ReLU prologue on the landed input
 tile, T1 with the epilogue on the accumulators — and the u8 normalisation
 T2 of csrc/normalize_u8_sm90.cu, at its edges too: a tail, misaligned
 views, no elements, and BatchNorm's statistics, affine and backward of
-csrc/batchnorm_sm90.cu, whose tolerances are stated beside their tests)
+csrc/batchnorm_sm90.cu, and the attention core's forward and backward of
+csrc/attention_sm90.cu, whose tolerances are stated beside their tests)
 against their plain PyTorch versions, the modules that
 launch them, forward and backward, the augmentation presets, the miner,
 the ViT forward and the ArcFace loss, and the EfficientNet/MobileNet/simple
@@ -638,9 +639,10 @@ def test_mining_on_the_card_matches_the_cpu(card, mode, path):
     assert got[1][0] > 0              # triplets were mined
 
 
-# the ViT/ArcFace path (no kernel of the port: plain PyTorch ops), f32 with
-# TF32 off, card against CPU from the same weights and inputs: sums in
-# another order, to 1e-5 of each tensor's largest entry
+# the ViT/ArcFace path (on the card the attention kernels' float32
+# instances, else PyTorch's ops), f32 with TF32 off, card against CPU from
+# the same weights and inputs: sums in another order, to 1e-5 of each
+# tensor's largest entry
 VIT_SMALL = {"vit-b16": dict(patch=16, dim=128, depth=2, heads=4),
              "vit-l14": dict(patch=16, dim=128, depth=2, heads=4,
                              ln_pre=True, use_quick_gelu=True,
@@ -658,17 +660,23 @@ def test_vit_forward_on_the_card_matches_the_cpu(card, name, monkeypatch):
     import copy
     from embeddingnet_tpu_torch.models import vit
     from embeddingnet_tpu_torch.models.registry import EmbeddingModule
+    from embeddingnet_tpu_torch.ops import attention
     monkeypatch.setitem(vit._VARIANTS, name, VIT_SMALL[name])
     cpu = EmbeddingModule(name, encodings_len=64, input_shape=(64, 64, 3))
     cpu.reset_parameters(torch.Generator().manual_seed(0))
     gpu = copy.deepcopy(cpu).to(card)
     x = torch.from_numpy(np.random.default_rng(1).uniform(
         0, 1, (16, 64, 64, 3)).astype(np.float32))
+    attention.reset_launch_counts()
     with torch.no_grad():
         assert _rel(gpu.features(x.to(card)), cpu.features(x)) \
             < VIT_CARD_TOL
         assert _rel(gpu(x.to(card)), cpu(x)) < VIT_CARD_TOL
     assert fc.LAUNCHES == _launched()
+    # two calls of two blocks each side: the card's launch the kernels
+    depth = VIT_SMALL[name]["depth"]
+    assert attention.LAUNCHES == {"fwd": 2 * depth, "bwd": 0,
+                                  "plain": 2 * depth}
 
 
 def test_arcface_loss_on_the_card_matches_the_cpu(card):
@@ -1319,3 +1327,185 @@ def test_batchnorm_under_remat_matches_without(card):
             _bn_close(g1[n], g, BN_BF16)
     assert n1["bn_stats"] > n0["bn_stats"] > 0     # the recompute's
     assert n1["bn_bwd_dx"] == n0["bn_bwd_dx"]
+
+
+# the attention kernels (csrc/attention_sm90.cu) against the float32 plain
+# path as the truth, relative to each result's largest entry: the kernels
+# read q, k, v in bf16 and round P and dS to bf16 for their products, as
+# the eager bf16 path rounds its scores, weights and products; the
+# tolerance is the bf16 output rounding the conv kernels are held to
+ATT_TOL = 2e-2
+ATT_SHAPES = [(256, 197, 12, 64), (8, 50, 12, 64), (4, 257, 12, 64),
+              (4, 1, 12, 64), (3, 197, 12, 64), (4, 197, 6, 64),
+              (4, 197, 4, 32)]
+
+
+def _att_inputs(seed, b, n, h, d, device, dtype=torch.bfloat16):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(b, n, h * d)).astype(
+        np.float32)).to(device).to(dtype) for _ in range(4)]
+
+
+def _att_rel(got, want):
+    """The largest error over the largest entry of ``want`` (over 1 where
+    ``want`` is 0: one token's dq and dk)."""
+    scale = want.abs().max().item() or 1.0
+    return (got.float() - want).abs().max().item() / scale
+
+
+@pytest.fixture
+def att(card):
+    from embeddingnet_tpu_torch.ops import attention
+    attention.reset_launch_counts()
+    yield attention
+    attention.reset_launch_counts()
+
+
+@pytest.mark.parametrize("b,n,h,d", ATT_SHAPES)
+def test_attention_kernels_match_plain(att, card, b, n, h, d):
+    """The forward and dq, dk, dv of the kernels against autograd of the
+    float32 plain path, to ATT_TOL of each result's largest entry, and
+    never more than twice the bf16 plain path's own error there plus 1e-3
+    (the kernels round the same operands in other places)."""
+    q, k, v, do = _att_inputs(b * n + d, b, n, h, d, card)
+    qf, kf, vf = (x.float().requires_grad_() for x in (q, k, v))
+    want = att.plain_attention(qf, kf, vf, h)
+    wants = [want, *torch.autograd.grad(want, (qf, kf, vf), do.float())]
+    qb, kb, vb = (x.clone().requires_grad_() for x in (q, k, v))
+    plain = att.plain_attention(qb, kb, vb, h)
+    plains = [plain, *torch.autograd.grad(plain, (qb, kb, vb), do)]
+    qk, kk, vk = (x.clone().requires_grad_() for x in (q, k, v))
+    out = att.attention(qk, kk, vk, h)
+    gots = [out, *torch.autograd.grad(out, (qk, kk, vk), do)]
+    for name, got, p, w in zip(("out", "dq", "dk", "dv"), gots, plains,
+                               wants):
+        assert torch.isfinite(got).all(), name
+        err = _att_rel(got, w)
+        assert err < ATT_TOL, (name, err)
+        assert err <= 2 * _att_rel(p, w) + 1e-3, (name, err)
+    assert att.LAUNCHES == {"fwd": 1, "bwd": 1, "plain": 0}
+
+
+# _forward's logsumexp and _backward's dq, dk, dv against the kernels'
+# arithmetic in plain PyTorch (plain_forward_lse, plain_backward) in float64
+# from the same inputs, relative to each result's largest entry (the
+# logsumexp absolute): bf16 rounds P and dS for its products (ATT_TOL); its
+# logsumexp and float32's are f32 sums of exact products in another order
+# (1e-4 over scores of a few units); float32's results 1e-5, as the card
+# checks of the ViT path; float64's sums in another order, 1e-10. One
+# token's dq and dk are zero in exact arithmetic (the reference's are
+# rounding), so they are held absolutely
+ATT_REFERENCE = {torch.bfloat16: (ATT_TOL, 1e-4), torch.float32: (1e-5, 1e-4),
+                 torch.float64: (1e-10, 1e-10)}
+
+
+@pytest.mark.parametrize("dtype", sorted(ATT_REFERENCE, key=str))
+@pytest.mark.parametrize("b,n,h,d", [(4, 197, 12, 64), (3, 1, 12, 64),
+                                     (2, 257, 2, 128), (2, 50, 4, 40)])
+def test_attention_kernels_match_the_reference_algebra(att, card, dtype, b,
+                                                       n, h, d):
+    if dtype in att.TENSOR_CORE_DTYPES and d % 16:
+        with pytest.raises(ValueError, match=f"head dimension {d}"):
+            att._check(*_att_inputs(0, b, n, h, d, card, dtype)[:3], h)
+        return
+    q, k, v, do = _att_inputs(b * n + d, b, n, h, d, card, dtype)
+    tol, lse_tol = ATT_REFERENCE[dtype]
+    out, lse = att._forward(q, k, v, h, d, keep_lse=True)
+    grads = att._backward(q, k, v, out, do, lse, h, d)
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+    want, want_lse = att.plain_forward_lse(q64, k64, v64, h)
+    wants = att.plain_backward(q64, k64, v64, want, do64, want_lse, h)
+    assert lse.dtype == torch.promote_types(dtype, torch.float32)
+    assert (lse.double() - want_lse).abs().max().item() < lse_tol
+    for name, got, w in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                            (want, *wants)):
+        assert torch.isfinite(got).all(), name
+        exact_zero = n == 1 and name in ("dq", "dk")
+        scale = 1.0 if exact_zero else w.abs().max().item()
+        err = (got.double() - w).abs().max().item() / scale
+        assert err < tol, (name, err)
+    assert att.LAUNCHES == {"fwd": 1, "bwd": 1, "plain": 0}
+
+
+def test_attention_launches_are_exact(att, card):
+    """With gradients one forward launch keeping the logsumexp, one
+    backward launch; under no_grad one forward; a float32 card tensor
+    launches the float32 instance, a CPU tensor takes the plain
+    version."""
+    q, k, v, do = _att_inputs(1, 2, 197, 12, 64, card)
+    q.requires_grad_()
+    out = att.attention(q, k, v, 12)
+    assert att.LAUNCHES == {"fwd": 1, "bwd": 0, "plain": 0}
+    out.backward(do)
+    assert att.LAUNCHES == {"fwd": 1, "bwd": 1, "plain": 0}
+    with torch.no_grad():
+        again = att.attention(q, k, v, 12)
+    assert att.LAUNCHES == {"fwd": 2, "bwd": 1, "plain": 0}
+    assert torch.equal(again, out.detach())
+    att.attention(q.float(), k.float(), v.float(), 12)
+    att.attention(q.detach().cpu(), k.cpu(), v.cpu(), 12)
+    assert att.LAUNCHES == {"fwd": 3, "bwd": 1, "plain": 1}
+
+
+def test_attention_is_bitwise_repeatable(att, card):
+    """Two launches give the same bits forward and backward (no atomics)."""
+    q, k, v, do = _att_inputs(2, 16, 197, 12, 64, card)
+    runs = []
+    for _ in range(2):
+        qk, kk, vk = (x.clone().requires_grad_() for x in (q, k, v))
+        out = att.attention(qk, kk, vk, 12)
+        runs.append([out, *torch.autograd.grad(out, (qk, kk, vk), do)])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_attention_refuses_what_the_kernels_cannot_take(att, card):
+    q, k, v, _ = _att_inputs(3, 2, 50, 4, 64, card)
+    with pytest.raises(ValueError, match="bfloat16 or float16"):
+        att.attention(q.to(torch.int8), k.to(torch.int8), v.to(torch.int8),
+                      4)
+    with pytest.raises(ValueError, match="head dimension 40"):
+        att.attention(q[..., :160], k[..., :160], v[..., :160], 4)
+    with pytest.raises(ValueError, match="head dimension 8"):
+        att.attention(q[..., :32], k[..., :32], v[..., :32], 4)
+    with pytest.raises(ValueError, match="head dimension 256"):
+        att.attention(q, k, v, 1)
+    wide = torch.cat([q, q], dim=-1)
+    with pytest.raises(ValueError, match="strides"):
+        att.attention(wide[..., ::2], k, v, 4)
+    odd = torch.cat([q, q[..., :4]], dim=-1)[..., :256]
+    with pytest.raises(ValueError, match="strides"):
+        att.attention(odd, k, v, 4)
+    with pytest.raises(ValueError, match="does not match"):
+        att.attention(q, k[:, :49], v, 4)
+    assert att.LAUNCHES == {"fwd": 0, "bwd": 0, "plain": 0}
+
+
+def test_attention_under_remat_matches_without(att, card):
+    """A bf16 ViT's forward and backward with its blocks rematerialised
+    (the recompute runs the forward kernel again) against the same without:
+    the loss and every gradient equal bit for bit."""
+    import copy
+    from embeddingnet_tpu_torch.models import remat
+    from embeddingnet_tpu_torch.models.vit import ViT
+    base = ViT((64, 64), dim=128, depth=2, heads=2, dtype=torch.bfloat16)
+    base.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(12).uniform(
+        size=(8, 3, 64, 64)).astype(np.float32)).to(card)
+    out = {}
+    for on in (False, True):
+        module = copy.deepcopy(base).to(card).train()
+        att.reset_launch_counts()
+        with remat.rematerialize(on):
+            loss = module(x).float().square().sum()
+            loss.backward()
+        torch.cuda.synchronize()
+        out[on] = (loss.detach(), {n: p.grad for n, p in
+                                   module.named_parameters()},
+                   dict(att.LAUNCHES))
+    (l0, g0, n0), (l1, g1, n1) = out[False], out[True]
+    assert torch.equal(l0, l1)
+    for name, g in g0.items():
+        assert torch.equal(g, g1[name]), name
+    assert n0 == {"fwd": 2, "bwd": 2, "plain": 0}
+    assert n1 == {"fwd": 4, "bwd": 2, "plain": 0}
