@@ -8,9 +8,10 @@ views, no elements, and BatchNorm's statistics, affine and backward of
 csrc/batchnorm_sm90.cu, and the attention core's forward and backward of
 csrc/attention_sm90.cu, whose tolerances are stated beside their tests)
 against their plain PyTorch versions, the modules that
-launch them, forward and backward, the augmentation presets, the miner,
-the ViT forward and the ArcFace loss, and the EfficientNet/MobileNet/simple
-CNN forward and backward on the card against the CPU.
+launch them, forward and backward, the augmentation presets (op by op and
+chained), the miner, the ViT forward, the ArcFace loss and a small ViT's
+ArcFace gradients, the EfficientNet/MobileNet/simple CNNs and one model of
+each zoo family forward and backward on the card against the CPU.
 They skip on a machine without a card. On the card, run them with
 
     python -m pytest tests/test_torch_port_cuda.py -q -m cuda --noconftest
@@ -126,15 +127,17 @@ def test_wgrad_is_deterministic(card):
                        fc.conv3x3_wgrad_bn_relu(x, g, scale, bias))
 
 
-@pytest.mark.parametrize("b", [1, 3, 37, 1001, 1024])
+@pytest.mark.parametrize("b", [1, 3, 8, 32, 37, 256, 1001, 1024])
 @pytest.mark.parametrize("s,cin,cout", [
     (8, 128, 128), (4, 256, 256), (2, 512, 512), (4, 128, 256),
     (2, 384, 128)])
 def test_sm90_kernels_match_plain(card, b, s, cin, cout):
     """csrc/conv3x3_sm90.cu: K1's forward and dgrad and K2 against their
-    plain versions at the training shapes, at Cin != Cout and at batches
-    that fill no tile (the TMA boxes' zero fill); B=1001 and 1024 take
-    256-row tiles at S=4 and 8, the others 128."""
+    plain versions at the training shapes, at Cin != Cout, at the serving
+    batches (3, 32, 256), a siamese stream's 8, and at batches that fill no
+    tile (the TMA boxes' zero fill); B=1001 and 1024 take 256-row tiles at
+    S=4 and 8, the others 128. K2's dW is the same bit for bit from launch
+    to launch."""
     x, w, _, _ = _inputs(20, b, s, cin, cout, card)
     g = _inputs(21, b, s, cout, cout, card)[0]
     torch.testing.assert_close(fc.conv3x3_small(x, w).float(),
@@ -143,21 +146,23 @@ def test_sm90_kernels_match_plain(card, b, s, cin, cout):
     torch.testing.assert_close(
         fc.conv3x3_dgrad(g, w).float(),
         fc._plain_conv3x3(g.float(), fc._flip(w).float()), **BF16_TOL)
-    _assert_wgrad_close(fc.conv3x3_wgrad(x, g),
-                        fc._plain_wgrad(x.float(), g.float()))
+    dw = fc.conv3x3_wgrad(x, g)
+    _assert_wgrad_close(dw, fc._plain_wgrad(x.float(), g.float()))
+    assert torch.equal(dw, fc.conv3x3_wgrad(x, g))
     assert fc.LAUNCHES == _launched(conv3x3_small=1, conv3x3_dgrad=1,
-                                    conv3x3_wgrad=1)
+                                    conv3x3_wgrad=2)
 
 
-@pytest.mark.parametrize("b", [1, 3, 37, 1001, 1024])
+@pytest.mark.parametrize("b", [1, 3, 8, 37, 1001, 1024])
 @pytest.mark.parametrize("s,cin,cout", [
     (4, 256, 256), (2, 512, 512), (4, 128, 256)])
 def test_prologue_kernels_match_plain(card, b, s, cin, cout):
     """K3 and K4 (csrc/conv3x3_sm90.cu with the BN-ReLU prologue) against
     their plain versions at the fused training shapes and at Cin != Cout,
-    at batches that fill no tile; the biases are mostly positive, so a
-    padding ring or a ragged row rewritten by the affine would show. K4's
-    dW is the same bit for bit from launch to launch."""
+    at a siamese stream's batch of 8 and at batches that fill no tile; the
+    biases are mostly positive, so a padding ring or a ragged row
+    rewritten by the affine would show. K4's dW is the same bit for bit
+    from launch to launch."""
     x, w, scale, bias = _inputs(25, b, s, cin, cout, card)
     assert (bias > 0).float().mean() > 0.5
     g = _inputs(26, b, s, cout, cout, card)[0]
@@ -251,17 +256,23 @@ def test_prologue_wrappers_refuse_what_the_kernels_cannot_take(card):
 
 def test_dgrad_launches_one_kernel_and_copies_no_weight(card):
     """The dgrad reads the weight as it stands: one call is one kernel,
-    with no flip, transpose or copy of the weight beside it."""
+    with no flip, transpose or copy of the weight beside it. The profiler
+    loses kernel records now and then, so the read is one that
+    ``benchmark/trace.py``'s ``settled`` takes."""
     from torch.profiler import ProfilerActivity, profile
+    from benchmark.trace import READS, settled
     _, w, _, _ = _inputs(22, 1024, 4, 256, 256, card)
     g = _inputs(23, 1024, 4, 256, 256, card)[0]
     fc.conv3x3_dgrad(g, w)                  # build and first launch
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fc.conv3x3_dgrad(g, w)
-        torch.cuda.synchronize()
-    device = [e.name for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    counts = []
+    while len(counts) < READS and not (counts and settled(counts)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fc.conv3x3_dgrad(g, w)
+            torch.cuda.synchronize()
+        device = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts.append(len(device))
     assert len(device) == 1 and "conv3x3_sm90_kernel" in device[0], device
 
 
@@ -317,19 +328,22 @@ def test_normalize_u8_matches_plain(card):
 
 
 @pytest.mark.parametrize("case", ["tail", "offset_1", "offset_8", "empty",
-                                  "vit_val"])
+                                  "vit_val", "road_val"])
 def test_normalize_u8_edges_match_plain(card, case):
     """T2's edges, exact against its plain version: a tail of n % 16
     elements; a flat view at an odd offset (the scalar path) and at 8 bytes
     (an 8-element head, then aligned vectors); a zero-size tensor (no
-    launch); the ViT pretraining's val batch [128, 96, 96, 3]."""
+    launch); the ViT pretraining's val batch [128, 96, 96, 3]; the
+    road-signs config's val batch [24, 48, 48, 3]."""
     rng = np.random.default_rng(10)
     flat = torch.from_numpy(rng.integers(0, 256, 1_000_003 + 8,
                                          np.uint8)).to(card)
     x = {"tail": flat[:1_000_003], "offset_1": flat[1:],
          "offset_8": flat[8:], "empty": flat[:0],
          "vit_val": torch.from_numpy(rng.integers(
-             0, 256, (128, 96, 96, 3), np.uint8)).to(card)}[case]
+             0, 256, (128, 96, 96, 3), np.uint8)).to(card),
+         "road_val": torch.from_numpy(rng.integers(
+             0, 256, (24, 48, 48, 3), np.uint8)).to(card)}[case]
     got = pre.normalize_u8(x)
     assert got.shape == x.shape and got.dtype == torch.bfloat16
     assert torch.equal(got, pre._plain_normalize_u8(x))
@@ -473,7 +487,8 @@ def test_epilogue_kernel_matches_plain(card, b, s, c):
     assert fc.LAUNCHES == _launched(conv3x3_small_affine_relu=1)
 
 
-@pytest.mark.parametrize("name", ["default", "plates", "plates2"])
+@pytest.mark.parametrize("name", ["default", "plates", "plates2",
+                                  "deepfake"])
 def test_augmentation_on_the_card_matches_the_cpu(card, name):
     """Each op of the preset on the card against the CPU, from the same
     draws (sampled on the card's generator) and the same input, to 1e-3
@@ -491,6 +506,24 @@ def test_augmentation_on_the_card_matches_the_cpu(card, name):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-3,
                                    msg=op.name)
         x = want
+
+
+def test_augmentation_preset_chained_on_the_card_matches_the_cpu(card):
+    """The ``default`` preset chained on the card and on the CPU from the
+    same draws and input: a pixel whose luminance lands on the other side
+    of a CLAHE bin edge maps elsewhere, so at most 0.1% of the pixels are
+    past 1e-3 gray levels."""
+    x = torch.from_numpy(np.random.default_rng(16).integers(
+        0, 256, (128, 64, 64, 3)).astype(np.float32))
+    augment = aug.get_aug("default")
+    draws = augment.sample(x.shape, torch.Generator(device=card)
+                           .manual_seed(0))
+    want = augment.apply(x, [{k: v.cpu() for k, v in d.items()}
+                             for d in draws])
+    got = augment.apply(x.to(card), draws).cpu()
+    off = (got - want).abs().amax(-1) > 1e-3
+    assert torch.isfinite(got).all()
+    assert off.float().mean().item() <= 1e-3, int(off.sum())
 
 
 def test_augmentation_does_not_synchronise(card):
@@ -744,17 +777,105 @@ def test_depthwise_family_on_the_card_matches_the_cpu(card, name, size,
     (e_cpu, l_cpu, g_cpu), (e_gpu, l_gpu, g_gpu) = out
     assert _rel(e_gpu, e_cpu) < DEPTHWISE_CARD_TOL
     assert _rel(l_gpu, l_cpu) < DEPTHWISE_CARD_TOL
-    top = max(g.abs().max().item() for g in g_cpu.values())
-    for n, g in g_cpu.items():
-        scale = top if g.abs().max().item() < 1e-8 * top \
-            else g.abs().max().item()
-        err = (g_gpu[n] - g).abs().max().item() / scale
-        assert err < DEPTHWISE_CARD_TOL, (n, err)
+    _assert_grads_close(g_gpu, g_cpu)
     with torch.no_grad():
         want = copy.deepcopy(cpu).eval()(x.float())
         got = copy.deepcopy(cpu).to(card).eval()(x.float().to(card))
     assert _rel(got, want) < DEPTHWISE_CARD_TOL
     assert fc.LAUNCHES == _launched()
+
+
+def _assert_grads_close(got, want):
+    """Each gradient to DEPTHWISE_CARD_TOL of its largest entry; one that
+    is zero in exact arithmetic (under 1e-8 of the model's largest entry)
+    to that share of the model's largest entry."""
+    top = max(g.abs().max().item() for g in want.values())
+    for n, g in want.items():
+        scale = top if g.abs().max().item() < 1e-8 * top \
+            else g.abs().max().item()
+        err = (got[n] - g).abs().max().item() / scale
+        assert err < DEPTHWISE_CARD_TOL, (n, err)
+
+
+# one name a zoo family at its smallest input, card against CPU from one
+# state_dict in float64 train mode: the embeddings, the batch-hard loss and
+# every gradient (_assert_grads_close). No float32 check: at random weights
+# SENet-154's 50 blocks amplify float32 rounding past 1e-5
+# (tests/test_torch_port_zoo_resnet.py)
+ZOO_FAMILIES = [("seresnet18", 32), ("seresnext50", 32), ("senet154", 32),
+                ("densenet121", 32), ("vgg16", 32), ("inceptionv3", 75),
+                ("inceptionresnetv2", 75), ("xception", 71),
+                ("nasnetmobile", 32), ("nasnetmobile", 33)]
+
+
+@pytest.mark.parametrize("name,size", ZOO_FAMILIES)
+def test_zoo_family_on_the_card_matches_the_cpu(card, name, size):
+    import copy
+    from embeddingnet_tpu_torch.models.registry import EmbeddingModule
+    from embeddingnet_tpu_torch.ops.mining import mined_triplet_loss
+    cpu = EmbeddingModule(name, encodings_len=64, classifier=False)
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(size).uniform(
+        0, 1, (8, size, size, 3)))
+    labels = torch.arange(2).repeat_interleave(4)
+    out = []
+    for device in ("cpu", card):
+        module = copy.deepcopy(cpu).double().train().to(device)
+        emb = module(x.to(device))
+        loss, _ = mined_triplet_loss(emb, labels.to(device), margin=0.5,
+                                     mode="batch_hard")
+        loss.backward()
+        out.append((emb.detach().cpu(), loss.detach().cpu(), {
+            n: p.grad.cpu() for n, p in module.named_parameters()}))
+    (e_cpu, l_cpu, g_cpu), (e_gpu, l_gpu, g_gpu) = out
+    assert _rel(e_gpu, e_cpu) < DEPTHWISE_CARD_TOL
+    assert _rel(l_gpu, l_cpu) < DEPTHWISE_CARD_TOL
+    _assert_grads_close(g_gpu, g_cpu)
+
+
+@pytest.mark.parametrize("name", sorted(VIT_SMALL))
+def test_vit_arcface_on_the_card_matches_the_cpu(card, name, monkeypatch):
+    """A small ViT of each family under an ArcFace module, f32 with TF32
+    off: on the card (the attention kernels' float32 instances, forward
+    and backward) against the CPU (the plain version) from the same
+    weights and images, the embeddings, the ArcFace loss and every
+    gradient to VIT_CARD_TOL of the tensor's largest entry; the key
+    biases, whose gradient is zero in exact arithmetic, to VIT_CARD_TOL of
+    the model's largest gradient entry."""
+    import copy
+    from embeddingnet_tpu_torch.models import vit
+    from embeddingnet_tpu_torch.models.registry import ArcFaceModule
+    from embeddingnet_tpu_torch.ops import attention
+    from embeddingnet_tpu_torch.ops.losses import arcface_loss
+    monkeypatch.setitem(vit._VARIANTS, name, VIT_SMALL[name])
+    cpu = ArcFaceModule(name, encodings_len=64, n_classes=37,
+                        input_shape=(64, 64, 3))
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.uniform(0, 1, (16, 64, 64, 3)).astype(
+        np.float32))
+    labels = torch.from_numpy(rng.integers(0, 37, 16))
+    attention.reset_launch_counts()
+    out = []
+    for module, device in ((cpu, "cpu"), (copy.deepcopy(cpu).to(card), card)):
+        emb, w = module(x.to(device))
+        loss = arcface_loss(emb, labels.to(device), w, margin=0.5,
+                            scale=64.0)
+        loss.backward()
+        out.append((emb.detach().cpu(), loss.detach().cpu(), {
+            n: p.grad.cpu() for n, p in module.named_parameters()}))
+    (e_cpu, l_cpu, g_cpu), (e_gpu, l_gpu, g_gpu) = out
+    assert _rel(e_gpu, e_cpu) < VIT_CARD_TOL
+    assert _rel(l_gpu, l_cpu) < VIT_CARD_TOL
+    top = max(g.abs().max().item() for g in g_cpu.values())
+    for n, g in g_cpu.items():
+        scale = top if n.endswith(".attn.key.bias") else \
+            g.abs().max().item()
+        assert (g_gpu[n] - g).abs().max().item() / scale < VIT_CARD_TOL, n
+    # the CPU's blocks take the plain version, the card's the kernels
+    depth = VIT_SMALL[name]["depth"]
+    assert attention.LAUNCHES == {"fwd": depth, "bwd": depth,
+                                  "plain": depth}
 
 
 def test_device_ms_raises_on_an_empty_read(card):
@@ -1337,7 +1458,7 @@ def test_batchnorm_under_remat_matches_without(card):
 ATT_TOL = 2e-2
 ATT_SHAPES = [(256, 197, 12, 64), (8, 50, 12, 64), (4, 257, 12, 64),
               (4, 1, 12, 64), (3, 197, 12, 64), (4, 197, 6, 64),
-              (4, 197, 4, 32)]
+              (4, 197, 4, 32), (4, 257, 16, 64), (2, 130, 2, 128)]
 
 
 def _att_inputs(seed, b, n, h, d, device, dtype=torch.bfloat16):
@@ -1391,11 +1512,12 @@ def test_attention_kernels_match_plain(att, card, b, n, h, d):
 # from the same inputs, relative to each result's largest entry (the
 # logsumexp absolute): bf16 rounds P and dS for its products (ATT_TOL); its
 # logsumexp and float32's are f32 sums of exact products in another order
-# (1e-4 over scores of a few units); float32's results 1e-5, as the card
-# checks of the ViT path; float64's sums in another order, 1e-10. One
-# token's dq and dk are zero in exact arithmetic (the reference's are
-# rounding), so they are held absolutely
-ATT_REFERENCE = {torch.bfloat16: (ATT_TOL, 1e-4), torch.float32: (1e-5, 1e-4),
+# (1e-4 over scores of a few units); fp16 as bf16; float32's results 1e-5,
+# as the card checks of the ViT path; float64's sums in another order,
+# 1e-10. One token's dq and dk are zero in exact arithmetic (the
+# reference's are rounding), so they are held absolutely
+ATT_REFERENCE = {torch.bfloat16: (ATT_TOL, 1e-4),
+                 torch.float16: (ATT_TOL, 1e-4), torch.float32: (1e-5, 1e-4),
                  torch.float64: (1e-10, 1e-10)}
 
 

@@ -283,16 +283,23 @@ def _sleep_cycles(card, ms):
 
 @pytest.mark.cuda
 def test_a_kernel_lands_inside_its_span_on_a_card_only_profile(card):
+    """The profiler loses kernel records now and then, so the read is one
+    that ``benchmark/trace.py``'s ``settled`` takes."""
     from torch.profiler import ProfilerActivity, profile
+    from benchmark.trace import READS, settled
     cycles = _sleep_cycles(card, 1.0)
-    trace.enable()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            torch.cuda.synchronize()
-            with trace.span("sleep"):
-                torch.cuda._sleep(cycles)
+    counts = []
+    while len(counts) < READS and not (counts and settled(counts)):
+        trace.reset()
+        trace.enable()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
                 torch.cuda.synchronize()
-    busy = trace.device_busy_ns(prof)
+                with trace.span("sleep"):
+                    torch.cuda._sleep(cycles)
+                    torch.cuda.synchronize()
+        busy = trace.device_busy_ns(prof)
+        counts.append(len(busy))
     placed = sorted(trace.place(trace.spans(), "sleep"))
     assert len(busy) == len(placed) == 3, (busy, placed)
     for (ks, ke), (ss, se) in zip(busy, placed):

@@ -19,8 +19,8 @@ times in ms.
 ``git archive`` of the parent commit unpacked into a directory that
 ``.gitignore`` lists): the two are run in separate processes in the order
 DIR, this, this, DIR, so that a drift of the card's clock during the call
-shows. Each process builds its checkout's kernels. It imports PyTorch and
-the port only, and needs a CUDA card.
+shows. Each process builds its checkout's kernels. It imports PyTorch, the
+port and ``benchmark/trace.py`` only, and needs a CUDA card.
 """
 
 import argparse
@@ -30,28 +30,12 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from benchmark.trace import READS, settled  # noqa: E402
+
 ITERS = 30
-# profiler reads of one function, at most, before device_ms gives up; a
-# read is taken when it and an earlier one saw within COUNT_RTOL of the
-# most kernels any read saw
-READS = 8
-COUNT_RTOL = 0.01
 SEED = 0
 SHAPES = [(1024, 4, 256), (1024, 2, 512), (32, 4, 256), (32, 2, 512)]
-
-
-def settled(counts):
-    """Whether the last of ``counts``, the kernel records of reads of the
-    same work, can be taken: torch.profiler now and then loses kernel
-    records, all of a read's or a part, at times several reads in a row
-    (``tools/profiler_probe_torch.py`` on the H100), and a loss only
-    lowers a count, while the work itself may launch a few kernels more or
-    fewer from read to read (a training step does). So the read and an
-    earlier one must both come within ``COUNT_RTOL`` of the most kernels
-    any read saw."""
-    top = max(counts)
-    whole = [c > 0 and c >= (1 - COUNT_RTOL) * top for c in counts]
-    return whole[-1] and any(whole[:-1])
 
 
 def device_ms(fn, iters=ITERS):
