@@ -24,8 +24,8 @@
    counts, runs the path with its own checks (losses, answers against
    direct calls, resumes bit for bit, exact launch counts where they are
    known), asserts that the kernels that launched are those the entry
-   names, and that no attention call took the plain version, and prints a
-   JSON line of the launches. Any one path runs on its own.
+   names, and that no attention or LayerNorm call took the plain version,
+   and prints a JSON line of the launches. Any one path runs on its own.
 
 The benchmark (``BENCHMARK.json``) measures the program's speed; nothing
 here times a step or a fit. The last line of standard output is ``{"ok":
@@ -67,6 +67,7 @@ from embeddingnet_tpu_torch.ops import attention as att
 from embeddingnet_tpu_torch.ops import augment as aug
 from embeddingnet_tpu_torch.ops import batchnorm as bnk
 from embeddingnet_tpu_torch.ops import fused_conv as fc
+from embeddingnet_tpu_torch.ops import layernorm as ln
 from embeddingnet_tpu_torch.ops import preprocess as pre
 from embeddingnet_tpu_torch.ops.knn import knn_classify
 from embeddingnet_tpu_torch.parallel.tp import shard_module
@@ -162,7 +163,8 @@ def _kernel_label(mangled):
     """``conv3x3_sm90_kernel<false, 256, true>`` or
     ``normalize_u8_sm90_kernel`` from the mangled name of a kernel instance
     (bool and int template arguments)."""
-    m = re.search(r"\d+((?:conv3x3|normalize_u8|bn|attention)_\w*?_kernel)"
+    m = re.search(r"\d+((?:conv3x3|normalize_u8|bn|attention|layernorm)"
+                  r"_\w*?_kernel)"
                   r"(?:I((?:L[bi]\d+E)+)E)?", mangled)
     if not m:
         return mangled
@@ -581,6 +583,51 @@ def _attention_bwd_cost(shape):
     return 5 * flops // 2, 2 * nbytes + b * h * n * 4
 
 
+def _layernorm_inputs(gen, shape):
+    """x and an output gradient [*shape] in bf16 (rows of mean about 1 and
+    unit spread), the weight about 1 and the bias about 0 in f32."""
+    d = shape[-1]
+    x, dy = _randn(gen, shape), _randn(gen, shape)
+    x = (x.float() + 1.0).bfloat16()
+    w = 1.0 + 0.1 * _randn(gen, (d,), dtype=torch.float32)
+    b = 0.1 * _randn(gen, (d,), dtype=torch.float32)
+    return x, dy, w, b
+
+
+def _layernorm_fwd(gen, shape):
+    x, _, w, b = _layernorm_inputs(gen, shape)
+    return (lambda: ln._forward(x, w, b, VIT_LN_EPS, True)[0],
+            lambda: ln.plain_forward(x, w, b, VIT_LN_EPS)[0],
+            ln.plain_forward(x.float(), w, b, VIT_LN_EPS)[0],
+            lambda: ln.plain_layer_norm(x, w, b, VIT_LN_EPS))
+
+
+def _layernorm_bwd(gen, shape):
+    x, dy, w, b = _layernorm_inputs(gen, shape)
+    stats = ln._forward(x, w, b, VIT_LN_EPS, True)[1]
+    _, mean32, rstd32 = ln.plain_forward(x.float(), w, b, VIT_LN_EPS)
+    # the eager sequence's backward alone: autograd of cast, F.layer_norm,
+    # cast
+    leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+    y = ln.plain_layer_norm(*leaves, VIT_LN_EPS)
+    return (lambda: ln._backward(x, dy, stats, w),
+            lambda: ln.plain_backward(x, dy, *stats, w),
+            ln.plain_backward(x.float(), dy.float(), mean32, rstd32, w),
+            lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True))
+
+
+def _layernorm_cost(backward):
+    """x read and y written once (and the kept mean and rstd), or x and dy
+    read and dx written once (the statistics read, the parameters'
+    gradients written); the parameters read; in bf16, f32 beside."""
+    def cost(shape):
+        d = shape[-1]
+        rows = int(np.prod(shape)) // d
+        return 0, (rows * d * 2 * (3 if backward else 2) + rows * 2 * 4
+                   + d * 4 * (3 if backward else 2))
+    return cost
+
+
 def _conv(make, replaces, steps=None, tol=RTOL):
     """The entry of the conv kernel that ``make`` (``_<its name>``) draws:
     its shapes (b, s, c) and calls in one step of the cell
@@ -601,6 +648,9 @@ RESNET_CELLS = (("resnet50-train-warm", "resnet50", 64, True),
 # the ViT cell's attention core (224 px: 197 tokens, 12 heads of 64) and its
 # calls a step: 12 blocks, each forward twice under remat
 ATT_CELL = (256, 197, 12, 64)
+# its LayerNorms' input and their calls a step: 2 a block, each forward
+# twice under remat, and ln_final
+LN_CELL, VIT_LN_EPS = (256, 197, 768), 1e-12
 
 
 def registry():
@@ -658,21 +708,36 @@ def registry():
                "none: autograd of the same",
                {"vit-b16-arcface-train": [(ATT_CELL, 12)]}, _attention_bwd,
                _attention_bwd_cost, 2e-2),
+        # bf16 outputs one rounding apart (dx), f32 parameter sums of 50,432
+        # rows in another order
+        Kernel("layernorm_fwd", f"{CSRC}/layernorm_sm90.cu",
+               "none: Flax's nn.LayerNorm, which XLA fuses; the port's eager "
+               "cast, F.layer_norm, cast (ops/layernorm.py plain_layer_norm)",
+               {"vit-b16-arcface-train": [(LN_CELL, 49)]}, _layernorm_fwd,
+               _layernorm_cost(False), 1e-2),
+        Kernel("layernorm_bwd", f"{CSRC}/layernorm_sm90.cu",
+               "none: autograd of the same",
+               {"vit-b16-arcface-train": [(LN_CELL, 25)]}, _layernorm_bwd,
+               _layernorm_cost(True), 1e-2),
     ]
 
 
 def _error(got, want):
-    """(largest absolute error, over the largest entry of ``want``; NaN
-    where an output is not finite), over each output of a tuple."""
-    err = top = 0.0
+    """(largest absolute error, each output's largest error over its own
+    largest entry in ``want``; NaN where an output is not finite): each
+    output of a tuple is held to its own scale, so that a small one
+    (LayerNorm's dx beside its parameter sums over 50,432 rows) cannot hide
+    behind a large one."""
+    err, rel = 0.0, []
     if torch.is_tensor(got):
         got, want = [got], [want]
     for g, w in zip(got, want):
         if not torch.isfinite(g).all():
-            return float("nan"), float("nan")
-        err = max(err, (g.float() - w.float()).abs().max().item())
-        top = max(top, w.float().abs().max().item())
-    return err, err / (top or 1.0)
+            return float("nan"), [float("nan")]
+        e = (g.float() - w.float()).abs().max().item()
+        err = max(err, e)
+        rel.append(e / (w.float().abs().max().item() or 1.0))
+    return err, rel
 
 
 def _time_shape(kernel, gen, shape):
@@ -682,7 +747,8 @@ def _time_shape(kernel, gen, shape):
     del want
     flops, nbytes = kernel.cost(shape)
     row = {"shape": list(shape), "max_abs_err": abs_err,
-           "err_over_largest": rel_err, "ms": cuda_ms(call),
+           "err_over_largest": max(rel_err), "each_output": rel_err,
+           "ms": cuda_ms(call),
            "device_ms": device_ms(call), "plain_ms": cuda_ms(plain, iters=20),
            "library_ms": cuda_ms(yardstick) if yardstick else None,
            "bound_ms": least_seconds(flops, nbytes) * 1e3,
@@ -744,7 +810,7 @@ def kernel_table(kernels):
 
 # every kernel module's launch counts, and vit's core calls
 COUNTERS = (fc.LAUNCHES, pre.LAUNCHES, bnk.LAUNCHES, att.LAUNCHES,
-            vit.LAUNCHES)
+            ln.LAUNCHES, vit.LAUNCHES)
 
 
 def _reset():
@@ -755,48 +821,55 @@ def _reset():
 
 def _launches():
     """Every kernel's launches since the last :func:`_reset`, by one name
-    each (the attention kernels' as ``attention_<fwd|bwd|plain>``)."""
+    each (the attention and LayerNorm kernels' as ``attention_<fwd|bwd|
+    plain>`` and ``layernorm_<...>``)."""
     return {**fc.LAUNCHES, **pre.LAUNCHES, **bnk.LAUNCHES,
-            **{f"attention_{k}": v for k, v in att.LAUNCHES.items()}}
+            **{f"attention_{k}": v for k, v in att.LAUNCHES.items()},
+            **{f"layernorm_{k}": v for k, v in ln.LAUNCHES.items()}}
 
 
 def run_path(name, path, kernels, tmp):
     """The launch rule: zero the counts, run ``path(tmp)`` (which returns
     the launch counts of its child processes, if it has any), then assert
     that the kernels that launched are ``kernels``, every one of them and
-    no other, and that no attention call took the plain version."""
+    no other, and that no attention or LayerNorm call took the plain
+    version."""
     _reset()
     counts = collections.Counter()
     for child in path(tmp) or ():
         counts.update(child)
     counts.update(_launches())
-    plain = counts.pop("attention_plain")
+    plain = counts.pop("attention_plain") + counts.pop("layernorm_plain")
     launched = {k: n for k, n in counts.items() if n}
     print(json.dumps({"path": name, "launched": launched, "plain": plain}),
           flush=True)
     if set(launched) != set(kernels) or plain:
         raise AssertionError(f"{name}: launched {sorted(launched)}, named "
-                             f"{sorted(kernels)}; {plain} attention calls "
-                             f"took the plain version")
+                             f"{sorted(kernels)}; {plain} attention or "
+                             f"LayerNorm calls took the plain version")
 
 
-def _check_attention(label, bwd=None):
-    """Raises unless every attention core call since the last
-    :func:`_reset` launched the forward kernel and the backward launched
-    ``bwd`` times (None: once a core call)."""
-    cores = vit.LAUNCHES["attention"]
-    want = {"fwd": cores, "bwd": cores if bwd is None else bwd, "plain": 0}
-    print(f"{label}: attention launches {dict(att.LAUNCHES)} for {cores} "
-          f"core calls, predicted {want}")
-    if dict(att.LAUNCHES) != want or not cores:
-        raise AssertionError(f"{label}: attention launches "
-                             f"{dict(att.LAUNCHES)}, predicted {want}")
+# the ViT's layers with a kernel each way: vit.LAUNCHES's name, the kernel
+# module's counts, the layer
+VIT_KERNELS = (("attention", att.LAUNCHES, vit.MultiHeadDotProductAttention),
+               ("layernorm", ln.LAUNCHES, vit.LayerNorm))
 
 
-def _attention_layers(module):
-    """The attention cores of ``module``: one call each a forward."""
-    return sum(isinstance(m, vit.MultiHeadDotProductAttention)
-               for m in module.modules())
+def _check_vit(label, module=None, steps=1):
+    """Raises unless every attention core and LayerNorm call since the last
+    :func:`_reset` launched its forward kernel, and each backward kernel
+    launched once a layer of ``module`` a step (once a call where
+    ``module`` is None)."""
+    for name, launches, layer in VIT_KERNELS:
+        calls = vit.LAUNCHES[name]
+        bwd = calls if module is None else steps * sum(
+            isinstance(m, layer) for m in module.modules())
+        want = {"fwd": calls, "bwd": bwd, "plain": 0}
+        print(f"{label}: {name} launches {dict(launches)} for {calls} "
+              f"calls, predicted {want}")
+        if dict(launches) != want or not calls:
+            raise AssertionError(f"{label}: {name} launches "
+                                 f"{dict(launches)}, predicted {want}")
 
 
 def _check(label, got, want, atol, rtol):
@@ -1479,8 +1552,9 @@ HANDOFF_LOG = "handed to the model's encoder.backbone"
 def vit_fit_path(tmp):
     """configs/vit_arcface_smoke.yml after a softmax pretraining phase,
     which must log its handoff: T2's launches exact (the pretraining's val
-    batches), no conv kernel, every attention core call on the kernels (a
-    backward launch each train step's forward); a second Trainer's resume
+    batches), no conv kernel, every attention core and LayerNorm call on
+    the kernels (a backward launch each layer a train step); a second
+    Trainer's resume
     and the CLI's resume and export."""
     root = os.path.join(tmp, "vit")
     images = _write_fit_dataset(os.path.join(root, "dataset"),
@@ -1505,8 +1579,7 @@ def vit_fit_path(tmp):
     trainer.pretrain_softmax()
     history = trainer.fit().history
     launches = _launches()["normalize_u8"]
-    _check_attention("vit fit",
-                     bwd=_attention_layers(trainer.module) * train_steps)
+    _check_vit("vit fit", trainer.module, train_steps)
     if not any(HANDOFF_LOG in line for line in logs):
         raise AssertionError("vit fit: the pretraining logged no handoff")
     _check_history("vit fit", history, finite=("loss",), evals=2)
@@ -2256,8 +2329,8 @@ def _vit_batches(shape, batch, seed, n=1):
 def arcface_step_path(config, tmp):
     """``config``'s ArcFace step at full width and depth on one card, at
     its batch and under its remat, CELL_STEPS steps: finite losses, every
-    attention core call on the kernels (the recompute's too), a backward
-    launch each block a step."""
+    attention core and LayerNorm call on the kernels (the recompute's
+    too), a backward launch each layer a step."""
     label = f"{os.path.basename(config)} step"
     module, state, step, shape, batch = _arcface_from_config(config,
                                                               remat=True)
@@ -2267,7 +2340,7 @@ def arcface_step_path(config, tmp):
     print(f"{label}: B={batch}, losses {losses}")
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"{label}: a loss is not finite")
-    _check_attention(label, bwd=_attention_layers(module) * CELL_STEPS)
+    _check_vit(label, module, CELL_STEPS)
 
 
 def b3_step_path(tmp):
@@ -2310,8 +2383,8 @@ def _grads(module, tp=None):
 def _tp_vit_step(label, tp=None, parallel=None):
     """configs/vit_arcface.yml's ArcFace step (its module from SEED, split
     over ``tp``) on one batch of TP_VIT_BATCH: the loss, the whole
-    gradients and the parameters after it; every attention call on the
-    kernels."""
+    gradients and the parameters after it; every attention and LayerNorm
+    call on the kernels."""
     from embeddingnet_tpu_torch.parallel.tp import gather_module_state
     module, state, step, shape, _ = _arcface_from_config(
         VIT_CONFIG, TP_VIT_BATCH, tp=tp, parallel=parallel)
@@ -2319,7 +2392,7 @@ def _tp_vit_step(label, tp=None, parallel=None):
     _reset()
     state, metrics = step(state, *batch)
     loss = metrics["loss"].item()
-    _check_attention(label, bwd=_attention_layers(module))
+    _check_vit(label, module)
     return {"loss": loss, "grads": _grads(module, tp),
             "after": {k: v.float().cpu()
                       for k, v in gather_module_state(module).items()}}
@@ -2451,7 +2524,7 @@ def _pipeline_child(grid, out):
             gap = float((grads[n][i].float() - ref).abs().max()
                         / ref.abs().max().clamp_min(1e-30))
             worst[n] = max(worst.get(n, 0.0), gap)
-    _check_attention(f"pipeline stage {stage}")
+    _check_vit(f"pipeline stage {stage}")
     return {"worst": worst, "stage": stage}
 
 
@@ -2519,7 +2592,7 @@ RESNET_CONV = ("conv3x3_small_bn_relu", "conv3x3_dgrad", "conv3x3_wgrad",
                "conv3x3_wgrad_bn_relu")
 BN_APPLIED = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx")
 BN_ALL = BN_APPLIED + ("bn_finalize",)
-ATTENTION = ("attention_fwd", "attention_bwd")
+VIT = ("attention_fwd", "attention_bwd", "layernorm_fwd", "layernorm_bwd")
 # (name, path, the kernels it launches: every one of them and no other)
 PATHS = [
     ("serving engine", serve_path,
@@ -2534,11 +2607,11 @@ PATHS = [
     ("siamese fit", siamese_path,
      RESNET_CONV + BN_ALL + ("conv3x3_small", "normalize_u8")),
     ("ViT-B/16 ArcFace step at 224 px",
-     functools.partial(arcface_step_path, VIT_CONFIG), ATTENTION),
+     functools.partial(arcface_step_path, VIT_CONFIG), VIT),
     ("CLIP ViT-L/14 ArcFace step",
-     functools.partial(arcface_step_path, CLIP_CONFIG), ATTENTION),
+     functools.partial(arcface_step_path, CLIP_CONFIG), VIT),
     ("EfficientNet-B3 step", b3_step_path, BN_APPLIED),
-    ("ViT and ArcFace fit", vit_fit_path, ATTENTION + ("normalize_u8",)),
+    ("ViT and ArcFace fit", vit_fit_path, VIT + ("normalize_u8",)),
     ("road-signs fit", road_signs_path, BN_APPLIED + ("normalize_u8",)),
     ("inference tools", inference_path,
      ("conv3x3_small_bn_relu", "bn_apply", "bn_finalize")),
@@ -2552,10 +2625,10 @@ PATHS = [
     ("zoo fit", zoo_fit_path, BN_APPLIED),
     ("zoo eval", zoo_eval_path, ("bn_apply",)),
     ("native decoder", decoder_path, ()),
-    ("tensor-parallel ViT", tp_vit_path, ATTENTION),
+    ("tensor-parallel ViT", tp_vit_path, VIT),
     ("tensor-parallel ResNet", tp_resnet_path,
      RESNET_CONV + BN_ALL),
-    ("GPipe", pipeline_path, ATTENTION),
+    ("GPipe", pipeline_path, VIT),
     ("quickstart", quickstart_path, BN_APPLIED),
 ]
 

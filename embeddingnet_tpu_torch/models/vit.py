@@ -26,13 +26,18 @@ instances without in float32 or float64), reading the heads in place from
 the projections' ``[B, N, heads * head_dim]`` and writing the merged
 result; on the CPU the eager matmuls and softmax. Parameters are f32;
 matmuls and activations run in the compute dtype; LayerNorm takes its
-statistics and applies its affine in f32 (torch's two-pass variance, where Flax takes E[x^2] -
-E[x]^2: about 1e-6 apart in f32) and rounds once to the compute dtype.
+statistics and applies its affine in f32 (the two-pass variance, where
+Flax takes E[x^2] - E[x]^2: about 1e-6 apart in f32) and rounds once to
+the compute dtype: :func:`~embeddingnet_tpu_torch.ops.layernorm.
+layer_norm`, on the card one hand-written kernel forward and one backward
+(``csrc/layernorm_sm90.cu``) that read the input in its own dtype, on the
+CPU ``F.layer_norm`` on an f32 copy.
 
 Spans (:mod:`~embeddingnet_tpu_torch.utils.trace`): ``attn`` covers the
 attention core (the q scaling, the scores, the softmax, the value product:
 on the card one kernel), the projections outside it;
-``ln`` one :class:`LayerNorm` forward; ``mlp`` one :class:`MlpBlock`
+``ln`` one :class:`LayerNorm` forward (on the card one launch, the forward
+kernel); ``mlp`` one :class:`MlpBlock`
 forward (``fc1``, the GELU, ``fc2``, their ``cast`` spans inside). Each
 span opens again in a remat recompute; the backward runs in autograd,
 outside them. :data:`LAUNCHES` counts the attention cores and LayerNorms
@@ -60,11 +65,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from embeddingnet_tpu_torch.models import remat
-from embeddingnet_tpu_torch.models.heads import (Dense, at_least_f32,
-                                                 lecun_normal_)
+from embeddingnet_tpu_torch.models.heads import Dense, lecun_normal_
 from embeddingnet_tpu_torch.models.resnet import Conv2d
 from embeddingnet_tpu_torch.ops.attention import attention
 from embeddingnet_tpu_torch.ops.fused_conv import cast
+from embeddingnet_tpu_torch.ops.layernorm import layer_norm
 from embeddingnet_tpu_torch.parallel.collectives import (copy_to_model,
                                                          reduce_from_model)
 from embeddingnet_tpu_torch.utils import trace
@@ -82,15 +87,14 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 class LayerNorm(nn.LayerNorm):
     """Flax ``nn.LayerNorm``: the statistics and the f32 affine on the
-    input in f32 (CUDA has no bf16-input, f32-weight layer norm; a float64
-    module keeps float64), the result rounded once to the input's
-    dtype."""
+    input in f32 (a float64 module keeps float64), the result rounded once
+    to the input's dtype (:func:`~embeddingnet_tpu_torch.ops.layernorm.
+    layer_norm`)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         LAUNCHES["layernorm"] += 1
         with trace.span("ln"):
-            return F.layer_norm(at_least_f32(x), self.normalized_shape,
-                                self.weight, self.bias, self.eps).to(x.dtype)
+            return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 def row_parallel(dense: Dense, x: torch.Tensor, tp) -> torch.Tensor:

@@ -49,6 +49,10 @@ _L, _D = ctypes.c_longlong, ctypes.c_double
 # which are which. attention_sm90.cu (ops/attention.py): the tensors'
 # pointers, batch, tokens, heads, head dimension and the dtype code, the
 # (row, batch) strides of each input, the scale, the stream.
+# layernorm_sm90.cu (ops/layernorm.py): the tensors' pointers, the rows,
+# row strides and rows a block, then D, the dtype code and the plan's ints,
+# eps (forward), the stream; embn_layernorm_blocks_per_sm: the instance's
+# ints and a pointer to the int it fills.
 ENTRY_POINTS = {
     "conv3x3_sm90": {"embn_conv3x3_sm90": [_P] * 5 + [_I] * 7 + [_P],
                      "embn_conv3x3_wgrad_sm90": [_P] * 6 + [_I] * 6 + [_P]},
@@ -64,6 +68,10 @@ ENTRY_POINTS = {
     "attention_sm90": {
         "embn_attention_fwd": [_P] * 5 + [_I] * 5 + [_L] * 6 + [_D, _P],
         "embn_attention_bwd": [_P] * 9 + [_I] * 5 + [_L] * 10 + [_D, _P]},
+    "layernorm_sm90": {
+        "embn_layernorm_fwd": [_P] * 6 + [_L] * 3 + [_I] * 6 + [_D, _P],
+        "embn_layernorm_bwd": [_P] * 8 + [_L] * 4 + [_I] * 6 + [_P],
+        "embn_layernorm_blocks_per_sm": [_I] * 6 + [_P]},
 }
 SOURCES = [CSRC / f"{name}.cu" for name in ENTRY_POINTS]
 

@@ -5,8 +5,9 @@ TMA/wgmma design, K3 and K4 with the BN-ReLU prologue on the landed input
 tile, T1 with the epilogue on the accumulators — and the u8 normalisation
 T2 of csrc/normalize_u8_sm90.cu, at its edges too: a tail, misaligned
 views, no elements, and BatchNorm's statistics, affine and backward of
-csrc/batchnorm_sm90.cu, and the attention core's forward and backward of
-csrc/attention_sm90.cu, whose tolerances are stated beside their tests)
+csrc/batchnorm_sm90.cu, the attention core's forward and backward of
+csrc/attention_sm90.cu, and LayerNorm's of csrc/layernorm_sm90.cu, whose
+tolerances are stated beside their tests)
 against their plain PyTorch versions, the modules that
 launch them, forward and backward, the augmentation presets (op by op and
 chained), the miner, the ViT forward, the ArcFace loss and a small ViT's
@@ -1631,3 +1632,200 @@ def test_attention_under_remat_matches_without(att, card):
         assert torch.equal(g, g1[name]), name
     assert n0 == {"fwd": 2, "bwd": 2, "plain": 0}
     assert n1 == {"fwd": 4, "bwd": 2, "plain": 0}
+
+
+# the LayerNorm kernels (csrc/layernorm_sm90.cu) against their arithmetic in
+# float64 (plain_forward, plain_backward) from the same inputs.
+# Per result, relative to each row's (or each vector's) largest reference
+# entry: bf16 and fp16 outputs (y, dx) within one ulp of the reference
+# rounded once to their dtype (the kernels round once, from f32), plus
+# LN_F32 of the row's largest entry for values near zero, where an ulp is
+# smaller than f32's rounding of the mean and of terms as large as the
+# row's largest; their f32 statistics and parameter sums (rsqrtf's 2 ulps,
+# f32 sums of a row and of the rows in another order) to LN_F32; float32's
+# results to LN_F32 too, as the card checks of the ViT path; float64's sums
+# in another order to 1e-12
+LN_F32 = 1e-5
+LN_BITS = {torch.bfloat16: 8, torch.float16: 11}
+LN_TOL = {torch.bfloat16: LN_F32, torch.float16: LN_F32,
+          torch.float32: LN_F32, torch.float64: 1e-12}
+LN_DIMS = [768, 1024, 100]        # the ViTs' D, one not a multiple of 8
+LN_ROWS = 2 * 197 + 3
+
+
+@pytest.fixture
+def ln(card):
+    from embeddingnet_tpu_torch.ops import layernorm
+    layernorm.reset_launch_counts()
+    yield layernorm
+    layernorm.reset_launch_counts()
+
+
+def _ln_inputs(seed, rows, d, device, dtype):
+    """x (rows of mean about 1; row 0 constant, row 1 of variance about
+    1e-6, where eps counts), an output gradient (row 0's small, so that its
+    dx, rstd times it, stays inside fp16's range), and the weight and bias
+    in the sums' precision."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(1.0, 1.0, (rows, d))
+    x[0] = 0.75
+    x[1] = 1e-3 * rng.normal(size=d)
+    dy = rng.normal(size=(rows, d))
+    dy[0] *= 1e-5
+    acc = torch.promote_types(dtype, torch.float32)
+    to = lambda a, t: torch.from_numpy(a).to(device, t)  # noqa: E731
+    return (to(x, dtype), to(dy, dtype), to(rng.normal(1.0, 0.1, d), acc),
+            to(rng.normal(0.0, 0.1, d), acc))
+
+
+def _ln_reference(x, dy, w, b, eps):
+    """y, mean, rstd, dx, dweight, dbias in float64 on the CPU."""
+    x64, dy64, w64, b64 = (t.double().cpu() for t in (x, dy, w, b))
+    from embeddingnet_tpu_torch.ops import layernorm
+    y, mean, rstd = layernorm.plain_forward(x64, w64, b64, eps)
+    return (y, mean, rstd,
+            *layernorm.plain_backward(x64, dy64, mean, rstd, w64))
+
+
+def _ln_close(name, got, want, dtype):
+    """Raises past the tolerance of ``dtype`` stated above."""
+    got = got.double().cpu()
+    scale = want.abs().amax(-1, keepdim=True).clamp_min(1e-300)
+    err = (got - want).abs()
+    if name in ("y", "dx") and dtype in LN_BITS:
+        ref = want.to(dtype).double()
+        ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(
+            torch.maximum(ref.abs(), got.abs()))[1] - LN_BITS[dtype])
+        err = (got - ref).abs()
+        worst = (err / (ulp + LN_F32 * scale)).max().item()
+    else:
+        worst = (err / (LN_TOL[dtype] * scale)).max().item()
+    assert torch.isfinite(got).all(), name
+    assert worst <= 1.0, (name, worst)
+
+
+@pytest.mark.parametrize("eps", [1e-12, 1e-5])
+@pytest.mark.parametrize("d", LN_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32, torch.float64], ids=str)
+def test_layernorm_kernels_match_the_reference(ln, card, dtype, d, eps):
+    x, dy, w, b = _ln_inputs(d, LN_ROWS, d, card, dtype)
+    y, stats = ln._forward(x, w, b, eps, True)
+    grads = ln._backward(x, dy, stats, w)
+    mean, rstd = stats
+    assert y.dtype == grads[0].dtype == dtype
+    assert mean.dtype == grads[1].dtype == w.dtype
+    for name, got, want in zip(("y", "mean", "rstd", "dx", "dweight",
+                                "dbias"), (y, mean, rstd, *grads),
+                               _ln_reference(x, dy, w, b, eps)):
+        _ln_close(name, got, want, dtype)
+    assert ln.LAUNCHES == {"fwd": 1, "bwd": 1, "plain": 0}
+
+
+@pytest.mark.parametrize("pad", [8, 3])
+def test_layernorm_takes_rows_at_a_stride(ln, card, pad):
+    """x a [B, N, 768] view of [B, N, 768 + pad], through autograd: 16-byte
+    aligned rows (pad 8) give the contiguous copy's bits, the others (pad
+    3, the scalar instance) the reference's tolerance."""
+    x, dy, w, b = _ln_inputs(5, LN_ROWS, 768 + pad, card, torch.bfloat16)
+    wide = x.reshape(1, LN_ROWS, 768 + pad).clone().requires_grad_()
+    w, b = w[:768].clone().requires_grad_(), b[:768].clone().requires_grad_()
+    dy = dy[:, :768].reshape(1, LN_ROWS, 768)
+    out = {}
+    for name, leaf in (("view", wide), ("copy", wide.detach()[..., :768]
+                                        .contiguous().requires_grad_())):
+        xs = leaf[..., :768] if name == "view" else leaf
+        y = ln.layer_norm(xs, w, b, 1e-12)
+        out[name] = [y, *torch.autograd.grad(y, (leaf, w, b), dy)]
+        if name == "view":
+            assert torch.equal(out[name][1][..., 768:],
+                               torch.zeros_like(wide[..., 768:]))
+            out[name][1] = out[name][1][..., :768]
+    assert ln.LAUNCHES == {"fwd": 2, "bwd": 2, "plain": 0}
+    if pad == 8:
+        for a, c in zip(out["view"], out["copy"]):
+            assert torch.equal(a, c)
+        return
+    ref = _ln_reference(x[:, :768], dy[0], w.detach(), b.detach(), 1e-12)
+    for name, got, want in zip(("y", "dx", "dweight", "dbias"), out["view"],
+                               (ref[0], *ref[3:])):
+        _ln_close(name, got.reshape(want.shape), want, torch.bfloat16)
+
+
+def test_layernorm_is_bitwise_repeatable(ln, card):
+    """Two backward calls give the same bits (no atomics; the partial
+    sums added in a fixed order), and the forward gives the same bits
+    whether it keeps the statistics or not, as a remat recompute runs
+    it."""
+    x, dy, w, b = _ln_inputs(7, 64 * 197, 768, card, torch.bfloat16)
+    y, stats = ln._forward(x, w, b, 1e-12, True)
+    again, none = ln._forward(x, w, b, 1e-12, False)
+    assert none is None and torch.equal(y, again)
+    first = ln._backward(x, dy, stats, w)
+    second = ln._backward(x, dy, stats, w)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+def test_layernorm_under_remat_matches_without(ln, card):
+    """A bf16 ViT's forward and backward with its blocks rematerialised
+    (the recompute runs the forward kernel again) against the same without:
+    the loss and every gradient equal bit for bit; a forward launch each
+    LayerNorm call, a backward launch each LayerNorm."""
+    import copy
+    from embeddingnet_tpu_torch.models import remat
+    from embeddingnet_tpu_torch.models.vit import ViT
+    base = ViT((64, 64), dim=128, depth=2, heads=2, dtype=torch.bfloat16)
+    base.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(13).uniform(
+        size=(8, 3, 64, 64)).astype(np.float32)).to(card)
+    out = {}
+    for on in (False, True):
+        module = copy.deepcopy(base).to(card).train()
+        ln.reset_launch_counts()
+        with remat.rematerialize(on):
+            loss = module(x).float().square().sum()
+            loss.backward()
+        torch.cuda.synchronize()
+        out[on] = (loss.detach(), {n: p.grad for n, p in
+                                   module.named_parameters()},
+                   dict(ln.LAUNCHES))
+    (l0, g0, n0), (l1, g1, n1) = out[False], out[True]
+    assert torch.equal(l0, l1)
+    for name, g in g0.items():
+        assert torch.equal(g, g1[name]), name
+    assert n0 == {"fwd": 5, "bwd": 5, "plain": 0}
+    assert n1 == {"fwd": 9, "bwd": 5, "plain": 0}
+
+
+@pytest.mark.parametrize("name,d,fwd,bwd", [("vit-b16", 768, 49, 25),
+                                            ("vit-l14", 1024, 98, 50)])
+def test_layernorm_launches_in_a_vit_arcface_step(ln, card, name, d, fwd,
+                                                  bwd):
+    """One ArcFace step at full width and depth, 224 px, bf16, under remat
+    (B=8: the launches do not follow the batch): ViT-B/16 launches the
+    forward kernel 49 times (12 blocks x 2 LayerNorms x 2 under remat, and
+    ln_final) and the backward 25; CLIP ViT-L/14 at D 1024 98 and 50
+    (ln_pre too); no call takes the plain version."""
+    from embeddingnet_tpu_torch.models.registry import ArcFaceModule
+    from embeddingnet_tpu_torch.train import optim
+    from embeddingnet_tpu_torch.train.state import TrainState
+    from embeddingnet_tpu_torch.train.steps import make_arcface_train_step
+    module = ArcFaceModule(name, encodings_len=512, n_classes=64,
+                           dtype=torch.bfloat16,
+                           input_shape=(224, 224, 3)).to(card)
+    module.reset_parameters(torch.Generator(card).manual_seed(0))
+    assert module.encoder.backbone.ln_final.normalized_shape == (d,)
+    spec = optim.get_optimizer("adam", 1e-4)
+    state = TrainState.create(module, spec,
+                              generator=torch.Generator(card).manual_seed(1))
+    step = make_arcface_train_step(module, spec, n_classes=64, remat=True,
+                                   compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(14)
+    images = torch.from_numpy(rng.integers(0, 256, (8, 224, 224, 3),
+                                           dtype=np.uint8)).to(card)
+    labels = torch.from_numpy(rng.integers(0, 64, 8)).to(card)
+    ln.reset_launch_counts()
+    _, metrics = step(state, images, labels)
+    assert np.isfinite(float(metrics["loss"]))
+    assert ln.LAUNCHES == {"fwd": fwd, "bwd": bwd, "plain": 0}
